@@ -1,32 +1,54 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Offline enhancement at CMGAN's full published width (64 channels, 4
-TSCBs, 4 heads of dim 16, 201 bins) with seeded random weights, through
-the hand-written CUDA flash-attention kernel. Phases, each printing a
-line, none catching its own failure:
+CMGAN at its full published width (64 channels, 4 TSCBs, 4 heads of dim
+16, 201 bins, discriminator ndf 16) with seeded random weights, through
+the hand-written CUDA kernels: offline enhancement and GAN training.
+Phases, each printing lines, none catching its own
+failure, none falling back to the CPU or to a plain version:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     and the kernel build;
-  2. the kernel against its plain PyTorch version on the card, fp32 and
-     bf16, at the 4 s bucket (T = 641) and the 16 s segment (T = 2561),
-     with a t_valid < T case and a q_offset = 128 case;
+     and the build of every kernel source (started together) and of the
+     host PESQ scorer;
+  2. the attention forward kernel against its plain PyTorch version on the
+     card, fp32 and bf16, at the 4 s bucket (T = 641) and the 16 s segment
+     (T = 2561), with a t_valid < T case and a q_offset = 128 case;
   3. a 16 s track through Enhancer.enhance(mode='bucket') in fp32: exactly
      4 kernel launches, finite output of the input's length, agreement
      with attention_impl='xla', and the realtime factor;
   4. the same track in bf16 against fp32, and its realtime factor;
   5. enhance_batch on 16 two-second tracks (dense attention, no launches);
-  6. the enhance CLI on a written 5 s wav.
+  6. the enhance CLI on a written 5 s wav;
+  7. the attention backward kernel against autograd through the plain
+     version: fp32 and bf16 at the training shape (G = 1616, T = 641),
+     fp32 at T = 2561, a t_valid < T and a q_offset case;
+  8. the fused LayerNorm kernel against its plain version and against
+     F.layer_norm at [1616*321, 64] and [5136*101, 64], fp32 and bf16,
+     forward and gradient;
+  9. one G step at cut_len 64000, batch 4, fp32: attention_impl='auto'
+     (4 forward and 4 backward launches) against 'xla' (none), loss and
+     every parameter's gradient; and both against the dense path in float64
+     on one utterance;
+ 10. the train CLI on a written VCTK-DEMAND-shaped directory at cut_len
+     64000: an epoch, its test pass and checkpoint, then --resume for one
+     more; launch counts, moved parameters, the continued step counter,
+     PESQ-invalid batches; d_step driven once with valid labels and once
+     with a failed one;
+ 11. the train CLI at the default cut_len 32000 (no launches), host and
+     host_async, fp32 and --bf16;
+ 12. utterances per second of Trainer.train_step for each of those, the
+     host PESQ scorer's share of a step, and a profile of one G step.
 
-Then a JSON line with each kernel's numbers, the card's line, and, last,
+Then the card's line, a JSON line with each kernel's numbers, and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, or without
 the `cmgan_torch` package beside this file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -47,6 +69,24 @@ KERNEL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 8e-3)}  # (atol, rtol)
 FLASH_VS_XLA_REL = 1e-4   # fp32: attention sums in another order (~1e-6), 100x margin
 BF16_VS_FP32_REL = 5e-2   # bf16 keeps 8 significant bits; 1.6e-2 measured on a CPU run
 PLAIN_GROUP_CHUNK = 32    # groups per plain-version call, so its [g, T, T] logits fit
+# backward kernel against autograd through the plain version, as a share of
+# the reference's largest entry: fp32 sums in another order (2e-6 seen), the
+# table's gradient through fp32 atomics in an order that varies (4e-6 seen);
+# bf16 rounds each output once (2^-8 of its binade) and takes delta from the
+# bf16-rounded forward output (5e-3 seen)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (6.25e-2, 1.6e-2)}  # (atol, rtol); bf16: one ulp
+# G step, flash against dense, fp32, relative L2: the loss and all gradients
+# as one vector within GSTEP_REL, each parameter's gradient within
+# GSTEP_PARAM_REL. The forward paths agree to ~1e-6, but float32 carries this
+# net's gradient only to ~1e-3 (dense fp32 against dense fp64, measured in
+# phase 9), and which cuDNN algorithms run shifts single parameters by as much.
+GSTEP_REL = 1e-3
+GSTEP_PARAM_REL = 5e-3
+# against float64 the kernels' path may be twice as far as dense fp32, plus this
+GSTEP_TRUTH_SLACK = 1e-4
+TRAIN_BATCH = 4
+FLASH_CUT, DEFAULT_CUT = 64000, 32000   # 641 and 321 frames
 
 
 def log(msg: str):
@@ -156,7 +196,7 @@ def realtime_factor(fn, audio_seconds: float, reps: int = 3) -> float:
     return audio_seconds * reps / (time.perf_counter() - t0)
 
 
-def device_breakdown(fn, wall_ms: float, top: int = 8):
+def device_breakdown(fn, wall_ms: float, top: int = 8, tag: str = "[3]"):
     """Profile one call: the device kernels' summed time against the
     call's unprofiled wall time, and the kernels that take the most."""
     import torch
@@ -168,17 +208,481 @@ def device_breakdown(fn, wall_ms: float, top: int = 8):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[3] profile: device kernels {busy_ms:.2f} ms in a {wall_ms:.2f} ms call "
+    log(f"{tag} profile: device kernels {busy_ms:.2f} ms in a {wall_ms:.2f} ms call "
         f"({100 * busy_ms / wall_ms:.1f}% busy)")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         ms = e.self_device_time_total / 1e3
-        log(f"[3]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count} {e.key[:90]}")
+        log(f"{tag}   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count} {e.key[:90]}")
 
 
 def rel_l2(a, b) -> float:
     import numpy as np
 
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def bound_ms(flops: float, nbytes: float, dtype_name: str):
+    """The least time the card could take: (ms, 'operations' or 'bytes')."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PLAIN_GROUP_CHUNK):
+    """The backward kernel against autograd through the plain version."""
+    import torch
+
+    from cmgan_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, max_pos = fa.HEAD_DIM, 512
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    q = randn(g, tq, d, scale=0.25)
+    k, v = randn(g, tk, d), randn(g, tk, d)
+    table = randn(2 * max_pos + 1, d)
+    cot = randn(g, tq, d)
+
+    # through the public wrapper: the autograd.Function's forward and backward
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, table)]
+    fwd0, bwd0 = fa.launches, fa.backward_launches
+    out = fa.flash_rel_attention_at(*leaves, max_pos, t_valid, q_offset)
+    grads = torch.autograd.grad(out, leaves, cot)
+    torch.cuda.synchronize()
+    if (fa.launches - fwd0, fa.backward_launches - bwd0) != (1, 1):
+        raise AssertionError("the wrapper did not launch one forward and one backward")
+
+    def plain():
+        ref = [torch.zeros_like(t, dtype=torch.float32) for t in (q, k, v, table)]
+        for s in range(0, g, chunk):
+            sl = slice(s, s + chunk)
+            dq, dk, dv, dt = fa.reference_attention_grads(
+                q[sl], k[sl], v[sl], table, max_pos, t_valid, q_offset, cot[sl])
+            ref[0][sl], ref[1][sl], ref[2][sl] = dq.float(), dk.float(), dv.float()
+            ref[3] += dt.float()
+        return ref
+
+    ref = plain()
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype_name]
+    errs, ok = {}, True
+    for name, a, b in zip(("dq", "dk", "dv", "dE"), grads, ref):
+        err, top = (a.float() - b).abs().max().item(), b.abs().max().item()
+        errs[name] = {"max_abs_err": err, "ref_max": top}
+        ok = ok and bool(torch.isfinite(a.float()).all()) and err <= tol * top and a.dtype == dtype
+
+    _, lse = fa._launch_forward(q, k, v, table, max_pos, t_valid, q_offset, True)
+    ms = cuda_ms(lambda: fa._launch_backward(q, k, v, table, out.detach(), lse, cot, max_pos,
+                                             t_valid, q_offset), reps=5)
+    plain_ms = cuda_ms(plain, reps=1)
+    es = torch.finfo(dtype).bits // 8
+    # two logit terms, dp, dv, dk, two dq terms, dE
+    flops = 8 * 2 * g * tq * t_valid * d
+    # q, g, out, dq and k, v, dk, dv once each, the table and its gradient, lse
+    nbytes = es * d * (4 * g * tq + 4 * g * tk + table.shape[0]) + 4 * (table.numel() + g * tq)
+    b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
+    case = {
+        "dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "t_valid": t_valid,
+        "q_offset": q_offset, "errors": errs, "tol_of_ref_max": tol,
+        "max_abs_err": max(e["max_abs_err"] for n, e in errs.items() if n != "dE"),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "flop": flops, "bytes": nbytes,
+    }
+    log(f"[7] backward kernel {json.dumps(case)}")
+    if not ok:
+        raise AssertionError(f"backward kernel disagrees with the plain version: {case}")
+    return case
+
+
+def check_layernorm_case(dtype_name, n, seed, c=64, eps=1e-5):
+    """The LayerNorm kernel against its plain version and F.layer_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from cmgan_torch.ops import fused_norm as fn
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(n, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(c, generator=gen, device="cuda") * 0.5
+    cot = torch.randn(n, c, generator=gen, device="cuda").to(dtype)
+
+    def grads(f):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        y = f(*leaves)
+        return [y.detach()] + list(torch.autograd.grad(y, leaves, cot))
+
+    count = fn.launches
+    got = grads(lambda a, s, b: fn.fused_layernorm(a, s, b, eps))
+    if fn.launches - count != 1:
+        raise AssertionError("fused_layernorm did not launch its kernel")
+    ref = grads(lambda a, s, b: fn._ln_reference(a, s, b, eps))
+    lib = grads(lambda a, s, b: F.layer_norm(a.float(), (c,), s, b, eps).to(dtype))
+    torch.cuda.synchronize()
+    atol, rtol = LN_TOL[dtype_name]
+    err = (got[0].float() - ref[0].float()).abs().max().item()
+    err_lib = (got[0].float() - lib[0].float()).abs().max().item()
+    ok = bool(torch.isfinite(got[0].float()).all())
+    ok = ok and torch.allclose(got[0].float(), ref[0].float(), atol=atol, rtol=rtol)
+    ok = ok and torch.allclose(got[0].float(), lib[0].float(), atol=atol, rtol=rtol)
+    grad_err = {}
+    for name, a, b, l in zip(("dx", "dscale", "dbias"), got[1:], ref[1:], lib[1:]):
+        top = b.float().abs().max().item()
+        grad_err[name] = (a.float() - b.float()).abs().max().item() / top
+        # the sums over n rows run in another order; bf16 rounds dx once
+        lim = 1e-4 if dtype_name == "float32" or name != "dx" else 1.6e-2
+        ok = ok and grad_err[name] <= lim
+        ok = ok and (a.float() - l.float()).abs().max().item() / top <= max(lim, 2e-3)
+
+    ms = cuda_ms(lambda: fn.fused_layernorm(x, scale, bias, eps), reps=20)
+    plain_ms = cuda_ms(lambda: fn._ln_reference(x, scale, bias, eps), reps=5)
+    # the one PyTorch call for the same function, fp32 statistics inside
+    sc, bi = scale.to(dtype), bias.to(dtype)
+    library_ms = cuda_ms(lambda: F.layer_norm(x, (c,), sc, bi, eps), reps=20)
+    es = torch.finfo(dtype).bits // 8
+    b_ms, b_by = bound_ms(8 * n * c, 2 * n * c * es + 8 * c, dtype_name)
+    case = {"dtype": dtype_name, "N": n, "C": c, "max_abs_err": err, "max_abs_err_vs_library": err_lib,
+            "grad_err_of_ref_max": grad_err, "tol": [atol, rtol], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"[8] layernorm kernel {json.dumps(case)}")
+    if not ok:
+        raise AssertionError(f"layernorm kernel disagrees: {case}")
+    return case
+
+
+def train_config(cut_len: int, attention_impl: str = "auto", mode: str = "host"):
+    import dataclasses
+
+    from cmgan_torch.config import CMGANConfig, ModelConfig, TrainConfig
+
+    return CMGANConfig(
+        model=ModelConfig(attention_impl=attention_impl),
+        train=dataclasses.replace(TrainConfig(), batch_size=TRAIN_BATCH, cut_len=cut_len,
+                                  pesq_label_mode=mode),
+    )
+
+
+def train_batch(cut_len: int, seed: int):
+    import numpy as np
+
+    clean = np.stack([synthetic_track(cut_len, seed + i) for i in range(TRAIN_BATCH)])
+    rng = np.random.default_rng(seed)
+    return clean, clean + (0.05 * rng.standard_normal(clean.shape)).astype(np.float32)
+
+
+@contextlib.contextmanager
+def float_means_double():
+    """Within the block, Tensor.float() returns float64: the models' norms
+    and losses widen to "float" by that call, so a model moved to float64
+    with .double() then computes in float64 throughout."""
+    import torch
+
+    widen = torch.Tensor.float
+    torch.Tensor.float = lambda t, *args, **kwargs: t.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = widen
+
+
+def g_step_gradients(impl, clean, noisy, weights, double=False, dropout=True):
+    """The G step's loss and generator gradients at cut_len 64000 from the
+    given weights; returns (loss, gradients as float64, parameter names,
+    forward launches, backward launches, peak GiB)."""
+    import torch
+
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.train import init_train_state
+    from cmgan_torch.train import steps as tsteps
+    from cmgan_torch.train.state import rng_scope
+
+    cfg = train_config(FLASH_CUT, impl)
+    state = init_train_state(cfg, seed=0, steps_per_epoch=1, device="cuda")
+    state.gen.load_state_dict(weights[0])
+    state.disc.load_state_dict(weights[1])
+    state.gen.train(), state.disc.train()
+    if not dropout:
+        for module in (*state.gen.modules(), *state.disc.modules()):
+            if isinstance(module, torch.nn.Dropout):
+                module.p = 0.0
+    if double:
+        state.gen.double(), state.disc.double()
+        clean, noisy = clean.double(), noisy.double()
+    fa.launches = fa.backward_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    # the same dropout masks for every float32 run
+    with rng_scope(state), (float_means_double() if double else contextlib.nullcontext()):
+        out = tsteps._generator_forward(state.gen, clean, noisy, cfg)
+        loss, _, _ = tsteps._generator_loss(state.disc, out, clean, cfg.train.loss_weights)
+        grads = torch.autograd.grad(loss, list(state.gen.parameters()))
+    torch.cuda.synchronize()
+    result = (loss.item(), [g.double() for g in grads],
+              [n for n, _ in state.gen.named_parameters()], fa.launches, fa.backward_launches,
+              torch.cuda.max_memory_allocated() / 2**30)
+    del state, out, loss, grads
+    torch.cuda.empty_cache()
+    return result
+
+
+def whole_rel_l2(a, b) -> float:
+    """Relative L2 of all gradients a against b, taken as one vector."""
+    import torch
+
+    return (torch.cat([(x - y).reshape(-1) for x, y in zip(a, b)]).norm()
+            / torch.cat([y.reshape(-1) for y in b]).norm()).item()
+
+
+def g_step_flash_vs_dense():
+    """[9] the G step's loss and gradients, 'auto' (the kernels) against 'xla'."""
+    import torch
+
+    from cmgan_torch.train import init_train_state
+
+    clean, noisy = (torch.from_numpy(a).cuda() for a in train_batch(FLASH_CUT, seed=40))
+    fresh = init_train_state(train_config(FLASH_CUT), seed=0, steps_per_epoch=1, device="cuda")
+    weights = ({k: v.clone() for k, v in fresh.gen.state_dict().items()},
+               {k: v.clone() for k, v in fresh.disc.state_dict().items()})
+    del fresh
+
+    loss_f, g_f, names, fwd_f, bwd_f, mem_f = g_step_gradients("auto", clean, noisy, weights)
+    loss_d, g_d, _, fwd_d, bwd_d, mem_d = g_step_gradients("xla", clean, noisy, weights)
+    log(f"[9] G step cut_len {FLASH_CUT} batch {TRAIN_BATCH} fp32: loss flash {loss_f:.6f} "
+        f"dense {loss_d:.6f}; launches flash {fwd_f} fwd / {bwd_f} bwd, dense {fwd_d} / {bwd_d}; "
+        f"peak memory flash {mem_f:.2f} GiB, dense {mem_d:.2f} GiB")
+    if (fwd_f, bwd_f, fwd_d, bwd_d) != (4, 4, 0, 0):
+        raise AssertionError("expected 4 forward and 4 backward launches with 'auto', 0 with 'xla'")
+    top = max(g.norm().item() for g in g_d)
+    # a bias in front of an InstanceNorm has gradient 0 by construction: both
+    # sides then hold rounding noise of a sum over B*T*F terms. A gradient
+    # below 1e-2 of the largest one is measured against that, not against itself.
+    rels = sorted(
+        (((a - b).norm() / max(b.norm().item(), 1e-2 * top)).item(), b.norm().item(), name)
+        for name, a, b in zip(names, g_f, g_d))
+    for rel, norm, name in rels[-3:]:
+        log(f"[9]   rel L2 {rel:.3e} (gradient norm {norm:.3e}, largest {top:.3e}) {name}")
+    worst, _, worst_name = rels[-1]
+    whole = whole_rel_l2(g_f, g_d)
+    loss_rel = abs(loss_f - loss_d) / abs(loss_d)
+    log(f"[9] flash vs dense: loss rel {loss_rel:.3e}, all gradients rel L2 {whole:.3e} "
+        f"(tol {GSTEP_REL}), worst parameter {worst:.3e} ({worst_name}) of {len(names)} "
+        f"(tol {GSTEP_PARAM_REL})")
+    if not (loss_rel <= GSTEP_REL and whole <= GSTEP_REL and worst <= GSTEP_PARAM_REL):
+        raise AssertionError("the G step through the kernels disagrees with the dense one")
+
+    # what float32 itself is worth here: one utterance, dropout off (its masks
+    # depend on the type), both float32 paths against the dense path in float64
+    one = (clean[:1], noisy[:1])
+    _, truth, _, _, _, _ = g_step_gradients("xla", *one, weights, double=True, dropout=False)
+    _, d32, _, _, _, _ = g_step_gradients("xla", *one, weights, dropout=False)
+    _, f32, _, fwd, bwd, _ = g_step_gradients("auto", *one, weights, dropout=False)
+    err_d, err_f = whole_rel_l2(d32, truth), whole_rel_l2(f32, truth)
+    log(f"[9] batch 1, dropout off, all gradients rel L2 against dense float64: dense fp32 "
+        f"{err_d:.3e}, flash fp32 {err_f:.3e} ({fwd} fwd / {bwd} bwd launches); flash against "
+        f"dense fp32 {whole_rel_l2(f32, d32):.3e}")
+    if (fwd, bwd) != (4, 4) or not err_f <= 2 * err_d + GSTEP_TRUTH_SLACK:
+        raise AssertionError("the kernels' gradients are further from float64 than dense float32's")
+
+
+def write_dataset(root: str, n_train: int = 12, n_test: int = 4, seconds: int = 5):
+    """A seeded VCTK-DEMAND-shaped directory: {train,test}/{clean,noisy}/pN.wav."""
+    import numpy as np
+
+    from cmgan_torch.data import write_wav
+
+    for split, count, seed0 in (("train", n_train, 1000), ("test", n_test, 2000)):
+        for kind in ("clean", "noisy"):
+            os.makedirs(os.path.join(root, split, kind))
+        for i in range(count):
+            clean = synthetic_track(seconds * SR, seed0 + i)
+            noise = np.random.default_rng(seed0 + 500 + i).standard_normal(clean.shape)
+            write_wav(os.path.join(root, split, "clean", f"p{i}.wav"), clean, SR)
+            write_wav(os.path.join(root, split, "noisy", f"p{i}.wav"),
+                      clean + (0.05 * noise).astype(np.float32), SR)
+
+
+class LabelCount:
+    """Counts the batches the host labeler scored and the ones it failed."""
+
+    def __init__(self):
+        from cmgan_torch.train import loop
+
+        self.loop, self.inner = loop, loop.pesq_labels_host
+        self.batches = self.invalid = 0
+
+    def __call__(self, clean, est):
+        scores = self.inner(clean, est)
+        self.batches += 1
+        self.invalid += int(scores.min() < 0)
+        return scores
+
+    def __enter__(self):
+        self.loop.pesq_labels_host = self
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.pesq_labels_host = self.inner
+
+
+def run_train_cli(data_dir, save_dir, cut_len, extra=()):
+    """One epoch through the CLI; returns (trainer, fwd launches, bwd launches,
+    label counts, the checkpoint written)."""
+    import torch
+
+    from cmgan_torch.cli import train as cli
+    from cmgan_torch.ops import flash_attention as fa
+
+    before = set(os.listdir(save_dir)) if os.path.isdir(save_dir) else set()
+    fa.launches = fa.backward_launches = 0
+    with LabelCount() as labels:
+        trainer = cli.main(["--data_dir", data_dir, "--save_model_dir", save_dir, "--epochs", "1",
+                            "--batch_size", str(TRAIN_BATCH), "--cut_len", str(cut_len),
+                            "--log_interval", "1", *extra])
+    torch.cuda.synchronize()
+    new = sorted(set(os.listdir(save_dir)) - before)
+    if len(new) != 1 or "nan" in new[0] or "inf" in new[0]:
+        raise AssertionError(f"expected one checkpoint with a finite test loss, got {new}")
+    for module in (trainer.state.gen, trainer.state.disc):
+        if not all(bool(torch.isfinite(p).all()) for p in module.state_dict().values()):
+            raise AssertionError("non-finite weights after training")
+    return trainer, fa.launches, fa.backward_launches, labels, os.path.join(save_dir, new[0])
+
+
+def train_through_cli(tmp: str):
+    """[10] and [11]; returns the launches of the first epoch at cut_len 64000."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch.train import init_train_state
+
+    data_dir = os.path.join(tmp, "data")
+    write_dataset(data_dir)
+    blocks = 4
+    steps, test_batches = 12 // TRAIN_BATCH, 4 // TRAIN_BATCH
+
+    save = os.path.join(tmp, "ckpt64")
+    fresh = init_train_state(train_config(FLASH_CUT), 0, steps, device="cuda")
+    init = [{k: v.clone() for k, v in m.state_dict().items()} for m in (fresh.gen, fresh.disc)]
+    del fresh
+    trainer, fwd, bwd, labels, ckpt = run_train_cli(data_dir, save, FLASH_CUT)
+    log(f"[10] train CLI cut_len {FLASH_CUT}: steps {trainer.state.step}, launches {fwd} fwd / "
+        f"{bwd} bwd, labeled batches {labels.batches} of which invalid {labels.invalid}, "
+        f"checkpoint {os.path.basename(ckpt)}")
+    want = (blocks * (steps + test_batches), blocks * steps)
+    if (fwd, bwd) != want or trainer.state.step != steps:
+        raise AssertionError(f"expected {want} launches and {steps} steps")
+    moved_g = sum(not torch.equal(v, init[0][k]) for k, v in trainer.state.gen.state_dict().items())
+    d_now = trainer.state.disc.state_dict()
+    moved_d = sum(not torch.equal(v, init[1][k]) for k, v in d_now.items())
+    d_weights_moved = not torch.equal(d_now["conv1.layer.weight"], init[1]["conv1.layer.weight"])
+    log(f"[10] moved tensors: generator {moved_g}/{len(init[0])}, discriminator "
+        f"{moved_d}/{len(init[1])} (its weights {'moved' if d_weights_moved else 'did not move'})")
+    if moved_g < len(init[0]) // 2 or moved_d == 0:
+        raise AssertionError("training did not move the parameters")
+    if labels.invalid < steps and not d_weights_moved:
+        raise AssertionError("a valid batch did not move the discriminator's weights")
+    main_launches = (fwd, bwd)
+
+    resumed, fwd, bwd, labels, ckpt2 = run_train_cli(data_dir, save, FLASH_CUT, ["--resume", ckpt])
+    log(f"[10] resumed: steps {resumed.state.step}, launches {fwd} fwd / {bwd} bwd, invalid "
+        f"batches {labels.invalid}/{labels.batches}, checkpoint {os.path.basename(ckpt2)}")
+    if resumed.state.step != 2 * steps or (fwd, bwd) != want:
+        raise AssertionError("the resumed run did not continue the step counter")
+
+    # d_step driven directly: valid labels move D, a failed label moves nothing
+    state = resumed.state
+    clean, noisy = train_batch(FLASH_CUT, seed=60)
+    _, handoff = resumed.g_step(state, clean, noisy)
+
+    def snapshot():
+        opt = state.disc_opt.state_dict()["state"]
+        return ([v.clone() for v in state.disc.state_dict().values()],
+                [torch.as_tensor(v).clone() for s in opt.values() for v in s.values()])
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1]))
+
+    s0 = snapshot()
+    loss_ok = resumed.d_step(state, handoff["clean_mag"], handoff["est_mag"],
+                             np.full(TRAIN_BATCH, 2.5, np.float32)).item()
+    s1 = snapshot()
+    bad = np.full(TRAIN_BATCH, 2.5, np.float32)
+    bad[1] = -1.0
+    loss_skip = resumed.d_step(state, handoff["clean_mag"], handoff["est_mag"], bad).item()
+    s2 = snapshot()
+    log(f"[10] d_step: valid labels loss {loss_ok:.5f}, D moved {not same(s0, s1)}; a -1 label "
+        f"loss {loss_skip}, D and its Adam state unchanged {same(s1, s2)}")
+    if same(s0, s1) or not same(s1, s2) or loss_skip != 0.0 or not np.isfinite(loss_ok):
+        raise AssertionError("d_step's update or skip path is wrong")
+    del trainer, resumed, state
+    torch.cuda.empty_cache()
+
+    # -- 11. the default window: dense attention, no launches --
+    for mode in ("host", "host_async"):
+        for extra in ((), ("--bf16",)):
+            save = os.path.join(tmp, f"ckpt32_{mode}_{'bf16' if extra else 'fp32'}")
+            trainer, fwd, bwd, labels, _ = run_train_cli(
+                data_dir, save, DEFAULT_CUT, ["--pesq_label_mode", mode, *extra])
+            log(f"[11] train CLI cut_len {DEFAULT_CUT} {mode} {'bf16' if extra else 'fp32'}: steps "
+                f"{trainer.state.step}, launches {fwd} fwd / {bwd} bwd, invalid batches "
+                f"{labels.invalid}/{labels.batches}")
+            if (fwd, bwd) != (0, 0) or trainer.state.step != steps:
+                raise AssertionError("the default window must take no kernel launch")
+            del trainer
+            torch.cuda.empty_cache()
+    return main_launches
+
+
+def training_rates(smi: str):
+    """[12] utterances per second of train_step, PESQ's share, a G-step profile."""
+    import torch
+
+    from cmgan_torch.train import Trainer
+    from cmgan_torch.train.steps import pesq_labels_host
+
+    reps = 3
+    for cut in (FLASH_CUT, DEFAULT_CUT):
+        clean, noisy = train_batch(cut, seed=80)
+        for dtype, dname in ((None, "fp32"), (torch.bfloat16, "bf16")):
+            for mode in ("host", "host_async"):
+                trainer = Trainer(train_config(cut, mode=mode), [None], None, dtype=dtype,
+                                  device="cuda")
+
+                def steps(n):
+                    for _ in range(n):
+                        trainer.train_step(clean, noisy)
+                    trainer.drain_pending_d()
+                    torch.cuda.synchronize()
+
+                steps(1)  # warm-up
+                t0 = time.perf_counter()
+                steps(reps)
+                step_s = (time.perf_counter() - t0) / reps
+                line = (f"[12] train_step cut_len {cut} batch {TRAIN_BATCH} {dname} {mode}: "
+                        f"{TRAIN_BATCH / step_s:.3f} utterances/s ({1e3 * step_s:.1f} ms a step)")
+                if mode == "host":
+                    _, handoff = trainer.g_step(trainer.state, clean, noisy)
+                    est = handoff["est_audio"].cpu().numpy()
+                    t0 = time.perf_counter()
+                    pesq_labels_host(clean, est)
+                    pesq_s = time.perf_counter() - t0
+                    line += f", host PESQ {1e3 * pesq_s:.1f} ms = {100 * pesq_s / step_s:.1f}% of a step"
+                log(f"{line} on {smi}")
+                if mode == "host" and dtype is None and cut == FLASH_CUT:
+                    def g_only():
+                        trainer.g_step(trainer.state, clean, noisy)
+                        torch.cuda.synchronize()
+
+                    g_only()
+                    t0 = time.perf_counter()
+                    g_only()
+                    g_ms = 1e3 * (time.perf_counter() - t0)
+                    log(f"[12] one G step cut_len {cut} fp32: {g_ms:.1f} ms on {smi}")
+                    device_breakdown(g_only, g_ms, top=12, tag="[12]")
+                del trainer
+                torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -197,8 +701,10 @@ def main() -> int:
     from cmgan_torch.config import CMGANConfig, ModelConfig
     from cmgan_torch.data import read_wav, write_wav
     from cmgan_torch.inference import Enhancer
+    from cmgan_torch.metrics import pesq_native
     from cmgan_torch.ops import _build
     from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.ops import fused_norm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -210,11 +716,19 @@ def main() -> int:
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     log(f"[1] allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    build = _build.build(fa.KERNEL)
-    log(f"[1] built {os.path.relpath(build.path, ROOT)} in {build.seconds:.2f} s")
-    for line in build.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[1]   {line.strip()}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:  # one nvcc a source, all started together
+        pesq_build = pool.submit(pesq_native.build)
+        builds = list(pool.map(_build.build, (fa.KERNEL, fa.BWD_KERNEL, fused_norm.KERNEL)))
+    for build in builds:
+        log(f"[1] built {os.path.relpath(build.path, ROOT)} in {build.seconds:.2f} s")
+        for line in build.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[1]   {line.strip()}")
+    log(f"[1] built {os.path.relpath(pesq_build.result(), ROOT)} (host PESQ scorer, g++); "
+        f"all builds {time.perf_counter() - t0:.2f} s")
 
     # -- 2. kernel against its plain version --
     cases = []
@@ -294,20 +808,79 @@ def main() -> int:
     if out.shape != (1, noisy.shape[0]) or sr != SR:
         raise AssertionError("CLI output has the wrong length or rate")
 
+    del enh32, enh16
+    torch.cuda.empty_cache()
+
+    # -- 7. the backward kernel against autograd through the plain version --
+    bwd_cases = [check_backward_case(dt, 1616, 641, 641, 641, 0, seed=7)
+                 for dt in ("float32", "bfloat16")]
+    bwd_cases.append(check_backward_case("float32", 101, 2561, 2561, 2561, 0, seed=8, chunk=16))
+    bwd_cases.append(check_backward_case("float32", 404, 641, 641, 600, 0, seed=9))
+    bwd_cases.append(check_backward_case("float32", 101, 1280, 2560, 2560, 128, seed=10, chunk=16))
+    bwd_main = bwd_cases[0]  # fp32 at the training shape
+
+    # -- 8. the LayerNorm kernel against its plain version and F.layer_norm --
+    ln_cases = [check_layernorm_case(dt, n, seed=11)
+                for dt in ("float32", "bfloat16") for n in (1616 * 321, 5136 * 101)]
+    ln_main = ln_cases[0]
+    # the op is on no model's path; its own entry point is the public function,
+    # driven here on an activation-shaped tensor, forward and backward
+    fused_norm.launches = 0
+    x = torch.randn(TRAIN_BATCH * 101, 641, 64, device="cuda", requires_grad=True)
+    fused_norm.fused_layernorm(x, torch.ones(64, device="cuda"),
+                               torch.zeros(64, device="cuda")).square().mean().backward()
+    ln_launches = fused_norm.launches
+    if ln_launches != 1 or not bool(torch.isfinite(x.grad).all()):
+        raise AssertionError("fused_layernorm's public entry did not launch its kernel")
+    del x
+
+    # -- 9 .. 12. training --
+    g_step_flash_vs_dense()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        train_fwd, train_bwd = train_through_cli(tmp)
+    training_rates(smi)
+
     kernels = {"kernels": [{
         "name": "flash_rel_attention",
         "route": "cuda",
         "source": "cmgan_torch/ops/csrc/flash_rel_attention.cu",
         "replaces": "cmgan_tpu/ops/flash_attention.py:91",
         "launches": main_launches,
+        "launches_train_epoch": train_fwd,
         "max_abs_err": main_case["max_abs_err"],
-        "max_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
         "cases": cases,
+    }, {
+        "name": "flash_rel_attention_bwd",
+        "route": "cuda",
+        "source": "cmgan_torch/ops/csrc/flash_rel_attention_bwd.cu",
+        "replaces": "cmgan_tpu/ops/flash_attention.py:250",
+        "launches": train_bwd,
+        "max_abs_err": bwd_main["max_abs_err"],
+        "ms": bwd_main["ms"],
+        "plain_ms": bwd_main["plain_ms"],
+        "bound_ms": bwd_main["bound_ms"],
+        "bound_by": bwd_main["bound_by"],
+        "library_ms": None,
+        "cases": bwd_cases,
+    }, {
+        "name": "fused_layernorm",
+        "route": "cuda",
+        "source": "cmgan_torch/ops/csrc/fused_layernorm.cu",
+        "replaces": "cmgan_tpu/ops/fused_norm.py:36",
+        "launches": ln_launches,
+        "path": "ops.fused_layernorm, the op's public entry; no model calls it",
+        "max_abs_err": ln_main["max_abs_err"],
+        "ms": ln_main["ms"],
+        "plain_ms": ln_main["plain_ms"],
+        "bound_ms": ln_main["bound_ms"],
+        "bound_by": ln_main["bound_by"],
+        "library_ms": ln_main["library_ms"],
+        "cases": ln_cases,
     }]}
     print(smi)
     print(json.dumps(kernels))

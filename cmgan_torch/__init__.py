@@ -1,8 +1,9 @@
 """cmgan-torch: the PyTorch/CUDA port of the CMGAN speech enhancer.
 
 A second package beside the JAX one, for NVIDIA Hopper GPUs. Plain
-tensor code is PyTorch; the fused Shaw relative-position attention is a
-hand-written CUDA kernel (ops/csrc/). Public functions keep the JAX
+tensor code is PyTorch; the fused Shaw relative-position attention
+(forward and backward) and the fused LayerNorm are hand-written CUDA
+kernels (ops/csrc/). Public functions keep the JAX
 package's layouts: spectrograms [B, T, F, 2], generator outputs
 (re, im) each [B, T, F], attention [G, T, D].
 """

@@ -60,7 +60,7 @@ class ModelConfig:
     # 'xla': dense logits; 'flash': the fused CUDA kernel
     # (ops/flash_attention.py); 'auto': flash for sequences >= 512 frames.
     attention_impl: str = "auto"
-    # activation rematerialization in training (not used by inference)
+    # rematerialize each TSCB in the backward pass of training
     remat: bool = False
     # Discriminator
     ndf: int = 16
@@ -73,8 +73,22 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """GAN training loop parameters (the training slice is not ported yet;
-    kept so a CMGANConfig carries the same fields as the JAX package's)."""
+    """GAN training loop parameters, the JAX package's fields and defaults.
+
+    pesq_label_mode: 'host' scores each batch with the native C++ PESQ
+    between the G and the D step; 'host_async' scores it in a background
+    thread while the next G step runs, so the D update lands one step
+    late; 'device' (on-GPU labels, one fused step) is not ported yet.
+    time_loss_domain: 'reference' compares est_audio with the raw clean
+    waveform (the CMGAN reference's gain-suppressing quirk), 'normalized'
+    with clean * c. gen_ema_decay > 0 keeps an EMA of the generator's
+    parameters. loss_region = (start, end) restricts the RI, magnitude
+    and time losses to those samples of the cut_len window.
+
+    The default 2 s window is 321 frames, below the 512 from which
+    `attention_impl='auto'` takes the flash kernels; cut_len 64000
+    (641 frames) trains through them.
+    """
 
     epochs: int = 120
     batch_size: int = 4
@@ -110,8 +124,9 @@ class EvalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout for data / sequence parallelism (multi-GPU is not
-    ported yet; kept for field parity)."""
+    """Device layout for data / sequence parallelism. Multi-GPU is not
+    ported yet: the trainer takes the defaults (one device) and raises
+    `NotImplementedError` for anything else."""
 
     data_axis: str = "data"
     seq_axis: str = "seq"

@@ -1,4 +1,4 @@
-"""Carry the JAX package's generator weights into the port.
+"""Carry the JAX package's generator and discriminator weights into the port.
 
 The port's TSCNet uses the CMGAN reference's state_dict key layout, so a
 reference checkpoint, or a `.pt` written from a JAX checkpoint, loads
@@ -10,6 +10,10 @@ onto that layout:
   flax Conv1D       [k, I, O]      -> Conv1d [O, I, k]
   flax Dense        [I, O]         -> Linear [O, I]
   PReLU alpha -> weight; norm scale -> weight; BN mean/var -> running_mean/var
+
+`disc_state_dict_from_flax` does the same for the metric discriminator,
+whose spectral-norm state (`u`, `sigma` per wrapped kernel) flax keeps in
+`batch_stats` under `SpectralNorm_<n>/<layer>/kernel/{u,sigma}`.
 """
 
 from __future__ import annotations
@@ -148,3 +152,30 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping, num_tscb: int = 
         sd[tkey] = torch.tensor(_lookup(batch_stats, fpath))
         sd[tkey.rsplit(".", 1)[0] + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+DISC_SN_LAYERS = ("conv1", "conv2", "conv3", "conv4", "fc1", "fc2")
+
+
+def disc_state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """flax MetricDiscriminator variables -> the port's state_dict.
+
+    The n-th spectral-norm wrapper (flax names them in call order:
+    conv1..conv4, fc1, fc2) keeps `u` [1, O] and the scalar `sigma`.
+    """
+    sd = {}
+    for n, name in enumerate(DISC_SN_LAYERS):
+        kernel = np.asarray(params[name]["kernel"])
+        sd[f"{name}.layer.weight"] = _conv2d(kernel) if kernel.ndim == 4 else _linear(kernel)
+        if "bias" in params[name]:
+            sd[f"{name}.layer.bias"] = params[name]["bias"]
+        stats = batch_stats[f"SpectralNorm_{n}"]
+        sd[f"{name}.u"] = stats[f"{name}/kernel/u"]
+        sd[f"{name}.sigma"] = stats[f"{name}/kernel/sigma"]
+    for i in range(1, 5):
+        sd[f"norm{i}.weight"] = params[f"norm{i}"]["scale"]
+        sd[f"norm{i}.bias"] = params[f"norm{i}"]["bias"]
+        sd[f"prelu{i}.weight"] = params[f"prelu{i}"]["alpha"]
+    sd["fc_prelu.weight"] = params["fc_prelu"]["alpha"]
+    sd["sigmoid.slope"] = params["sigmoid"]["slope"]
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}

@@ -1,4 +1,4 @@
-from cmgan_torch.models.conformer import ConformerBlock
+from cmgan_torch.models.discriminator import MetricDiscriminator
 from cmgan_torch.models.generator import TSCNet
 
-__all__ = ["ConformerBlock", "TSCNet"]
+__all__ = ["MetricDiscriminator", "TSCNet"]

@@ -58,10 +58,32 @@ class DepthWiseConv1d(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm1d over [N, C, T], float32 math (eval uses running stats)."""
+    """BatchNorm1d over [N, C, T] in float32, with flax's training rule.
+
+    Eval uses the running stats. Training normalises with the batch mean
+    and the biased batch variance (E[x^2] - E[x]^2) and moves the running
+    stats as `running = 0.9 * running + 0.1 * batch`, the running variance
+    too with the *biased* batch variance: flax `nn.BatchNorm(momentum=0.9)`
+    does so, where `nn.BatchNorm1d` would use the unbiased one.
+    `track_running_stats_now` is cleared while a rematerialised block is
+    recomputed, so one step moves the stats once.
+    """
+
+    track_running_stats_now = True
 
     def forward(self, x):
-        return super().forward(x.float())
+        x = x.float()
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2))
+        var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+        if BatchNorm.track_running_stats_now:
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+                self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
 
 
 class Scale(nn.Module):

@@ -14,9 +14,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cmgan_torch.config import ModelConfig
-from cmgan_torch.models.conformer import ConformerBlock
+from cmgan_torch.models.conformer import BatchNorm, ConformerBlock
 from cmgan_torch.models.layers import Conv2d, InstanceNorm, PReLU, SubPixelConv
 
 
@@ -104,6 +105,24 @@ class TSCB(nn.Module):
         return xf.reshape(b, t, f, c).permute(0, 3, 1, 2)
 
 
+def _rematerialized(block: nn.Module, x):
+    """Run `block` without keeping its activations: they are recomputed in
+    the backward pass (with the same dropout masks). The recomputation
+    leaves BatchNorm's running stats alone."""
+    calls = 0
+
+    def run(x):
+        nonlocal calls
+        calls += 1
+        BatchNorm.track_running_stats_now = calls == 1
+        try:
+            return block(x)
+        finally:
+            BatchNorm.track_running_stats_now = True
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 class MaskDecoder(nn.Module):
     """DilatedDenseNet -> sub-pixel frequency upsample (x2) -> conv k=(1,2)
     C->1 -> IN + PReLU -> 1x1 conv -> per-frequency PReLU (init -0.25).
@@ -150,7 +169,9 @@ class ComplexDecoder(nn.Module):
 class TSCNet(nn.Module):
     """The CMGAN generator. `dtype` is the compute type of its convs,
     linears and attention (None or float32: float32; bfloat16: mixed, with
-    norms and the softmax in float32)."""
+    norms and the softmax in float32). In training mode dropout is on,
+    BatchNorm uses batch statistics, and `cfg.remat` rematerialises each
+    TSCB in the backward pass."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), dtype: torch.dtype | None = None):
         super().__init__()
@@ -171,8 +192,10 @@ class TSCNet(nn.Module):
         x = torch.stack([mag, re, im], dim=1)  # [B, 3, T, F]
 
         x = self.dense_encoder(x)
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for i in range(self.cfg.num_tscb_blocks):
-            x = getattr(self, f"TSCB_{i + 1}")(x)
+            block = getattr(self, f"TSCB_{i + 1}")
+            x = _rematerialized(block, x) if remat else block(x)
 
         out_mag = self.mask_decoder(x).float() * mag
         complex_out = self.complex_decoder(x).float()

@@ -133,7 +133,8 @@ def torch_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Mod
     """Re-draw every parameter with torch's default initializers from one
     seeded generator: conv/linear weights and biases U(+-1/sqrt(fan_in))
     (kaiming_uniform with a=sqrt(5)), embeddings N(0, 1), norms 1 / 0,
-    PReLU slopes their `init`, BatchNorm running stats 0 / 1.
+    PReLU slopes their `init`, BatchNorm running stats 0 / 1, and whatever
+    a module's own `reset_state(generator)` sets (spectral-norm vectors).
     """
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
@@ -153,4 +154,6 @@ def torch_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Mod
             m.weight.fill_(m.init)
         elif isinstance(m, LearnableSigmoid):
             m.slope.fill_(1.0)
+        elif hasattr(m, "reset_state"):
+            m.reset_state(generator)
     return module

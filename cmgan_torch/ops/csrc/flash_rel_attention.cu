@@ -9,7 +9,9 @@
 // over keys j < t_valid, with the softmax in fp32. q arrives pre-scaled
 // and E unscaled (the caller's contract). q, k, v, out are [G, T, 16]
 // contiguous, E is [2*max_pos+1, 16]; fp32 or bf16 (widened to fp32 on
-// load, the output written in the input type).
+// load, the output written in the input type). When `lse` is not null the
+// row log-sum-exp m + log(l) is written there as fp32 [G, Tq]: the backward
+// kernel (flash_rel_attention_bwd.cu) recomputes the weights from it.
 //
 // Memory is O(T): nothing of size [G, T, T] exists. One block of 64
 // threads owns one (group, tile of 64 queries), one query per thread, q
@@ -55,8 +57,8 @@ template <typename T>
 __global__ void __launch_bounds__(BQ)
 flash_rel_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ table,
-              T* __restrict__ out, int Tq, int Tk, int n_qtiles, int max_pos,
-              int t_valid, int q_offset) {
+              T* __restrict__ out, float* __restrict__ lse, int Tq, int Tk,
+              int n_qtiles, int max_pos, int t_valid, int q_offset) {
   __shared__ __align__(16) float ks[BK * D];
   __shared__ __align__(16) float vs[BK * D];
   __shared__ __align__(16) float es[NE * ESTRIDE];
@@ -142,6 +144,7 @@ flash_rel_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / l;
 #pragma unroll
     for (int d = 0; d < D; ++d) narrow(acc[d] * inv, out + qrow + d);
+    if (lse != nullptr) lse[static_cast<size_t>(g) * Tq + i0 + a] = m + __logf(l);
   }
 }
 
@@ -151,7 +154,7 @@ flash_rel_fwd(const T* __restrict__ q, const T* __restrict__ k,
 // cudaGetLastError() (0 on success); does not synchronise.
 extern "C" int cmgan_flash_rel_attention_fwd(
     const void* q, const void* k, const void* v, const void* table, void* out,
-    int G, int Tq, int Tk, int head_dim, int max_pos, int t_valid, int q_offset,
+    void* lse, int G, int Tq, int Tk, int head_dim, int max_pos, int t_valid, int q_offset,
     int is_bf16, void* stream) {
   if (head_dim != D || G <= 0 || Tq <= 0 || t_valid <= 0 || t_valid > Tk) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -163,12 +166,12 @@ extern "C" int cmgan_flash_rel_attention_fwd(
     flash_rel_fwd<__nv_bfloat16><<<grid, BQ, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(table),
-        static_cast<__nv_bfloat16*>(out), Tq, Tk, n_qtiles, max_pos, t_valid, q_offset);
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Tq, Tk, n_qtiles, max_pos, t_valid, q_offset);
   } else {
     flash_rel_fwd<float><<<grid, BQ, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(table),
-        static_cast<float*>(out), Tq, Tk, n_qtiles, max_pos, t_valid, q_offset);
+        static_cast<float*>(out), static_cast<float*>(lse), Tq, Tk, n_qtiles, max_pos, t_valid, q_offset);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,16 +1,20 @@
-"""Fused attention with Shaw relative positions.
+"""Fused attention with Shaw relative positions, forward and backward.
 
 The conformer's attention adds a data-dependent relative-position term
   pos[i, j] = q_i . E[clip(i - j, +-max_pos) + max_pos]
 to the content logits. Dense, that needs [G, T, T] logits; at a 16 s
-segment (G = 404, T = 2561) that is 10.6 GB in fp32. The CUDA kernel in
-`csrc/flash_rel_attention.cu` computes the same function in O(T) memory
-with an online softmax.
+segment (G = 404, T = 2561) that is 10.6 GB in fp32. The CUDA kernels in
+`csrc/flash_rel_attention.cu` (forward) and
+`csrc/flash_rel_attention_bwd.cu` (backward) compute the function and
+its gradients in O(T) memory: the forward keeps an online softmax and
+writes the row log-sum-exp, the backward recomputes the weights from it.
 
-`flash_rel_attention_at` is the wrapper. For CPU tensors it runs the
-plain version (`reference_attention`); for CUDA tensors it launches the
-kernel or raises. This slice is forward only: with autograd recording,
-inputs that require grad are refused until the backward kernel is ported.
+`flash_rel_attention_at` is the wrapper, differentiable in q, k, v and
+the table. For CPU tensors it runs the plain version
+(`reference_attention`) under ordinary autograd; for CUDA tensors it
+launches the kernels, through a `torch.autograd.Function` when a
+gradient is wanted, or raises. `reference_attention_grads` is the
+backward's plain version.
 """
 
 from __future__ import annotations
@@ -25,8 +29,12 @@ from cmgan_torch.ops import _build
 HEAD_DIM = 16
 KERNEL = "flash_rel_attention"
 
+BWD_KERNEL = "flash_rel_attention_bwd"
+
 # Kernel launches; the wrapper adds one per launch. Callers reset to 0.
 launches = 0
+# Backward launches (one call runs the dq/dE and the dk/dv kernel).
+backward_launches = 0
 # Calls the wrapper served with the plain version (CPU tensors).
 plain_calls = 0
 
@@ -56,15 +64,46 @@ def reference_attention(q, k, v, rel_band, t_valid: int, q_offset: int = 0):
     return torch.einsum("gij,gjd->gid", attn, vf).to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load(KERNEL)
-    fn = lib.cmgan_flash_rel_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def reference_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int,
+                              q_offset: int, g):
+    """The backward's plain version: autograd through `reference_attention`.
+
+    Returns (dq, dk, dv, dtable) for the output cotangent g [G, Tq, D],
+    each in its input's dtype.
+    """
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, rel_table)]
+    with torch.enable_grad():
+        band = make_rel_band(leaves[3], k.shape[1], max_pos)
+        out = reference_attention(*leaves[:3], band, t_valid, q_offset)
+    return torch.autograd.grad(out, leaves, g)
+
+
+def _bind(name: str, entry: str, argtypes):
+    lib = _build.load(name)
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     lib.cmgan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cmgan_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _bind(KERNEL, "cmgan_flash_rel_attention_fwd",
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    return _bind(BWD_KERNEL, "cmgan_flash_rel_attention_bwd",
+                 [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def _raise_on(lib, rc: int, what: str):
+    if rc != 0:
+        msg = lib.cmgan_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
 def _check(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int):
@@ -78,10 +117,6 @@ def _check(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{name} requires grad: the backward kernel is not ported yet"
-            )
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"expected q [G,Tq,D], k/v [G,Tk,D]; got {q.shape}, {k.shape}, {v.shape}")
     g, tq, d = q.shape
@@ -96,6 +131,67 @@ def _check(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int):
         raise ValueError(f"q_offset {q_offset}: need 0 <= q_offset and q_offset + Tq <= Tk ({tq}, {tk})")
 
 
+def _launch_forward(q, k, v, rel_table, max_pos, t_valid, q_offset, want_lse: bool):
+    """One forward launch; returns (out, lse or None)."""
+    global launches
+    lib = _kernel()
+    g, tq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(g, tq, dtype=torch.float32, device=q.device) if want_lse else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.cmgan_flash_rel_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_table.data_ptr(),
+            out.data_ptr(), lse.data_ptr() if want_lse else None,
+            g, tq, k.shape[1], d, max_pos, t_valid, q_offset,
+            int(q.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(lib, rc, "flash_rel_attention")
+    launches += 1
+    return out, lse
+
+
+def _launch_backward(q, k, v, rel_table, out, lse, grad_out, max_pos, t_valid, q_offset):
+    """One backward launch (both kernels); returns (dq, dk, dv, dtable)."""
+    global backward_launches
+    lib = _bwd_kernel()
+    g, tq, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(g, tq, dtype=torch.float32, device=q.device)
+    # the kernel adds into the table's gradient with fp32 atomics
+    dtable = torch.zeros(rel_table.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.cmgan_flash_rel_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_table.data_ptr(),
+            out.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            dtable.data_ptr(), g, tq, k.shape[1], d, max_pos, t_valid, q_offset,
+            int(q.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(lib, rc, "flash_rel_attention_bwd")
+    backward_launches += 1
+    return dq, dk, dv, dtable.to(rel_table.dtype)
+
+
+class _FlashRelAttention(torch.autograd.Function):
+    """The kernels as one differentiable op on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_table, max_pos, t_valid, q_offset):
+        out, lse = _launch_forward(q, k, v, rel_table, max_pos, t_valid, q_offset, True)
+        ctx.save_for_backward(q, k, v, rel_table, out, lse)
+        ctx.args = (max_pos, t_valid, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, rel_table, out, lse = ctx.saved_tensors
+        grads = _launch_backward(q, k, v, rel_table, out, lse,
+                                 grad_out.to(q.dtype).contiguous(), *ctx.args)
+        return (*grads, None, None, None)
+
+
 def flash_rel_attention_at(q, k, v, rel_table, max_pos: int,
                            t_valid: int | None = None, q_offset: int = 0):
     """Fused attention with Shaw relative positions at a query offset.
@@ -103,9 +199,10 @@ def flash_rel_attention_at(q, k, v, rel_table, max_pos: int,
     q: [G, Tq, D]; k, v: [G, Tk, D]; rel_table: [2*max_pos+1, D], D = 16.
     q carries the softmax scale, the table is unscaled. Query i sits at
     global position i + q_offset (q_offset + Tq <= Tk). Keys at or past
-    t_valid (default Tk) are masked. Returns [G, Tq, D] in q's dtype.
+    t_valid (default Tk) are masked. Returns [G, Tq, D] in q's dtype,
+    differentiable in q, k, v and rel_table.
     """
-    global launches, plain_calls
+    global plain_calls
     tk = k.shape[1]
     t_valid = tk if t_valid is None else min(int(t_valid), tk)
     q_offset = int(q_offset)
@@ -119,21 +216,9 @@ def flash_rel_attention_at(q, k, v, rel_table, max_pos: int,
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
 
-    lib = _kernel()
-    g, tq, d = q.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.cmgan_flash_rel_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_table.data_ptr(),
-            out.data_ptr(), g, tq, tk, d, max_pos, t_valid, q_offset,
-            int(q.dtype == torch.bfloat16), stream,
-        )
-    if rc != 0:
-        msg = lib.cmgan_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_rel_attention launch failed: CUDA error {rc} ({msg})")
-    launches += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rel_table)):
+        return _FlashRelAttention.apply(q, k, v, rel_table, max_pos, t_valid, q_offset)
+    return _launch_forward(q, k, v, rel_table, max_pos, t_valid, q_offset, False)[0]
 
 
 def flash_rel_attention(q, k, v, rel_table, max_pos: int):

@@ -94,10 +94,11 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(rng):
         fa.flash_rel_attention_at(q, k, v, table, MAX_POS, t_valid=0)
     with pytest.raises(ValueError):
         fa.flash_rel_attention_at(q, k, v, table, MAX_POS, q_offset=32)
-    with pytest.raises(NotImplementedError):  # forward only in this slice
-        fa.flash_rel_attention(q.requires_grad_(), k, v, table, MAX_POS)
+    # inputs that require grad are taken: the op is differentiable
+    out = fa.flash_rel_attention(q.requires_grad_(), k, v, table, MAX_POS)
+    assert out.requires_grad
     with torch.no_grad():
-        fa.flash_rel_attention(q, k, v, table, MAX_POS)
+        assert not fa.flash_rel_attention(q, k, v, table, MAX_POS).requires_grad
 
 
 def test_wrapper_bf16_plain_path(rng):

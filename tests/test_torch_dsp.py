@@ -98,3 +98,46 @@ def test_matmul_dft_not_ported(rng):
         tstft.stft(x, N_FFT, HOP, dft_impl="matmul")
     with pytest.raises(NotImplementedError):
         tstft.istft(tstft.stft(x, N_FFT, HOP), N_FFT, HOP, dft_impl="matmul")
+
+
+def test_gradients_through_the_dsp_chain_match_jax(rng):
+    """Training differentiates waveform -> STFT -> compress, and compressed
+    spectrum -> uncompress -> iSTFT -> waveform. Both chains against
+    jax.grad; rtol 1e-3 plus 1e-4 of the largest entry (fp32 FFTs)."""
+    import jax
+
+    x = _signal(rng, 2, 1600)
+    cot = rng.standard_normal((2, 17, 201, 2)).astype(np.float32)
+
+    def jfront(xx):
+        return jnp.sum(jstft.power_compress(jstft.stft(xx, N_FFT, HOP)) * cot)
+
+    xt = torch.from_numpy(x).requires_grad_()
+    (tstft.power_compress(tstft.stft(xt, N_FFT, HOP)) * torch.from_numpy(cot)).sum().backward()
+    ref = np.asarray(jax.grad(jfront)(jnp.asarray(x)))
+    np.testing.assert_allclose(xt.grad.numpy(), ref, atol=1e-4 * np.abs(ref).max(), rtol=1e-3)
+
+    re = rng.standard_normal((2, 17, 201)).astype(np.float32)
+    im = rng.standard_normal((2, 17, 201)).astype(np.float32)
+    wcot = rng.standard_normal((2, 1600)).astype(np.float32)
+
+    def jback(r, i):
+        return jnp.sum(jstft.istft(jstft.power_uncompress(r, i), N_FFT, HOP) * wcot)
+
+    rt, it = torch.from_numpy(re).requires_grad_(), torch.from_numpy(im).requires_grad_()
+    (tstft.istft(tstft.power_uncompress(rt, it), N_FFT, HOP) * torch.from_numpy(wcot)).sum().backward()
+    for got, want in zip((rt.grad, it.grad), jax.grad(jback, argnums=(0, 1))(jnp.asarray(re), jnp.asarray(im))):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * np.abs(want).max(), rtol=1e-3)
+
+
+def test_zero_bin_gradient_is_nan_in_both_packages():
+    """sqrt and arctan2 at an exactly zero bin: neither package adds an epsilon."""
+    import jax
+
+    z = np.zeros((1, 1, 3), np.float32)
+    jg = jax.grad(lambda r, i: jnp.sum(jnp.abs(jstft.power_uncompress(r, i))))(
+        jnp.asarray(z), jnp.asarray(z))
+    rt, it = torch.from_numpy(z.copy()).requires_grad_(), torch.from_numpy(z.copy())
+    tstft.power_uncompress(rt, it).abs().sum().backward()
+    assert np.isnan(np.asarray(jg)).all() and torch.isnan(rt.grad).all()

@@ -34,7 +34,13 @@ def _imported_roots(path):
 
 def test_port_sources_import_no_jax():
     files = _port_files()
-    assert len(files) > 15
+    assert len(files) > 30
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    assert {"chip_smoke.py", "cmgan_torch/train/steps.py", "cmgan_torch/train/loop.py",
+            "cmgan_torch/train/state.py", "cmgan_torch/models/discriminator.py",
+            "cmgan_torch/metrics/pesq_native.py", "cmgan_torch/data/dataset.py",
+            "cmgan_torch/checkpoint/__init__.py", "cmgan_torch/cli/train.py",
+            "cmgan_torch/ops/fused_norm.py"} <= rel
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
@@ -44,6 +50,9 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import cmgan_torch.inference, cmgan_torch.cli.enhance, cmgan_torch.convert\n"
+        "import cmgan_torch.cli.train, cmgan_torch.train, cmgan_torch.checkpoint\n"
+        "import cmgan_torch.metrics, cmgan_torch.data.dataset, cmgan_torch.ops.fused_norm\n"
+        "import cmgan_torch.models.discriminator\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,)
@@ -73,3 +82,34 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+def test_kernel_sources_are_in_the_tree_and_nothing_is_built_at_import():
+    csrc = os.path.join(ROOT, "cmgan_torch", "ops", "csrc")
+    assert {"flash_rel_attention.cu", "flash_rel_attention_bwd.cu",
+            "fused_layernorm.cu"} <= set(os.listdir(csrc))
+    assert os.path.exists(os.path.join(ROOT, "cmgan_torch", "native", "pesq", "pesq.cc"))
+    code = (
+        "import sys, subprocess\n"
+        "def no(*a, **k): raise AssertionError('a build ran at import')\n"
+        "subprocess.run = subprocess.Popen = no\n"
+        "import cmgan_torch.train, cmgan_torch.cli.train, cmgan_torch.ops, cmgan_torch.metrics\n"
+        "assert 'triton' not in sys.modules\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it():
+    from cmgan_torch.cli import train as cli_train
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert cli_train.parse_args(["--data_dir", "x"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from cmgan_torch.config import CMGANConfig, ModelConfig
+        from cmgan_torch.train import init_train_state
+
+        init_train_state(CMGANConfig(model=ModelConfig(num_channels=16, num_tscb_blocks=1,
+                                                       dense_depth=1, ndf=4)), 0, 1)
