@@ -14,7 +14,10 @@ failure, none falling back to the CPU or to a plain version:
      host PESQ scorer;
   2. the attention forward kernel against its plain PyTorch version on the
      card, fp32 and bf16, at the 4 s bucket (T = 641) and the 16 s segment
-     (T = 2561), with a t_valid < T case and a q_offset = 128 case;
+     (T = 2561), with a t_valid < T case, a q_offset = 128 case, a
+     max_pos = 64 case (most tile pairs clipped) and a t_valid = 1 case;
+     the tile-by-tile plain versions against both kernels at one small
+     shape;
   3. a 16 s track through Enhancer.enhance(mode='bucket') in fp32: exactly
      4 kernel launches, finite output of the input's length, agreement
      with attention_impl='xla', and the realtime factor;
@@ -22,8 +25,12 @@ failure, none falling back to the CPU or to a plain version:
   5. enhance_batch on 16 two-second tracks (dense attention, no launches);
   6. the enhance CLI on a written 5 s wav;
   7. the attention backward kernel against autograd through the plain
-     version: fp32 and bf16 at the training shape (G = 1616, T = 641),
-     fp32 at T = 2561, a t_valid < T and a q_offset case;
+     version: fp32 and bf16 at the training shape (G = 1616, T = 641) and
+     at T = 2561, a t_valid < T, a q_offset and a max_pos = 64 case, a
+     t_valid = 1 case (dq, dk and dE are zero) and a max_pos = 1536 case
+     (a table too long for a block's shared memory); the fp32 kernels' and
+     plain versions' distance from float64; the backward's device time by
+     kernel;
   8. the fused LayerNorm kernel against its plain version and against
      F.layer_norm at [1616*321, 64] and [5136*101, 64], fp32 and bf16,
      forward and gradient;
@@ -49,6 +56,7 @@ the `cmgan_torch` package beside this file.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -63,6 +71,9 @@ SR = 16000
 # dense tensor-core rate, HBM bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+# the attention kernels' fp32 route: each product as six products of bf16 parts
+ATTN_PEAK_FLOPS = {"float32": 989e12 / 6, "bfloat16": 989e12}
+EXP_PER_CLOCK_SM = 16     # results of the special-function units, a clock and multiprocessor
 
 # stated tolerances
 KERNEL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 8e-3)}  # (atol, rtol)
@@ -75,6 +86,10 @@ PLAIN_GROUP_CHUNK = 32    # groups per plain-version call, so its [g, T, T] logi
 # bf16 rounds each output once (2^-8 of its binade) and takes delta from the
 # bf16-rounded forward output (5e-3 seen)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# fp32 kernels against float64, relative L2, over the plain fp32 versions' own
+# distance: the kernels sum in another order and take exp by the fast unit
+# (both ~1x seen); a tensor-core accumulator chain would show as ~8x
+FLOAT64_FACTOR = 4.0
 LN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (6.25e-2, 1.6e-2)}  # (atol, rtol); bf16: one ulp
 # G step, flash against dense, fp32, relative L2: the loss and all gradients
 # as one vector within GSTEP_REL, each parameter's gradient within
@@ -99,6 +114,54 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return 1e6 * float(out.strip().splitlines()[0])
+
+
+def attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward: bool):
+    """The least time the card could take for the attention function (or its
+    gradient) on these shapes: the largest of its products at the tensor
+    cores' rate, its bytes at the memory's rate and its exponentials (one a
+    query-key pair) at the special-function units' rate. A pair whose
+    distance is clipped needs no position product: its position logit, its
+    share of dq and of the table's gradient come from one scalar a query and
+    table end, so the forward needs 2 products of 2*16 FLOP for it, not 3,
+    and the backward 5 (content logit, dp, dv, dk, dq), not 8."""
+    import numpy as np
+    import torch
+
+    i = np.arange(tq) + q_offset
+    first = np.maximum(0, i - max_pos + 1)
+    last = np.minimum(t_valid - 1, i + max_pos - 1)
+    near = int(np.maximum(0, last - first + 1).sum())   # pairs a group with |i - j| < max_pos
+    far = tq * t_valid - near
+    d, rows = 16, 2 * max_pos + 1
+    es = 2 if dtype_name == "bfloat16" else 4
+    if backward:
+        flops = 2 * d * g * (8 * near + 5 * far)
+        # q, g, out, dq and k, v, dk, dv once each, the table and its gradient, lse
+        nbytes = es * d * (4 * g * tq + 4 * g * tk + rows) + 4 * (rows * d + g * tq)
+    else:
+        flops = 2 * d * g * (3 * near + 2 * far)
+        nbytes = es * d * (2 * g * tq + 2 * g * tk + rows)
+    exps = g * tq * t_valid
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {
+        "operations": flops / ATTN_PEAK_FLOPS[dtype_name],
+        "bytes": nbytes / PEAK_BYTES,
+        "exp": exps / (EXP_PER_CLOCK_SM * sms * max_sm_clock_hz()),
+    }
+    by = max(times, key=times.get)
+    return {"bound_ms": 1e3 * times[by], "bound_by": by, "flop": flops, "bytes": nbytes,
+            "exps": exps, "clipped_share": far / (tq * t_valid),
+            "bound_parts_ms": {k: 1e3 * v for k, v in times.items()}}
 
 
 def synthetic_track(n: int, seed: int):
@@ -129,14 +192,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed):
+def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, max_pos=512):
     import torch
 
     from cmgan_torch.ops import flash_attention as fa
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    d, max_pos = fa.HEAD_DIM, 512
+    d = fa.HEAD_DIM
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
@@ -167,21 +230,51 @@ def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed):
 
     ms = cuda_ms(kernel, reps=10)
     plain_ms = cuda_ms(plain, reps=2)
-    es = torch.finfo(dtype).bits // 8
-    flops = 3 * 2 * g * tq * t_valid * d  # content, position and P.V terms
-    nbytes = es * d * (2 * g * tq + 2 * g * tk + table.shape[0])
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
     case = {
         "dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "t_valid": t_valid,
-        "q_offset": q_offset, "max_abs_err": err, "tol": [atol, rtol],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "flop": flops, "bytes": nbytes,
+        "q_offset": q_offset, "max_pos": max_pos, "max_abs_err": err, "tol": [atol, rtol],
+        "ms": ms, "plain_ms": plain_ms,
+        **attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward=False),
     }
     log(f"[2] kernel {json.dumps(case)}")
     if not (close and finite):
         raise AssertionError(f"kernel disagrees with the plain version: {case}")
     return case
+
+
+def check_tiled_against_kernels(seed=3):
+    """[2] the tile-by-tile plain versions (64-wide tiles, as the kernels
+    walk) against both kernels at one small shape where every kind of tile
+    pair occurs, fp32, within the kernels' limits."""
+    import torch
+
+    from cmgan_torch.ops import flash_attention as fa
+
+    g, tq, tk, t_valid, q_offset, max_pos = 8, 300, 450, 430, 100, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(g, tq, 16, generator=gen, device="cuda") * 0.25
+    k, v = (torch.randn(g, tk, 16, generator=gen, device="cuda") for _ in range(2))
+    table = torch.randn(2 * max_pos + 1, 16, generator=gen, device="cuda")
+    cot = torch.randn(g, tq, 16, generator=gen, device="cuda")
+    kinds = {}
+    for *_, kind in fa._tile_pairs(tq, t_valid, q_offset, max_pos, 64):
+        kinds[kind] = kinds.get(kind, 0) + 1
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, table)]
+    out = fa.flash_rel_attention_at(*leaves, max_pos, t_valid, q_offset)
+    grads = torch.autograd.grad(out, leaves, cot)
+    tiled_out = fa.tiled_attention(q, k, v, table, max_pos, t_valid, q_offset, tile=64)
+    tiled = fa.tiled_attention_grads(q, k, v, table, max_pos, t_valid, q_offset, cot, tile=64)
+    torch.cuda.synchronize()
+    atol, rtol = KERNEL_TOL["float32"]
+    ok = torch.allclose(out, tiled_out, atol=atol, rtol=rtol)
+    errs = {"out": (out - tiled_out).abs().max().item()}
+    for name, a, b in zip(("dq", "dk", "dv", "dE"), grads, tiled):
+        errs[name] = ((a - b).abs().max() / b.abs().max()).item()
+        ok = ok and errs[name] <= BWD_TOL["float32"]
+    log(f"[2] tiled plain versions vs kernels, G {g} Tq {tq} Tk {tk} t_valid {t_valid} q_offset "
+        f"{q_offset} max_pos {max_pos}, tile pairs {kinds}: {json.dumps(errs)}")
+    if not ok or len(kinds) != 3:
+        raise AssertionError("the kernels disagree with their tile-by-tile plain versions")
 
 
 def realtime_factor(fn, audio_seconds: float, reps: int = 3) -> float:
@@ -227,7 +320,8 @@ def bound_ms(flops: float, nbytes: float, dtype_name: str):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PLAIN_GROUP_CHUNK):
+def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PLAIN_GROUP_CHUNK,
+                        max_pos=512):
     """The backward kernel against autograd through the plain version."""
     import torch
 
@@ -235,7 +329,7 @@ def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PL
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    d, max_pos = fa.HEAD_DIM, 512
+    d = fa.HEAD_DIM
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
@@ -268,32 +362,97 @@ def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PL
     torch.cuda.synchronize()
     tol = BWD_TOL[dtype_name]
     errs, ok = {}, True
+    # with one valid key the weights are the constant 1: dq, dk and dE are zero
+    # and their references hold rounding noise, so the cotangent's largest entry is the scale
+    floor = cot.float().abs().max().item() if t_valid == 1 else 0.0
     for name, a, b in zip(("dq", "dk", "dv", "dE"), grads, ref):
         err, top = (a.float() - b).abs().max().item(), b.abs().max().item()
         errs[name] = {"max_abs_err": err, "ref_max": top}
-        ok = ok and bool(torch.isfinite(a.float()).all()) and err <= tol * top and a.dtype == dtype
+        ok = (ok and bool(torch.isfinite(a.float()).all()) and err <= tol * max(top, floor)
+              and a.dtype == dtype)
 
     _, lse = fa._launch_forward(q, k, v, table, max_pos, t_valid, q_offset, True)
     ms = cuda_ms(lambda: fa._launch_backward(q, k, v, table, out.detach(), lse, cot, max_pos,
                                              t_valid, q_offset), reps=5)
     plain_ms = cuda_ms(plain, reps=1)
-    es = torch.finfo(dtype).bits // 8
-    # two logit terms, dp, dv, dk, two dq terms, dE
-    flops = 8 * 2 * g * tq * t_valid * d
-    # q, g, out, dq and k, v, dk, dv once each, the table and its gradient, lse
-    nbytes = es * d * (4 * g * tq + 4 * g * tk + table.shape[0]) + 4 * (table.numel() + g * tq)
-    b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
     case = {
         "dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "t_valid": t_valid,
-        "q_offset": q_offset, "errors": errs, "tol_of_ref_max": tol,
+        "q_offset": q_offset, "max_pos": max_pos, "errors": errs, "tol_of_ref_max": tol,
         "max_abs_err": max(e["max_abs_err"] for n, e in errs.items() if n != "dE"),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "flop": flops, "bytes": nbytes,
+        "ms": ms, "plain_ms": plain_ms,
+        **attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward=True),
     }
     log(f"[7] backward kernel {json.dumps(case)}")
     if not ok:
         raise AssertionError(f"backward kernel disagrees with the plain version: {case}")
     return case
+
+
+def check_against_float64(seed=13):
+    """[7] what the fp32 route is worth: both kernels and their plain versions
+    against the same function in float64, relative L2, at G 16, T 641. The
+    kernels may be at most FLOAT64_FACTOR times as far as the plain versions."""
+    import torch
+
+    from cmgan_torch.ops import flash_attention as fa
+
+    g, t, max_pos = 16, 641, 512
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(g, t, 16, generator=gen, device="cuda") * 0.25
+    k, v, cot = (torch.randn(g, t, 16, generator=gen, device="cuda") for _ in range(3))
+    table = torch.randn(2 * max_pos + 1, 16, generator=gen, device="cuda")
+
+    with float_means_double():  # the plain version widens with .float()
+        wide = [x.double() for x in (q, k, v, table)]
+        truth = [fa.reference_attention(*wide[:3], fa.make_rel_band(wide[3], t, max_pos), t),
+                 *fa.reference_attention_grads(*wide, max_pos, t, 0, cot.double())]
+    plain = [fa.reference_attention(q, k, v, fa.make_rel_band(table, t, max_pos), t),
+             *fa.reference_attention_grads(q, k, v, table, max_pos, t, 0, cot)]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, table)]
+    out = fa.flash_rel_attention_at(*leaves, max_pos, t, 0)
+    kernel = [out.detach(), *torch.autograd.grad(out, leaves, cot)]
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return ((a.double() - b).norm() / b.norm()).item()
+
+    report, ok = {}, all(x.dtype == torch.float64 for x in truth)
+    for name, a, b, c in zip(("out", "dq", "dk", "dv", "dE"), plain, kernel, truth):
+        report[name] = {"plain": rel(a, c), "kernel": rel(b, c)}
+        ok = ok and report[name]["kernel"] <= FLOAT64_FACTOR * report[name]["plain"]
+    log(f"[7] fp32 against float64, rel L2, G {g} T {t}: {json.dumps(report)}")
+    if not ok:
+        raise AssertionError("the fp32 kernels are further from float64 than allowed")
+
+
+def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3):
+    """[7] device time of each kernel of one backward launch at the training shape."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmgan_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, cot = ((torch.randn(g, t, 16, generator=gen, device="cuda") * s).to(dtype)
+                    for s in (0.25, 1.0, 1.0, 1.0))
+    table = torch.randn(2 * max_pos + 1, 16, generator=gen, device="cuda").to(dtype)
+    out, lse = fa._launch_forward(q, k, v, table, max_pos, t, 0, True)
+
+    def run():
+        fa._launch_backward(q, k, v, table, out, lse, cot, max_pos, t, 0)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "flash_rel" in e.key:
+            log(f"[7] backward {dtype_name} G {g} T {t}: {e.self_device_time_total / 1e3 / reps:.3f} ms "
+                f"a launch, {e.key[e.key.index('flash_rel'):][:44]}")
 
 
 def check_layernorm_case(dtype_name, n, seed, c=64, eps=1e-5):
@@ -710,6 +869,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
 
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name: str):
+        now = time.perf_counter()
+        laps[name], last[0] = round(now - last[0], 2), now
+
     # -- 1. card, versions, build --
     smi = nvidia_smi()
     log(f"[1] card: {smi}")
@@ -725,10 +890,24 @@ def main() -> int:
     for build in builds:
         log(f"[1] built {os.path.relpath(build.path, ROOT)} in {build.seconds:.2f} s")
         for line in build.log.splitlines():
+            if "Compiling entry function" in line:
+                log(f"[1]   {line.split(chr(39))[1][-64:]}")
             if "registers" in line or "spill" in line:
                 log(f"[1]   {line.strip()}")
+    fwd_lib, bwd_lib = fa._kernel(), fa._bwd_kernel()
+    for bf16 in (0, 1):
+        name = "bf16" if bf16 else "fp32"
+        log(f"[1] dynamic shared memory a block, {name}, max_pos 512: forward "
+            f"{fwd_lib.cmgan_flash_rel_attention_fwd_smem(bf16)} B; backward dq/dE kernel "
+            f"{bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, 0, 512)} B in "
+            f"{bwd_lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 1616, 641, 512)} blocks "
+            f"at G 1616, T 641 ({bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, 0, 1536)} B at "
+            f"max_pos 1536, dE in global memory), dk/dv kernel "
+            f"{bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, 1, 512)} B")
     log(f"[1] built {os.path.relpath(pesq_build.result(), ROOT)} (host PESQ scorer, g++); "
         f"all builds {time.perf_counter() - t0:.2f} s")
+
+    lap("1 build")
 
     # -- 2. kernel against its plain version --
     cases = []
@@ -737,7 +916,15 @@ def main() -> int:
             cases.append(check_kernel_case(dtype_name, 404, t, t, t, 0, seed=t))
     cases.append(check_kernel_case("float32", 404, 2561, 2561, 2400, 0, seed=1))
     cases.append(check_kernel_case("float32", 404, 1280, 2560, 2560, 128, seed=2))
+    for dtype_name in ("float32", "bfloat16"):  # most tile pairs clipped
+        cases.append(check_kernel_case(dtype_name, 404, 641, 641, 641, 0, seed=4, max_pos=64))
+        # the G step's forward shape at cut_len 64000, batch 4
+        cases.append(check_kernel_case(dtype_name, 1616, 641, 641, 641, 0, seed=5))
+    cases.append(check_kernel_case("float32", 101, 641, 641, 1, 0, seed=6))  # one valid key
+    check_tiled_against_kernels()
     main_case = cases[1]  # fp32 at the 16 s segment, the main path's shape
+
+    lap("2 forward kernel")
 
     # -- 3. the main path, fp32 --
     cfg = CMGANConfig()
@@ -811,13 +998,28 @@ def main() -> int:
     del enh32, enh16
     torch.cuda.empty_cache()
 
+    lap("3-6 enhancement")
+
     # -- 7. the backward kernel against autograd through the plain version --
     bwd_cases = [check_backward_case(dt, 1616, 641, 641, 641, 0, seed=7)
                  for dt in ("float32", "bfloat16")]
     bwd_cases.append(check_backward_case("float32", 101, 2561, 2561, 2561, 0, seed=8, chunk=16))
+    bwd_cases.append(check_backward_case("bfloat16", 101, 2561, 2561, 2561, 0, seed=8, chunk=16))
+    for dt in ("float32", "bfloat16"):  # most tile pairs clipped
+        bwd_cases.append(check_backward_case(dt, 404, 641, 641, 641, 0, seed=12, max_pos=64))
     bwd_cases.append(check_backward_case("float32", 404, 641, 641, 600, 0, seed=9))
     bwd_cases.append(check_backward_case("float32", 101, 1280, 2560, 2560, 128, seed=10, chunk=16))
+    for dt in ("float32", "bfloat16"):
+        bwd_cases.append(check_backward_case(dt, 101, 641, 641, 1, 0, seed=15))  # one valid key
+        # a table too long for the block's shared memory: dE through global memory
+        bwd_cases.append(check_backward_case(dt, 32, 2561, 2561, 2561, 0, seed=16, chunk=16,
+                                             max_pos=1536))
     bwd_main = bwd_cases[0]  # fp32 at the training shape
+    check_against_float64()
+    for dt in ("float32", "bfloat16"):
+        backward_profile(dt)
+
+    lap("7 backward kernel")
 
     # -- 8. the LayerNorm kernel against its plain version and F.layer_norm --
     ln_cases = [check_layernorm_case(dt, n, seed=11)
@@ -834,11 +1036,18 @@ def main() -> int:
         raise AssertionError("fused_layernorm's public entry did not launch its kernel")
     del x
 
+    lap("8 layernorm kernel")
+
     # -- 9 .. 12. training --
     g_step_flash_vs_dense()
+    lap("9 G step")
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         train_fwd, train_bwd = train_through_cli(tmp)
+    lap("10-11 train CLI")
     training_rates(smi)
+    lap("12 training rates")
+    log(f"seconds by phase: {json.dumps(laps)}, in all {sum(laps.values()):.1f} "
+        f"(imports and the card's start not counted)")
 
     kernels = {"kernels": [{
         "name": "flash_rel_attention",

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface. At first use it is
 compiled for Hopper (`sm_90a`) into a shared library under
-`cmgan_torch/ops/_build/<name>-<hash>/`, keyed by a hash of the source
-and the flags, and loaded with `ctypes`. Nothing here includes PyTorch's
+`cmgan_torch/ops/_build/<name>-<hash>/`, keyed by a hash of the source,
+of every header under `csrc/` it includes, and of the flags, and loaded
+with `ctypes`. Nothing here includes PyTorch's
 headers, so a build takes seconds. Nothing is built at import time.
 """
 
@@ -14,6 +15,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,6 +26,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "--split-compile=0",  # a source's kernels compile side by side (nvcc 12.1 or later)
 )
 
 
@@ -46,11 +49,31 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[str]:
+    """csrc/<name>.cu and, in the order met, every file under csrc/ that it
+    includes with quotes, directly or through another such file."""
+    files, todo = [], [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        path = os.path.join(CSRC, rel)
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            todo += [os.path.normpath(os.path.join(os.path.dirname(rel), inc.decode()))
+                     for inc in _INCLUDE.findall(f.read())]
+    return files
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_ROOT, f"{name}-{digest}", f"lib{name}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_ROOT, f"{name}-{digest.hexdigest()[:16]}", f"lib{name}.so")
 
 
 def build(name: str) -> Build:

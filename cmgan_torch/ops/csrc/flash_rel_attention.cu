@@ -8,150 +8,220 @@
 //
 // over keys j < t_valid, with the softmax in fp32. q arrives pre-scaled
 // and E unscaled (the caller's contract). q, k, v, out are [G, T, 16]
-// contiguous, E is [2*max_pos+1, 16]; fp32 or bf16 (widened to fp32 on
-// load, the output written in the input type). When `lse` is not null the
-// row log-sum-exp m + log(l) is written there as fp32 [G, Tq]: the backward
-// kernel (flash_rel_attention_bwd.cu) recomputes the weights from it.
+// contiguous, E is [2*max_pos+1, 16]; fp32 or bf16, the output written in
+// the input type. When `lse` is not null the row log-sum-exp m + log(l) is
+// written there as fp32 [G, Tq]: the backward kernel
+// (flash_rel_attention_bwd.cu) recomputes the weights from it.
 //
-// Memory is O(T): nothing of size [G, T, T] exists. One block of 64
-// threads owns one (group, tile of 64 queries), one query per thread, q
-// and the running (max, sum, accumulator) in registers. It walks the keys
-// in tiles of 64 staged in shared memory, together with the 64+64-1 rows
-// of E that the tile pair's distances need, and folds each chunk of 16
-// scores into an online (running-max) softmax.
+// Memory is O(T): nothing of size [G, T, T] exists. One block of four warps
+// owns one (group, tile of 64 queries), 16 queries a warp, and walks the keys
+// in tiles of 64 staged in shared memory. All three products run on the
+// tensor cores through mma.sync.m16n8k16 with fp32 accumulators
+// (flash_rel_common.cuh): bf16 inputs as they are, fp32 inputs as three bf16
+// parts an element and six part products, which keeps fp32 accuracy. The
+// running max, the sum and the output accumulator stay fp32 in registers, and
+// the weights are narrowed only as the A operand of P.V (bf16: rounded once;
+// fp32: split in three).
+//   content   S = Q_w . K^T            8 tile products a warp and key tile
+//   position  R = Q_w . E_window^T    10, added to S through the skew
+//             s[r][b] += R[r][r - b + 63] (scratch in shared memory)
+//   values    O += P . V               8
+// A tile pair whose every distance is clipped (|i - j| >= max_pos throughout;
+// 64% of the pairs at T = 2561, max_pos 512) stages no window and computes no
+// R: its position logit is one of two scalars a query, computed once a block.
 //
 // What bounds it on an H100 SXM (700 W part; 989 TFLOP/s bf16 tensor,
-// 67 TFLOP/s fp32 non-tensor, 3.35 TB/s). At the 16 s segment
-// (G = 404, T = 2561, D = 16): content, position and P.V terms are
-// 3 * 2*T*T*D * G = 2.54e11 FLOP, and q/k/v/out move 4*G*T*D*4 B =
-// 265 MB in fp32 (132 MB in bf16). So the function is bound by
-// operations: 3.8 ms at the fp32 rate, 0.26 ms at the bf16 tensor rate,
-// against 0.08 ms (fp32) for the bytes. This first version uses the fp32
-// CUDA cores only (no tensor cores, TMA or wgmma); its reads of K, V and
-// the E rows from shared memory, not the FMAs, are expected to limit it.
+// 3.35 TB/s, 16 exponentials a clock an SM). At the 16 s segment (G = 404,
+// T = 2561): the function needs ~2.4 products of 2*T*T*16*G FLOP (the clipped
+// pairs need no position product), 2.0e11 FLOP, and 2.65e9 exponentials.
+// bf16: 0.20 ms of products, 0.63 ms of exponentials at a 1.98 GHz clock:
+// bound by the exponentials. fp32: six part products each, 1.2 ms, bound by
+// the operations. The bytes take 0.08 ms. What this version leaves: tile
+// loads travel through registers (fetched a tile ahead) rather than a
+// cp.async/TMA ring, two block syncs a tile, the skew's round trip through
+// shared memory, and mma.sync where wgmma would take fewer instructions.
 // A card whose power limit is below 700 W runs slower under load.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "flash_rel_common.cuh"
 
 namespace {
 
-constexpr int D = 16;
-constexpr int BQ = 64;                // queries per block, one per thread
-constexpr int BK = 64;                // keys per shared-memory tile
-constexpr int NE = BQ + BK - 1;       // rows of E one tile pair needs
-constexpr int ESTRIDE = D + 4;        // padded E row: conflict-free float4 reads
-constexpr int CHUNK = 16;             // scores per online-softmax update
+using namespace flash_rel;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void narrow(float x, float* p) { *p = x; }
-__device__ __forceinline__ void narrow(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
+constexpr int NW = 4;                 // warps per block
+constexpr int NT = 32 * NW;
+constexpr int BQ = 16 * NW;           // queries per block
+constexpr int WIN = BQ + BK;          // staged window rows (BQ + BK - 1 used)
 
-__device__ __forceinline__ float dot4(const float* q, float4 x) {
-  return q[0] * x.x + q[1] * x.y + q[2] * x.z + q[3] * x.w;
+template <typename T>
+constexpr int fwd_smem_bytes() {
+  return (2 * BK + WIN) * TS * 2 * Parts<T>::N + NW * RCOLS * RS * 4;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(BQ)
+__global__ void __launch_bounds__(NT)
 flash_rel_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ table,
               T* __restrict__ out, float* __restrict__ lse, int Tq, int Tk,
               int n_qtiles, int max_pos, int t_valid, int q_offset) {
-  __shared__ __align__(16) float ks[BK * D];
-  __shared__ __align__(16) float vs[BK * D];
-  __shared__ __align__(16) float es[NE * ESTRIDE];
+  constexpr int P = Parts<T>::N;                        // bf16 planes of a staged tile
+  constexpr int KPL = BK * TS, EPL = WIN * TS;          // elements a plane
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + P * KPL;
+  bf16* es = vs + P * KPL;
+  float* rt_all = reinterpret_cast<float*>(es + P * EPL);
 
-  const int g = blockIdx.x / n_qtiles;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* rt = rt_all + w * RCOLS * RS;
+
+  const int grp = blockIdx.x / n_qtiles;
   const int i0 = (blockIdx.x % n_qtiles) * BQ;
-  const int a = threadIdx.x;
-  const bool live = i0 + a < Tq;
-  const size_t qrow = (static_cast<size_t>(g) * Tq + i0 + a) * D;
 
-  float qr[D];
+  // the query tile goes through the window's room once, into registers
+  stage_rows<T, NT>(es, EPL, q + static_cast<size_t>(grp) * Tq * D, i0, BQ, Tq, tid);
+  __syncthreads();
+  FragA<P> qa;
+  load_a<P>(qa, es, EPL, TS, 16 * w, 0, lane);
+  // q_a . E[2*max_pos] and q_a . E[0] for rows g and g + 8: the clipped tiles' logit
+  float pos_hi[2], pos_lo[2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = live ? widen(q[qrow + d]) : 0.f;
-
-  float acc[D];
+  for (int rr = 0; rr < 2; ++rr) {
+    float hi = 0.f, lo = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = -CUDART_INF_F;
-  float l = 0.f;
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 2 * t + 8 * h + e;
+        const float x = tile_value<P>(es, EPL, (16 * w + g + 8 * rr) * TS + d);
+        hi += x * widen(table[2 * max_pos * D + d]);
+        lo += x * widen(table[d]);
+      }
+    }
+    pos_hi[rr] = quad_sum(hi);
+    pos_lo[rr] = quad_sum(lo);
+  }
 
-  const T* kg = k + static_cast<size_t>(g) * Tk * D;
-  const T* vg = v + static_cast<size_t>(g) * Tk * D;
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};  // out rows g, g+8; d = 8n + 2t, +1
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+
+  const T* kg = k + static_cast<size_t>(grp) * Tk * D;
+  const T* vg = v + static_cast<size_t>(grp) * Tk * D;
+
+  TileFetch<T, NT, BK> k_next, v_next;
+  TileFetch<T, NT, WIN> e_next;
+  auto fetch = [&](int j0) {
+    const int base = i0 + q_offset - j0 - (BK - 1);
+    k_next.fetch_rows(kg, j0, Tk, tid);
+    v_next.fetch_rows(vg, j0, Tk, tid);
+    if (clip_kind(base, BQ, max_pos) == kMixed) e_next.fetch_window(table, base, max_pos, tid);
+  };
+  fetch(0);
 
   for (int j0 = 0; j0 < t_valid; j0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int e = a; e < BK * D; e += BQ) {
-      const bool in = j0 + e / D < Tk;
-      ks[e] = in ? widen(kg[static_cast<size_t>(j0) * D + e]) : 0.f;
-      vs[e] = in ? widen(vg[static_cast<size_t>(j0) * D + e]) : 0.f;
-    }
-    // es row r holds E at distance base + r; thread a meets key b at row a - b + BK - 1
     const int base = i0 + q_offset - j0 - (BK - 1);
-    for (int e = a; e < NE * D; e += BQ) {
-      const int r = e / D;
-      const int dist = min(max(base + r, -max_pos), max_pos) + max_pos;
-      es[r * ESTRIDE + e % D] = widen(table[dist * D + e % D]);
-    }
+    const int kind = clip_kind(base, BQ, max_pos);
+    __syncthreads();  // the previous tile (or the query tile) is consumed
+    k_next.store(ks, tid);
+    v_next.store(vs, tid);
+    if (kind == kMixed) e_next.store(es, tid);
     __syncthreads();
+    if (j0 + BK < t_valid) fetch(j0 + BK);  // in flight while this tile is computed
 
-    const int nk = min(BK, t_valid - j0);
-    for (int b0 = 0; b0 < nk; b0 += CHUNK) {
-      float s[CHUNK];
-      float cmax = -CUDART_INF_F;
+    float s[BK / 8][4];
+    warp_logits<P>(s, qa, ks, es, EPL, rt, kind, pos_hi, pos_lo, w, lane);
+
+    const int nk = t_valid - j0;  // keys at or past nk are masked
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        const int b = b0 + c;
-        const float4* kr = reinterpret_cast<const float4*>(ks + b * D);
-        const float4* er = reinterpret_cast<const float4*>(es + (a - b + BK - 1) * ESTRIDE);
-        float content = 0.f, pos = 0.f;
+    for (int nb = 0; nb < BK / 8; ++nb) {
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          content += dot4(qr + 4 * d4, kr[d4]);
-          pos += dot4(qr + 4 * d4, er[d4]);
-        }
-        s[c] = b < nk ? content + pos : -CUDART_INF_F;  // keys >= t_valid are masked
-        cmax = fmaxf(cmax, s[c]);
+      for (int e = 0; e < 2; ++e) {
+        if (8 * nb + 2 * t + e >= nk) s[nb][e] = s[nb][2 + e] = -CUDART_INF_F;
+        mx[0] = fmaxf(mx[0], s[nb][e]);
+        mx[1] = fmaxf(mx[1], s[nb][2 + e]);
       }
-      // cmax is finite: key b0 < nk is valid
-      const float m_new = fmaxf(m, cmax);
-      const float corr = __expf(m - m_new);
-      l *= corr;
+    }
+    float corr[2];
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
+    for (int rr = 0; rr < 2; ++rr) {
+      // finite: key j0 is valid
+      const float m_new = fmaxf(m[rr], quad_max(mx[rr]));
+      corr[rr] = __expf(m[rr] - m_new);
+      m[rr] = m_new;
+      l[rr] *= corr[rr];
+    }
 #pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        const float p = __expf(s[c] - m_new);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(vs + (b0 + c) * D);
+    for (int n = 0; n < 2; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 x = vr[d4];
-          acc[4 * d4 + 0] += p * x.x;
-          acc[4 * d4 + 1] += p * x.y;
-          acc[4 * d4 + 2] += p * x.z;
-          acc[4 * d4 + 3] += p * x.w;
-        }
+    for (int nb = 0; nb < BK / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nb][e] = __expf(s[nb][e] - m[0]);
+        s[nb][2 + e] = __expf(s[nb][2 + e] - m[1]);
+        l[0] += s[nb][e];
+        l[1] += s[nb][2 + e];
       }
-      m = m_new;
+    }
+    // the weights of keys 16kk .. 16kk + 15 are two neighbouring logit tiles
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const float pv[8] = {s[2 * kk][0], s[2 * kk][1], s[2 * kk][2], s[2 * kk][3],
+                           s[2 * kk + 1][0], s[2 * kk + 1][1], s[2 * kk + 1][2], s[2 * kk + 1][3]};
+      FragA<P> pa;
+      frag_from(pa, pv);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        FragB<P> vb;
+        load_b_trans<P>(vb, vs, KPL, TS, 8 * n, 16 * kk, lane);
+        mma(acc[n], pa, vb);
+      }
     }
   }
 
-  if (live) {
-    const float inv = 1.f / l;
 #pragma unroll
-    for (int d = 0; d < D; ++d) narrow(acc[d] * inv, out + qrow + d);
-    if (lse != nullptr) lse[static_cast<size_t>(g) * Tq + i0 + a] = m + __logf(l);
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = i0 + 16 * w + g + 8 * rr;
+    const float sum = quad_sum(l[rr]);
+    if (row < Tq) {
+      const float inv = 1.f / sum;
+      T* o = out + (static_cast<size_t>(grp) * Tq + row) * D;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        narrow2(acc[n][2 * rr] * inv, acc[n][2 * rr + 1] * inv, o + 8 * n + 2 * t);
+      }
+      if (lse != nullptr && t == 0) lse[static_cast<size_t>(grp) * Tq + row] = m[rr] + __logf(sum);
+    }
   }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* table, void* out, void* lse,
+           int G, int Tq, int Tk, int max_pos, int t_valid, int q_offset, cudaStream_t s) {
+  constexpr int bytes = fwd_smem_bytes<T>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_rel_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qtiles = (Tq + BQ - 1) / BQ;
+  const dim3 grid(static_cast<unsigned>(G) * static_cast<unsigned>(n_qtiles));
+  flash_rel_fwd<T><<<grid, NT, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(table), static_cast<T*>(out), static_cast<float*>(lse), Tq, Tk,
+      n_qtiles, max_pos, t_valid, q_offset);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); does not synchronise.
+// Plain C entry for ctypes. Launches on `stream` and returns the first CUDA
+// error (0 on success); does not synchronise. Pointers are 16-byte aligned.
 extern "C" int cmgan_flash_rel_attention_fwd(
     const void* q, const void* k, const void* v, const void* table, void* out,
     void* lse, int G, int Tq, int Tk, int head_dim, int max_pos, int t_valid, int q_offset,
@@ -159,23 +229,14 @@ extern "C" int cmgan_flash_rel_attention_fwd(
   if (head_dim != D || G <= 0 || Tq <= 0 || t_valid <= 0 || t_valid > Tk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int n_qtiles = (Tq + BQ - 1) / BQ;
-  const dim3 grid(static_cast<unsigned>(G) * static_cast<unsigned>(n_qtiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    flash_rel_fwd<__nv_bfloat16><<<grid, BQ, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(table),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Tq, Tk, n_qtiles, max_pos, t_valid, q_offset);
-  } else {
-    flash_rel_fwd<float><<<grid, BQ, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(table),
-        static_cast<float*>(out), static_cast<float*>(lse), Tq, Tk, n_qtiles, max_pos, t_valid, q_offset);
+    return launch<__nv_bfloat16>(q, k, v, table, out, lse, G, Tq, Tk, max_pos, t_valid, q_offset, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(q, k, v, table, out, lse, G, Tq, Tk, max_pos, t_valid, q_offset, s);
 }
 
-extern "C" const char* cmgan_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// Dynamic shared memory, in bytes, of one block.
+extern "C" int cmgan_flash_rel_attention_fwd_smem(int is_bf16) {
+  return is_bf16 ? fwd_smem_bytes<__nv_bfloat16>() : fwd_smem_bytes<float>();
 }

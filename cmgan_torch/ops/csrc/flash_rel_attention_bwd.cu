@@ -13,326 +13,723 @@
 //   dv_j = sum_i p_ij g_i                   dE[r] = sum over groups and all
 //                                                   (i, j) with r_ij = r of ds_ij q_i
 //
-// q, k, v, out, g, dq, dk, dv are [G, T, 16] contiguous, fp32 or bf16 (widened
-// on load, every sum in fp32, written in the input type); lse is the forward
-// kernel's fp32 [G, Tq] row log-sum-exp; dE is an fp32 [2*max_pos+1, 16]
-// buffer the caller zeroes. Memory is O(T): the weights are recomputed tile
-// by tile from lse, nothing of size [G, T, T] exists.
+// q, k, v, out, g, dq, dk, dv are [G, T, 16] contiguous, fp32 or bf16 (every
+// sum in fp32, written in the input type); lse is the forward kernel's fp32
+// [G, Tq] row log-sum-exp; dE is written as fp32 [2*max_pos+1, 16]. Memory is
+// O(T): the weights are recomputed tile by tile from lse.
 //
-// The TPU kernel walks its query blocks in order and accumulates dk, dv and
-// the band gradient across revisits; blocks here run in parallel, so the work
-// is split into two kernels, each the sole owner of what it writes:
+// Every product runs on the tensor cores through mma.sync.m16n8k16
+// (flash_rel_common.cuh: bf16 as it is, fp32 as three bf16 parts and six part
+// products), warps own 16 queries each, and the position logits come from
+// R = Q_w . E_window^T through the skew, or from two scalars a query where a
+// whole tile pair is clipped. Three kernels and a sum:
 //
-//   flash_rel_bwd_dq  one block per (group, 64 queries), one query a thread;
-//       loops over key tiles; writes dq and delta, accumulates dE.
-//   flash_rel_bwd_dkv one block per (group, 64 keys), one key a thread; loops
-//       over query tiles; writes dk and dv (zeros for keys >= t_valid).
+//   flash_rel_delta   delta_i = g_i . out_i, one thread a row.
+//   flash_rel_bwd<kOwnQ>   a block owns (group, BQ queries) and walks the key
+//       tiles: dq in registers, and the table's gradient.
+//   flash_rel_bwd<kOwnK>   a block owns (group, 64 keys) and walks the query
+//       tiles: P and dS go through shared memory so that their transposes are
+//       the A operands of dv = P^T . g and dk = dS^T . Q, kept in registers.
+//   flash_rel_sum_partials   adds the blocks' sums of the table's gradient.
 //
-// dE is the hard part: 1025 x 16 sums over every group and pair. Pairs whose
-// distance is clipped (|i + q_offset - j| >= max_pos) all land on row 0 or
-// row 2*max_pos; each thread keeps their two ds sums in registers and the
-// block adds sum_a c_a q_a to those rows once, at its end. Unclipped pairs of
-// one tile pair touch 127 consecutive rows: they are summed in shared memory
-// (shared atomics, row stride 17 so a warp's 32 rows fall in 32 banks) and
-// added to the global buffer once per tile pair with coalesced fp32 atomics.
-// The order of those atomics varies from run to run, so dE is reproducible
-// only to fp32 rounding of its sum.
+// The table's gradient without shared atomics. ds is written skewed,
+// dR[r][r - b + 63] = ds[r][b], into a per-warp [16, 80] scratch (it lies over
+// the warp's R scratch, which is consumed by then; the cells outside the
+// parallelogram are zeroed anew). Then dE_window = dR^T . Q_tile is a tile
+// product again (rows: window rows, depth: queries); each warp owns whole
+// 16-row blocks of the window, skips the blocks of depth where dR is zero by
+// construction, and adds its result into a block-wide fp32 [2*max_pos+1, 16]
+// buffer in shared memory (65,600 B at max_pos 512) with plain
+// read-modify-writes (each cell has one owner a tile pair). Clipped pairs, in
+// a wholly clipped tile pair or in a mixed one, are summed per query in
+// registers (rows 0 and 2*max_pos of the table collect them all); only these
+// sums, once a (group, query tile), use shared atomics. Blocks are persistent (one a
+// multiprocessor's room, looping over items); each writes its buffer once, to
+// its own row of a [blocks, 16,400] scratch, and flash_rel_sum_partials adds
+// the rows in a fixed order: no global atomics. Only the shared atomics of
+// rows 0 and 2*max_pos sum in an order that varies from run to run.
 //
-// What bounds it on an H100 SXM (700 W part; 67 TFLOP/s fp32 outside the
-// tensor cores, 989 TFLOP/s bf16 tensor, 3.35 TB/s): the function is eight
-// products of 2*G*Tq*t_valid*16 FLOP (two logit terms, dp, dv, dk, two dq
-// terms, dE), so operations. At G = 1616, T = 641 that is 1.70e11 FLOP,
-// 2.5 ms at the fp32 rate, against 0.16 ms for the bytes. This version uses
-// the fp32 CUDA cores only and recomputes the logits in both kernels (11
-// products in all); shared-memory reads and the shared atomics, not the
-// FMAs, are expected to limit it.
+// A table too long for that buffer (max_pos above 758 in fp32, 1466 in bf16,
+// beside the tiles in the 227 KB a block may have) takes the same kernel with
+// de_global set: the blocks keep no buffer and add into one zeroed row of the
+// scratch with global atomics, one a cell and tile pair. The models' max_pos
+// is 512.
+//
+// What bounds it on an H100 SXM (700 W part; 989 TFLOP/s bf16 tensor,
+// 3.35 TB/s, 16 exponentials a clock an SM): the function is eight products of
+// 2*G*Tq*t_valid*16 FLOP (five where a pair is clipped) and one exponential a
+// pair. At G = 1616, T = 641: 1.7e11 FLOP, 0.17 ms in bf16, as long as its
+// 6.6e8 exponentials; 1.0 ms in fp32 (six part products each); 0.16 ms (fp32)
+// for the bytes. The two-kernel form recomputes the logits (11 products and
+// two exponentials a pair, against the function's 8 and 1). What is left: the
+// block that owns the queries needs its 65.6 KB buffer, so few warps share a
+// multiprocessor (bf16 two blocks of four, fp32 one of eight); tile loads
+// travel through registers, not a cp.async/TMA ring; mma.sync, not wgmma. One
+// kernel that owns a key tile and adds dq with global atomics was measured and
+// was slower, as was the other block size of each type (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_rel_common.cuh"
 
 namespace {
 
-constexpr int D = 16;
-constexpr int BT = 64;                // queries or keys per tile, one per thread
-constexpr int NE = 2 * BT - 1;        // rows of E one tile pair needs
-constexpr int ESTRIDE = D + 4;        // padded E row: conflict-free float4 reads
-constexpr int DSTRIDE = D + 1;        // padded dE row: 32 lanes, 32 banks
+using namespace flash_rel;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void narrow(float x, float* p) { *p = x; }
-__device__ __forceinline__ void narrow(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
+enum Mode { kOwnQ = 0, kOwnK = 1 };
 
-__device__ __forceinline__ float dot4(const float* q, float4 x) {
-  return q[0] * x.x + q[1] * x.y + q[2] * x.z + q[3] * x.w;
-}
-
-__device__ __forceinline__ void axpy4(float* acc, float s, float4 x) {
-  acc[0] += s * x.x;
-  acc[1] += s * x.y;
-  acc[2] += s * x.z;
-  acc[3] += s * x.w;
-}
-
-// Stage the NE rows of E at distances base .. base + NE - 1 (clipped).
+// warps a block of the kernel that owns the queries: with bf16, two blocks of
+// four warps fit a multiprocessor and beat one of eight; fp32's three planes
+// leave room for one block either way, and eight warps beat four
 template <typename T>
-__device__ __forceinline__ void stage_table(float* es, const T* __restrict__ table,
-                                            int base, int max_pos, int tid) {
-  for (int e = tid; e < NE * D; e += BT) {
-    const int r = e / D;
-    const int row = min(max(base + r, -max_pos), max_pos) + max_pos;
-    es[r * ESTRIDE + e % D] = widen(table[row * D + e % D]);
-  }
-}
+constexpr int kWarpsQ = sizeof(T) == 2 ? 4 : 8;
+
+constexpr int DRS = 88;   // elements per row of a warp's dR scratch (80 used): 16-byte rows,
+                          // conflict-free for ldmatrix
+constexpr int PS = 72;    // elements per row of the P and dS tiles (64 used)
 
 template <typename T>
-__global__ void __launch_bounds__(BT)
-flash_rel_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ table,
-                 const T* __restrict__ out, const T* __restrict__ gout,
-                 const float* __restrict__ lse, T* __restrict__ dq,
-                 float* __restrict__ delta, float* __restrict__ dtable,
-                 int Tq, int Tk, int n_qtiles, int max_pos, int t_valid, int q_offset) {
-  __shared__ __align__(16) float ks[BT * D];
-  __shared__ __align__(16) float vs[BT * D];
-  __shared__ __align__(16) float es[NE * ESTRIDE];
-  __shared__ float des[NE * DSTRIDE];
-
-  const int g = blockIdx.x / n_qtiles;
-  const int i0 = (blockIdx.x % n_qtiles) * BT;
-  const int a = threadIdx.x;
-  const bool live = i0 + a < Tq;
-  const size_t qrow = (static_cast<size_t>(g) * Tq + i0 + a) * D;
-
-  // a thread past Tq carries zeros: its ds, and all it adds, are zero
-  float qr[D], gr[D], dqr[D];
-  float dl = 0.f;
+__global__ void flash_rel_delta(const T* __restrict__ out, const T* __restrict__ gout,
+                                float* __restrict__ delta, int rows) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  float acc = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = live ? widen(q[qrow + d]) : 0.f;
-    gr[d] = live ? widen(gout[qrow + d]) : 0.f;
-    dl += live ? gr[d] * widen(out[qrow + d]) : 0.f;
-    dqr[d] = 0.f;
+  for (int d = 0; d < D; ++d) acc += widen(out[static_cast<size_t>(r) * D + d]) * widen(gout[static_cast<size_t>(r) * D + d]);
+  delta[r] = acc;
+}
+
+// Where column d of table row r sits in a dE buffer: the two halves of a row
+// swap on every other pair of rows, so that a half-warp's 8-byte
+// read-modify-writes of four neighbouring rows fall on 32 different banks.
+__device__ __forceinline__ int de_col(int r, int d) { return d ^ (((r >> 1) & 1) << 3); }
+
+// dE[e] = sum over the rows of partial sums (each laid out by de_col), in a fixed order
+__global__ void flash_rel_sum_partials(const float* __restrict__ partials, float* __restrict__ dtable,
+                                       int n_rows, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int at = (e & ~(D - 1)) + de_col(e / D, e % D);
+  float acc = 0.f;
+  for (int b = 0; b < n_rows; ++b) acc += partials[static_cast<size_t>(b) * n + at];
+  dtable[e] = acc;
+}
+
+// Shared memory of one block, in bytes from its start: the staged tiles (bf16
+// planes), one scratch chunk a warp, then fp32 arrays. A warp's chunk holds its
+// R scratch; its dR rows lie over it (R is consumed before ds exists), and so
+// do its rows of P and dS where no dR is kept.
+template <typename T, int NW, int MODE>
+struct Layout {
+  static constexpr bool kOwnsQ = MODE == kOwnQ;
+  static constexpr int P = Parts<T>::N;
+  static constexpr int BQ = 16 * NW;
+  static constexpr int WIN = BQ + BK;
+  static constexpr int QPL = BQ * TS, KPL = BK * TS, EPL = WIN * TS;  // elements a plane
+  static constexpr int qs = 0;
+  static constexpr int gs = qs + 2 * P * QPL;
+  static constexpr int ks = gs + 2 * P * QPL;
+  static constexpr int vs = ks + 2 * P * KPL;
+  static constexpr int es = vs + 2 * P * KPL;
+  static constexpr int scratch = es + 2 * P * EPL;
+  // within a warp's chunk
+  static constexpr int R_BYTES = RCOLS * RS * 4;
+  static constexpr int PB_BYTES = 16 * PS * static_cast<int>(sizeof(T));
+  static constexpr int pb = 0;
+  static constexpr int dsb = pb + PB_BYTES;
+  static constexpr int CHUNK = kOwnsQ ? R_BYTES : (dsb + PB_BYTES > R_BYTES ? dsb + PB_BYTES : R_BYTES);
+  static_assert(16 * DRS * sizeof(T) <= R_BYTES, "a warp's dR rows lie over its R scratch");
+  static constexpr int lse = scratch + NW * CHUNK;
+  static constexpr int delta = lse + 4 * BQ;
+  static constexpr int eh = delta + 4 * BQ;
+  static constexpr int el = eh + 4 * D;
+  static constexpr int debuf = el + 4 * D;   // (2*max_pos+1) * 16 floats where the block keeps dE
+  static int bytes(int max_pos, bool shared_de) {
+    return debuf + (kOwnsQ && shared_de ? 4 * (2 * max_pos + 1) * D : 0);
   }
-  const float lse_a = live ? lse[static_cast<size_t>(g) * Tq + i0 + a] : 0.f;
-  if (live) delta[static_cast<size_t>(g) * Tq + i0 + a] = dl;
-  float c_lo = 0.f, c_hi = 0.f;  // ds summed over pairs clipped to row 0 / row 2*max_pos
+};
 
-  for (int e = a; e < NE * DSTRIDE; e += BT) des[e] = 0.f;
-
-  const T* kg = k + static_cast<size_t>(g) * Tk * D;
-  const T* vg = v + static_cast<size_t>(g) * Tk * D;
-  const int pos = i0 + a + q_offset;  // this query's global position
-
-  for (int j0 = 0; j0 < t_valid; j0 += BT) {
-    __syncthreads();  // the previous tile is consumed, des is zeroed
-    for (int e = a; e < BT * D; e += BT) {
-      const bool in = j0 + e / D < Tk;
-      ks[e] = in ? widen(kg[static_cast<size_t>(j0) * D + e]) : 0.f;
-      vs[e] = in ? widen(vg[static_cast<size_t>(j0) * D + e]) : 0.f;
+// sum_a c[a] q[a][:] over the warp's 16 queries, added to one row of the dE
+// buffer (the block's, or with de_global the one in global memory): the pairs
+// clipped to that row
+template <int P>
+__device__ __forceinline__ void add_clipped_row(float* debuf, float* de_all, int de_global, int r,
+                                                const float* c, const bf16* qs_w, int q_plane,
+                                                int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = 2 * t + 8 * h + e;
+      float x = c[0] * tile_value<P>(qs_w, q_plane, g * TS + d) +
+                c[1] * tile_value<P>(qs_w, q_plane, (g + 8) * TS + d);
+      x += __shfl_xor_sync(0xffffffffu, x, 4);
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      if (g == 0) {
+        const int at = r * D + de_col(r, d);
+        if (de_global) {
+          atomicAdd(de_all + at, x);
+        } else {
+          atomicAdd(debuf + at, x);
+        }
+      }
     }
-    // es / des row r is distance base + r; thread a meets key b at row a - b + BT - 1
-    const int base = i0 + q_offset - j0 - (BT - 1);
-    stage_table(es, table, base, max_pos, a);
-    __syncthreads();
+  }
+}
 
-    const int nk = min(BT, t_valid - j0);
-    for (int b = 0; b < nk; ++b) {
-      const int r = a - b + BT - 1;
-      const float4* kr = reinterpret_cast<const float4*>(ks + b * D);
-      const float4* vr = reinterpret_cast<const float4*>(vs + b * D);
-      const float4* er = reinterpret_cast<const float4*>(es + r * ESTRIDE);
-      float s = 0.f, dp = 0.f;
+// dE_window = dR^T . Q for one tile pair, added into the dE buffer: the block's
+// own in shared memory, or with de_global the one in global memory that all
+// blocks share.
+// Window rows 16m .. 16m+15 meet the queries of warp kk at that warp's dR
+// columns 16(m - kk) ..; the other depth blocks are zero by construction. Warp
+// w owns window blocks w and w + NW: five depth blocks in all, for every warp.
+template <typename T, int NW, int CHUNK>
+__device__ __forceinline__ void window_grad(const unsigned char* scratch, const bf16* qs,
+                                            float* debuf, float* de_all, int de_global, int base,
+                                            int max_pos, int w, int lane) {
+  constexpr int P = Parts<T>::N, WIN = 16 * NW + BK;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        s += dot4(qr + 4 * d4, kr[d4]) + dot4(qr + 4 * d4, er[d4]);
-        dp += dot4(gr + 4 * d4, vr[d4]);
-      }
-      const float ds = __expf(s - lse_a) * (dp - dl);
+  for (int mi = 0; mi < 2; ++mi) {
+    const int m = w + mi * NW;
+    if (m >= WIN / 16) break;
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    // the warp kk = m - back holds window block m at its dR columns 16 * back ..
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        axpy4(dqr + 4 * d4, ds, kr[d4]);
-        axpy4(dqr + 4 * d4, ds, er[d4]);
+    for (int back = 0; back < RCOLS / 16; ++back) {
+      const int kk = m - back;
+      if (kk < 0 || kk >= NW) continue;  // uniform in the warp
+      FragA<P> da;
+      load_a_scratch_trans(da, reinterpret_cast<const T*>(scratch + kk * CHUNK), DRS, 16 * back, 0, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        FragB<P> qb;
+        load_b_trans<P>(qb, qs, 16 * NW * TS, TS, 8 * n, 16 * kk, lane);
+        mma(acc[n], da, qb);
       }
-      const int dist = pos - (j0 + b);
-      if (dist >= max_pos) {
-        c_hi += ds;
-      } else if (dist <= -max_pos) {
-        c_lo += ds;
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int c = 16 * m + g + 8 * rr;
+      const int dist = base + c;
+      if (c >= WIN - 1) continue;  // the window's padding row
+      // a window row clipped to an end of the table carries zeros: its pairs went
+      // to the per-query sums. An unclipped row has one owner a tile pair and
+      // block, so a plain read-modify-write does in the block's own buffer.
+      if (dist <= -max_pos || dist >= max_pos) continue;
+      const int r = dist + max_pos;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int at = r * D + de_col(r, 8 * n + 2 * t);
+        if (de_global) {  // uniform in the grid
+          atomicAdd(de_all + at, acc[n][2 * rr]);
+          atomicAdd(de_all + at + 1, acc[n][2 * rr + 1]);
+        } else {
+          float2* cell = reinterpret_cast<float2*>(debuf + at);
+          float2 x = *cell;
+          x.x += acc[n][2 * rr];
+          x.y += acc[n][2 * rr + 1];
+          *cell = x;
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int NW, int MODE>
+__global__ void __launch_bounds__(32 * NW, 1)
+flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ table, const T* __restrict__ gout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, T* __restrict__ dk,
+              T* __restrict__ dv, float* __restrict__ partials, int G, int Tq, int Tk,
+              int max_pos, int t_valid, int q_offset, int de_global) {
+  using L = Layout<T, NW, MODE>;
+  constexpr int NT = 32 * NW, BQ = L::BQ, WIN = L::WIN, P = L::P;
+  constexpr int QPL = L::QPL, KPL = L::KPL, EPL = L::EPL, CHUNK = L::CHUNK;
+  constexpr bool kOwnsQ = L::kOwnsQ;
+  constexpr int NPW = NW == 4 ? 2 : 1;  // 8-wide blocks of dk / dv a warp owns
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem + L::qs);
+  bf16* gs = reinterpret_cast<bf16*>(smem + L::gs);
+  bf16* ks = reinterpret_cast<bf16*>(smem + L::ks);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L::vs);
+  bf16* es = reinterpret_cast<bf16*>(smem + L::es);
+  unsigned char* scratch = smem + L::scratch;
+  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
+  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
+  float* eh = reinterpret_cast<float*>(smem + L::eh);
+  float* el = reinterpret_cast<float*>(smem + L::el);
+  float* debuf = reinterpret_cast<float*>(smem + L::debuf);  // not there with de_global
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* rt = reinterpret_cast<float*>(scratch + w * CHUNK);
+  T* dr_w = reinterpret_cast<T*>(scratch + w * CHUNK);
+  T* pb_w = reinterpret_cast<T*>(scratch + w * CHUNK + L::pb);
+  T* dsb_w = reinterpret_cast<T*>(scratch + w * CHUNK + L::dsb);
+  const int n_rows = (2 * max_pos + 1) * D;
+
+  // once a block: the table's two end rows, zero dE buffer (the global one arrives zeroed)
+  if (tid < D) {
+    eh[tid] = widen(table[2 * max_pos * D + tid]);
+    el[tid] = widen(table[tid]);
+  }
+  if (kOwnsQ && !de_global) {
+    for (int e = tid; e < n_rows; e += NT) debuf[e] = 0.f;
+  }
+
+  const int n_qtiles = (Tq + BQ - 1) / BQ;
+  const int n_ktiles = (Tk + BK - 1) / BK;
+  const int per_group = kOwnsQ ? n_qtiles : n_ktiles;
+  const int n_items = G * per_group;
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int grp = item / per_group;
+    const int own0 = (item % per_group) * (kOwnsQ ? BQ : BK);
+    const T* qg = q + static_cast<size_t>(grp) * Tq * D;
+    const T* gg = gout + static_cast<size_t>(grp) * Tq * D;
+    const T* kg = k + static_cast<size_t>(grp) * Tk * D;
+    const T* vg = v + static_cast<size_t>(grp) * Tk * D;
+    const float* lg = lse + static_cast<size_t>(grp) * Tq;
+    const float* dg = delta + static_cast<size_t>(grp) * Tq;
+
+    __syncthreads();  // the previous item's tiles are consumed; the block's set-up is visible
+    if (kOwnsQ) {
+      stage_rows<T, NT>(qs, QPL, qg, own0, BQ, Tq, tid);
+      stage_rows<T, NT>(gs, QPL, gg, own0, BQ, Tq, tid);
+      for (int e = tid; e < BQ; e += NT) {
+        lse_s[e] = own0 + e < Tq ? lg[own0 + e] : 0.f;
+        delta_s[e] = own0 + e < Tq ? dg[own0 + e] : 0.f;
+      }
+    } else {
+      stage_rows<T, NT>(ks, KPL, kg, own0, BK, Tk, tid);
+      stage_rows<T, NT>(vs, KPL, vg, own0, BK, Tk, tid);
+    }
+
+    float dq_acc[2][4];              // rows g, g+8; d = 8n + 2t, +1
+    float c_hi[2], c_lo[2];          // this lane's share of the clipped pairs' ds sums
+    float dk_acc[NPW][4], dv_acc[NPW][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
+    c_hi[0] = c_hi[1] = c_lo[0] = c_lo[1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NPW; ++n) {
+      dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
+      dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
+    }
+
+    // a tile of keys wholly past t_valid only writes its zeros
+    const int n_inner = kOwnsQ ? (t_valid + BK - 1) / BK : (own0 < t_valid ? n_qtiles : 0);
+    // the tiles that change with the walk travel through registers
+    constexpr int VR = kOwnsQ ? BK : BQ;
+    TileFetch<T, NT, VR> a_next, b_next;  // K and V, or Q and g
+    TileFetch<T, NT, WIN> e_next;
+    float lse_next = 0.f, delta_next = 0.f;
+    auto fetch = [&](int it) {
+      const int i0 = kOwnsQ ? own0 : it * BQ;
+      const int j0 = kOwnsQ ? it * BK : own0;
+      const int base = i0 + q_offset - j0 - (BK - 1);
+      if (kOwnsQ) {
+        a_next.fetch_rows(kg, j0, Tk, tid);
+        b_next.fetch_rows(vg, j0, Tk, tid);
       } else {
+        a_next.fetch_rows(qg, i0, Tq, tid);
+        b_next.fetch_rows(gg, i0, Tq, tid);
+        if (tid < BQ) {
+          lse_next = i0 + tid < Tq ? lg[i0 + tid] : 0.f;
+          delta_next = i0 + tid < Tq ? dg[i0 + tid] : 0.f;
+        }
+      }
+      if (clip_kind(base, BQ, max_pos) == kMixed) e_next.fetch_window(table, base, max_pos, tid);
+    };
+    if (n_inner > 0) fetch(0);
+    bool prev_mixed = false;
+    int prev_base = 0;
+
+    for (int it = 0; it < n_inner; ++it) {
+      const int i0 = kOwnsQ ? own0 : it * BQ;
+      const int j0 = kOwnsQ ? it * BK : own0;
+      const int base = i0 + q_offset - j0 - (BK - 1);
+      const int kind = clip_kind(base, BQ, max_pos);
+
+      __syncthreads();  // the previous tile pair is consumed, its dR is whole
+      if (kOwnsQ) {
+        // the previous pair's share of the table's gradient: its dR stays until
+        // the next block sync, Q for the whole item
+        if (prev_mixed) window_grad<T, NW, CHUNK>(scratch, qs, debuf, partials, de_global, prev_base, max_pos, w, lane);
+        prev_mixed = kind == kMixed;
+        prev_base = base;
+        a_next.store(ks, tid);
+        b_next.store(vs, tid);
+      } else {
+        a_next.store(qs, tid);
+        b_next.store(gs, tid);
+        if (tid < BQ) {
+          lse_s[tid] = lse_next;
+          delta_s[tid] = delta_next;
+        }
+      }
+      if (kind == kMixed) e_next.store(es, tid);
+      __syncthreads();
+      if (it + 1 < n_inner) fetch(it + 1);  // in flight while this pair is computed
+
+      FragA<P> qa, ga;
+      load_a<P>(qa, qs, QPL, TS, 16 * w, 0, lane);
+      load_a<P>(ga, gs, QPL, TS, 16 * w, 0, lane);
+      const bf16* qs_w = qs + 16 * w * TS;
+      float pos_hi[2] = {0.f, 0.f}, pos_lo[2] = {0.f, 0.f};
+      if (kind != kMixed) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) atomicAdd(&des[r * DSTRIDE + d], ds * qr[d]);
+        for (int rr = 0; rr < 2; ++rr) {
+          float hi = 0.f, lo = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int d = 2 * t + 8 * h + e;
+              const float x = tile_value<P>(qs_w, QPL, (g + 8 * rr) * TS + d);
+              hi += x * eh[d];
+              lo += x * el[d];
+            }
+          }
+          pos_hi[rr] = quad_sum(hi);
+          pos_lo[rr] = quad_sum(lo);
+        }
+      }
+
+      float s[BK / 8][4], dp[BK / 8][4];
+      warp_logits<P>(s, qa, ks, es, EPL, rt, kind, pos_hi, pos_lo, w, lane);
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb) {
+        dp[nb][0] = dp[nb][1] = dp[nb][2] = dp[nb][3] = 0.f;
+        FragB<P> vb;
+        load_b<P>(vb, vs, KPL, TS, 8 * nb, 0, lane);
+        mma(dp[nb], ga, vb);
+      }
+      // s becomes p, dp becomes ds
+      const int nk = t_valid - j0;
+      const float lse_r[2] = {lse_s[16 * w + g], lse_s[16 * w + g + 8]};
+      const float delta_r[2] = {delta_s[16 * w + g], delta_s[16 * w + g + 8]};
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid = 8 * nb + 2 * t + e < nk;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const float p = valid ? __expf(s[nb][2 * rr + e] - lse_r[rr]) : 0.f;
+            s[nb][2 * rr + e] = p;
+            dp[nb][2 * rr + e] = p * (dp[nb][2 * rr + e] - delta_r[rr]);
+          }
+        }
+      }
+
+      // every lane has read its R: the warp's chunk is free for dR, P and dS
+      if (kind == kMixed) __syncwarp();
+
+      if (kOwnsQ) {
+        // dq += dS . K
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const float dsv[8] = {dp[2 * kk][0], dp[2 * kk][1], dp[2 * kk][2], dp[2 * kk][3],
+                                dp[2 * kk + 1][0], dp[2 * kk + 1][1], dp[2 * kk + 1][2], dp[2 * kk + 1][3]};
+          FragA<P> da;
+          frag_from(da, dsv);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            FragB<P> kb;
+            load_b_trans<P>(kb, ks, KPL, TS, 8 * n, 16 * kk, lane);
+            mma(dq_acc[n], da, kb);
+          }
+        }
+        if (kind == kMixed) {
+          // dR[r][r - b + 63] = ds[r][b]; a pair that is itself clipped goes to its
+          // query's sum instead, as in a clipped tile pair (uniform test first)
+          const bool some_high = base + BQ + BK - 2 >= max_pos;
+          const bool some_low = base <= -max_pos;
+          // the rows lie over the R scratch: the cells no pair writes are zeroed anew,
+          // 16 a row (columns below r and from r + 64)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int row = lane >> 1, cell = (lane & 1) * 8 + i;
+            narrow(0.f, dr_w + row * DRS + (cell < row ? cell : cell + BK));
+          }
+#pragma unroll
+          for (int nb = 0; nb < BK / 8; ++nb) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = g - (8 * nb + 2 * t + e) + BK - 1;
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr) {
+                float x = dp[nb][2 * rr + e];
+                const int dist = base + 16 * w + c + 8 * rr;
+                if (some_high && dist >= max_pos) {
+                  c_hi[rr] += x;
+                  x = 0.f;
+                }
+                if (some_low && dist <= -max_pos) {
+                  c_lo[rr] += x;
+                  x = 0.f;
+                }
+                narrow(x, dr_w + (g + 8 * rr) * DRS + c + 8 * rr);
+              }
+            }
+          }
+        } else {
+          float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+          for (int nb = 0; nb < BK / 8; ++nb) {
+            sum0 += dp[nb][0] + dp[nb][1];
+            sum1 += dp[nb][2] + dp[nb][3];
+          }
+          if (kind == kHigh) {
+            c_hi[0] += sum0;
+            c_hi[1] += sum1;
+          } else {
+            c_lo[0] += sum0;
+            c_lo[1] += sum1;
+          }
+        }
+      }
+      if (!kOwnsQ) {
+#pragma unroll
+        for (int nb = 0; nb < BK / 8; ++nb) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int at = (g + 8 * rr) * PS + 8 * nb + 2 * t;
+            narrow2(s[nb][2 * rr], s[nb][2 * rr + 1], pb_w + at);
+            narrow2(dp[nb][2 * rr], dp[nb][2 * rr + 1], dsb_w + at);
+          }
+        }
+      }
+      if (!kOwnsQ) __syncthreads();  // P and dS of every warp are written
+
+      if (kOwnsQ && kind == kMixed) {
+        __syncwarp();  // this warp's dR is written
+        // dq += dR_w . E_window (the warp's own 80 window rows)
+#pragma unroll
+        for (int kk = 0; kk < RCOLS / 16; ++kk) {
+          FragA<P> da;
+          load_a_scratch(da, dr_w, DRS, 0, 16 * kk, lane);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            FragB<P> eb;
+            load_b_trans<P>(eb, es, EPL, TS, 8 * n, 16 * w + 16 * kk, lane);
+            mma(dq_acc[n], da, eb);
+          }
+        }
+      }
+      if (!kOwnsQ) {
+        // dv += P^T . g, dk += dS^T . Q: this warp's 16 keys, NPW column blocks
+        const int m = w & 3, n_first = (w >> 2) * NPW;
+#pragma unroll
+        for (int kk = 0; kk < NW; ++kk) {
+          // the queries of warp kk: that warp's rows of P and dS
+          FragA<P> pa, da;
+          load_a_scratch_trans(pa, reinterpret_cast<const T*>(scratch + kk * CHUNK + L::pb), PS, 16 * m, 0, lane);
+          load_a_scratch_trans(da, reinterpret_cast<const T*>(scratch + kk * CHUNK + L::dsb), PS, 16 * m, 0, lane);
+#pragma unroll
+          for (int n = 0; n < NPW; ++n) {
+            FragB<P> gb, qb;
+            load_b_trans<P>(gb, gs, QPL, TS, 8 * (n_first + n), 16 * kk, lane);
+            load_b_trans<P>(qb, qs, QPL, TS, 8 * (n_first + n), 16 * kk, lane);
+            mma(dv_acc[n], pa, gb);
+            mma(dk_acc[n], da, qb);
+          }
+        }
       }
     }
 
-    __syncthreads();  // every thread's shared sums for this tile pair are in
-    for (int e = a; e < NE * D; e += BT) {
-      const int r = e / D;
-      const int dist = base + r;
-      if (dist > -max_pos && dist < max_pos) {
-        atomicAdd(&dtable[(dist + max_pos) * D + e % D], des[r * DSTRIDE + e % D]);
+    if (kOwnsQ) {
+      if (prev_mixed) {
+        __syncthreads();  // the last pair's dR is whole
+        window_grad<T, NW, CHUNK>(scratch, qs, debuf, partials, de_global, prev_base, max_pos, w, lane);
       }
-      des[r * DSTRIDE + e % D] = 0.f;
+      const float ch[2] = {quad_sum(c_hi[0]), quad_sum(c_hi[1])};
+      const float cl[2] = {quad_sum(c_lo[0]), quad_sum(c_lo[1])};
+      // uniform in the block: skip the rows its distances never reach
+      if (own0 + BQ - 1 + q_offset >= max_pos) {
+        add_clipped_row<P>(debuf, partials, de_global, 2 * max_pos, ch, qs + 16 * w * TS, QPL, lane);
+      }
+      if (own0 + q_offset - (t_valid - 1) <= -max_pos) {
+        add_clipped_row<P>(debuf, partials, de_global, 0, cl, qs + 16 * w * TS, QPL, lane);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = own0 + 16 * w + g + 8 * rr;
+        if (row >= Tq) continue;
+        T* o = dq + (static_cast<size_t>(grp) * Tq + row) * D;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int d = 8 * n + 2 * t;
+          narrow2(dq_acc[n][2 * rr] + ch[rr] * eh[d] + cl[rr] * el[d],
+                  dq_acc[n][2 * rr + 1] + ch[rr] * eh[d + 1] + cl[rr] * el[d + 1], o + d);
+        }
+      }
+    }
+    if (!kOwnsQ) {
+      const int m = w & 3, n_first = (w >> 2) * NPW;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = own0 + 16 * m + g + 8 * rr;
+        if (row >= Tk) continue;
+#pragma unroll
+        for (int n = 0; n < NPW; ++n) {
+          const size_t at = (static_cast<size_t>(grp) * Tk + row) * D + 8 * (n_first + n) + 2 * t;
+          narrow2(dk_acc[n][2 * rr], dk_acc[n][2 * rr + 1], dk + at);
+          narrow2(dv_acc[n][2 * rr], dv_acc[n][2 * rr + 1], dv + at);
+        }
+      }
     }
   }
 
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) narrow(dqr[d], dq + qrow + d);
-  }
-
-  // the clipped rows: sum_a c_a q_a over each warp, one atomic a warp and entry.
-  // Uniform per block: skip the rows this block's distances never reach.
-  const bool any_hi = i0 + BT - 1 + q_offset >= max_pos;
-  const bool any_lo = i0 + q_offset - (t_valid - 1) <= -max_pos;
-  if (any_hi || any_lo) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      float hi = c_hi * qr[d], lo = c_lo * qr[d];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        hi += __shfl_xor_sync(0xffffffffu, hi, off);
-        lo += __shfl_xor_sync(0xffffffffu, lo, off);
-      }
-      if ((a & 31) == 0) {
-        if (any_hi) atomicAdd(&dtable[2 * max_pos * D + d], hi);
-        if (any_lo) atomicAdd(&dtable[d], lo);
-      }
-    }
+  if (kOwnsQ && !de_global) {
+    __syncthreads();  // every warp's sums are in the block's buffer
+    // this block's sums to its row of the partial sums
+    float* mine = partials + static_cast<size_t>(blockIdx.x) * n_rows;
+    for (int e = tid; e < n_rows; e += NT) mine[e] = debuf[e];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(BT)
-flash_rel_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ table,
-                  const T* __restrict__ gout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, int Tq, int Tk, int n_ktiles, int max_pos,
-                  int t_valid, int q_offset) {
-  __shared__ __align__(16) float qs[BT * D];
-  __shared__ __align__(16) float gs[BT * D];
-  __shared__ __align__(16) float es[NE * ESTRIDE];
-  __shared__ float lses[BT];
-  __shared__ float deltas[BT];
+struct Args {
+  const void *q, *k, *v, *table, *out, *gout, *lse;
+  void *dq, *dk, *dv, *delta, *dtable, *partials;
+  int G, Tq, Tk, max_pos, t_valid, q_offset, partial_rows;
+  cudaStream_t stream;
+};
 
-  const int g = blockIdx.x / n_ktiles;
-  const int j0 = (blockIdx.x % n_ktiles) * BT;
-  const int b = threadIdx.x;
-  const bool in_range = j0 + b < Tk;
-  const bool valid = j0 + b < t_valid;  // keys past t_valid get zero gradients
-  const size_t krow = (static_cast<size_t>(g) * Tk + j0 + b) * D;
+// How one of the two kernels is launched at these shapes: its shared memory
+// and its grid. The kernel that keeps dE in shared memory runs persistent
+// blocks, as many as the card holds at once; the others one block an item.
+struct Plan {
+  int bytes, blocks;
+};
 
-  float kr[D], vr[D], dkr[D], dvr[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    kr[d] = valid ? widen(k[krow + d]) : 0.f;
-    vr[d] = valid ? widen(v[krow + d]) : 0.f;
-    dkr[d] = 0.f;
-    dvr[d] = 0.f;
-  }
-
-  const T* qg = q + static_cast<size_t>(g) * Tq * D;
-  const T* gg = gout + static_cast<size_t>(g) * Tq * D;
-  const float* lg = lse + static_cast<size_t>(g) * Tq;
-  const float* dg = delta + static_cast<size_t>(g) * Tq;
-
-  // a tile of keys that lies wholly past t_valid only writes its zeros
-  const int q_end = j0 < t_valid ? Tq : 0;
-  for (int i0 = 0; i0 < q_end; i0 += BT) {
-    __syncthreads();  // the previous tile is consumed
-    for (int e = b; e < BT * D; e += BT) {
-      const bool in = i0 + e / D < Tq;
-      qs[e] = in ? widen(qg[static_cast<size_t>(i0) * D + e]) : 0.f;
-      gs[e] = in ? widen(gg[static_cast<size_t>(i0) * D + e]) : 0.f;
-    }
-    lses[b] = i0 + b < Tq ? lg[i0 + b] : 0.f;
-    deltas[b] = i0 + b < Tq ? dg[i0 + b] : 0.f;
-    // es row r is distance base + r; key b meets query a at row a - b + BT - 1
-    const int base = i0 + q_offset - j0 - (BT - 1);
-    stage_table(es, table, base, max_pos, b);
-    __syncthreads();
-
-    const int nq = min(BT, Tq - i0);
-    for (int a = 0; a < nq; ++a) {
-      const float4* qr = reinterpret_cast<const float4*>(qs + a * D);
-      const float4* gr = reinterpret_cast<const float4*>(gs + a * D);
-      const float4* er = reinterpret_cast<const float4*>(es + (a - b + BT - 1) * ESTRIDE);
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 qv = qr[d4];
-        const float4 ev = er[d4];
-        s += dot4(kr + 4 * d4, qv) + qv.x * ev.x + qv.y * ev.y + qv.z * ev.z + qv.w * ev.w;
-        dp += dot4(vr + 4 * d4, gr[d4]);
-      }
-      const float p = valid ? __expf(s - lses[a]) : 0.f;
-      const float ds = p * (dp - deltas[a]);
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        axpy4(dvr + 4 * d4, p, gr[d4]);
-        axpy4(dkr + 4 * d4, ds, qr[d4]);
-      }
-    }
-  }
-
-  if (in_range) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      narrow(dkr[d], dk + krow + d);
-      narrow(dvr[d], dv + krow + d);
-    }
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* table,
-           const void* out, const void* gout, const void* lse, void* dq, void* dk,
-           void* dv, void* delta, void* dtable, int G, int Tq, int Tk, int max_pos,
-           int t_valid, int q_offset, cudaStream_t s) {
-  const int n_qtiles = (Tq + BT - 1) / BT;
-  const int n_ktiles = (Tk + BT - 1) / BT;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* tp = static_cast<const T*>(table);
-  const T* gp = static_cast<const T*>(gout);
-  const float* lp = static_cast<const float*>(lse);
-  float* dp = static_cast<float*>(delta);
-  flash_rel_bwd_dq<T><<<static_cast<unsigned>(G) * n_qtiles, BT, 0, s>>>(
-      qp, kp, vp, tp, static_cast<const T*>(out), gp, lp, static_cast<T*>(dq), dp,
-      static_cast<float*>(dtable), Tq, Tk, n_qtiles, max_pos, t_valid, q_offset);
-  const cudaError_t err = cudaGetLastError();
+template <typename T, int NW, int MODE>
+int plan(int G, int extent, int max_pos, bool shared_de, Plan* p) {
+  using L = Layout<T, NW, MODE>;
+  auto kernel = flash_rel_bwd<T, NW, MODE>;
+  p->bytes = L::bytes(max_pos, shared_de);
+  if (p->bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p->bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // reads the delta the first kernel wrote: same stream, so in order
-  flash_rel_bwd_dkv<T><<<static_cast<unsigned>(G) * n_ktiles, BT, 0, s>>>(
-      qp, kp, vp, tp, gp, lp, dp, static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk,
-      n_ktiles, max_pos, t_valid, q_offset);
+  const int tile = MODE == kOwnQ ? L::BQ : BK;
+  long long blocks = static_cast<long long>(G) * ((extent + tile - 1) / tile);
+  if (L::kOwnsQ && shared_de) {
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * NW, p->bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    const long long room = static_cast<long long>(sms) * per_sm;
+    if (blocks > room) blocks = room;
+  }
+  if (blocks < 1 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p->blocks = static_cast<int>(blocks);
+  return 0;
+}
+
+// the block's dE buffer fits beside the tiles
+template <typename T>
+bool shared_de_fits(int max_pos) {
+  return Layout<T, kWarpsQ<T>, kOwnQ>::bytes(max_pos, true) <= MAX_SMEM;
+}
+
+template <typename T, int NW, int MODE>
+int launch_one(const Args& a) {
+  const bool shared_de = shared_de_fits<T>(a.max_pos);
+  Plan p;
+  int err = plan<T, NW, MODE>(a.G, MODE == kOwnQ ? a.Tq : a.Tk, a.max_pos, shared_de, &p);
+  if (err != 0) return err;
+  const int n = (2 * a.max_pos + 1) * D;
+  // rows of `partials` the kernel writes: one a block, or one for all blocks
+  const int rows = shared_de ? p.blocks : 1;
+  if (MODE == kOwnQ) {
+    if (rows > a.partial_rows) return static_cast<int>(cudaErrorInvalidValue);
+    if (!shared_de) {
+      err = static_cast<int>(cudaMemsetAsync(a.partials, 0, sizeof(float) * n, a.stream));
+      if (err != 0) return err;
+    }
+  }
+  flash_rel_bwd<T, NW, MODE><<<static_cast<unsigned>(p.blocks), 32 * NW, p.bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.table), static_cast<const T*>(a.gout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      static_cast<float*>(a.partials), a.G, a.Tq, a.Tk, a.max_pos, a.t_valid, a.q_offset,
+      static_cast<int>(!shared_de));
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || MODE != kOwnQ) return err;
+  flash_rel_sum_partials<<<(n + 255) / 256, 256, 0, a.stream>>>(
+      static_cast<const float*>(a.partials), static_cast<float*>(a.dtable), rows, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Args& a) {
+  const int rows = a.G * a.Tq;
+  flash_rel_delta<T><<<(rows + 255) / 256, 256, 0, a.stream>>>(
+      static_cast<const T*>(a.out), static_cast<const T*>(a.gout), static_cast<float*>(a.delta), rows);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  // the kernels read the delta written above: same stream, so in order
+  err = launch_one<T, kWarpsQ<T>, kOwnQ>(a);
+  return err != 0 ? err : launch_one<T, 4, kOwnK>(a);
+}
+
+// rows of `partials` a launch at these shapes writes, or minus the CUDA error
+template <typename T>
+int partial_rows(int G, int Tq, int max_pos) {
+  if (!shared_de_fits<T>(max_pos)) return 1;
+  Plan p;
+  const int err = plan<T, kWarpsQ<T>, kOwnQ>(G, Tq, max_pos, true, &p);
+  return err != 0 ? -err : p.blocks;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. Launches both kernels on `stream` and returns
-// cudaGetLastError() (0 on success); does not synchronise. `delta` is fp32
-// [G, Tq] scratch, `dtable` fp32 [2*max_pos+1, 16] zeroed by the caller.
+// Plain C entry for ctypes. Launches on `stream` and returns the first CUDA
+// error (0 on success); does not synchronise. Scratch from the caller, none
+// of it zeroed: `delta` fp32 [G, Tq]; `partials` fp32 [partial_rows,
+// (2*max_pos+1)*16] with partial_rows at least what
+// cmgan_flash_rel_attention_bwd_partial_rows gives for these shapes; `dtable`
+// fp32 [2*max_pos+1, 16] receives the table's gradient. Pointers are 16-byte
+// aligned.
 extern "C" int cmgan_flash_rel_attention_bwd(
     const void* q, const void* k, const void* v, const void* table, const void* out,
     const void* gout, const void* lse, void* dq, void* dk, void* dv, void* delta,
-    void* dtable, int G, int Tq, int Tk, int head_dim, int max_pos, int t_valid,
-    int q_offset, int is_bf16, void* stream) {
-  if (head_dim != D || G <= 0 || Tq <= 0 || t_valid <= 0 || t_valid > Tk) {
+    void* dtable, void* partials, int G, int Tq, int Tk, int head_dim, int max_pos, int t_valid,
+    int q_offset, int is_bf16, int partial_rows, void* stream) {
+  if (head_dim != D || G <= 0 || Tq <= 0 || t_valid <= 0 || t_valid > Tk || max_pos < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, table, out, gout, lse, dq, dk, dv, delta, dtable,
-                                 G, Tq, Tk, max_pos, t_valid, q_offset, s);
-  }
-  return launch<float>(q, k, v, table, out, gout, lse, dq, dk, dv, delta, dtable,
-                       G, Tq, Tk, max_pos, t_valid, q_offset, s);
+  const Args a = {q, k, v, table, out, gout, lse, dq, dk, dv, delta, dtable, partials,
+                  G, Tq, Tk, max_pos, t_valid, q_offset, partial_rows,
+                  static_cast<cudaStream_t>(stream)};
+  return is_bf16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
 }
 
-extern "C" const char* cmgan_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// Rows the `partials` scratch needs on the current device: one a block of the
+// kernel that sums the table's gradient in shared memory, or one in all where
+// the table is too long for that. Negative: minus a CUDA error.
+extern "C" int cmgan_flash_rel_attention_bwd_partial_rows(int is_bf16, int G, int Tq, int max_pos) {
+  if (G <= 0 || Tq <= 0 || max_pos < 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? partial_rows<__nv_bfloat16>(G, Tq, max_pos) : partial_rows<float>(G, Tq, max_pos);
+}
+
+// Dynamic shared memory, in bytes, of one block of kernel `which` (0: the
+// kernel that sums dq and the table's gradient, 1: the dk/dv kernel), or -1.
+extern "C" int cmgan_flash_rel_attention_bwd_smem(int is_bf16, int which, int max_pos) {
+  const auto pick = [&](auto zero) -> int {
+    using T = decltype(zero);
+    if (which == 0) return Layout<T, kWarpsQ<T>, kOwnQ>::bytes(max_pos, shared_de_fits<T>(max_pos));
+    if (which == 1) return Layout<T, 4, kOwnK>::bytes(max_pos, false);
+    return -1;
+  };
+  return is_bf16 ? pick(__nv_bfloat16()) : pick(0.f);
 }

@@ -9,6 +9,12 @@ segment (G = 404, T = 2561) that is 10.6 GB in fp32. The CUDA kernels in
 its gradients in O(T) memory: the forward keeps an online softmax and
 writes the row log-sum-exp, the backward recomputes the weights from it.
 
+Both kernels run their products on the tensor cores, tile pair by tile
+pair, with the position term read through a skew and whole clipped tile
+pairs served by two scalars a query (`csrc/flash_rel_common.cuh`).
+`tiled_attention` and `tiled_attention_grads` are that arithmetic in plain
+PyTorch: the CPU tests check the index work there, where no kernel runs.
+
 `flash_rel_attention_at` is the wrapper, differentiable in q, k, v and
 the table. For CPU tensors it runs the plain version
 (`reference_attention`) under ordinary autograd; for CUDA tensors it
@@ -28,7 +34,6 @@ from cmgan_torch.ops import _build
 
 HEAD_DIM = 16
 KERNEL = "flash_rel_attention"
-
 BWD_KERNEL = "flash_rel_attention_bwd"
 
 # Kernel launches; the wrapper adds one per launch. Callers reset to 0.
@@ -78,6 +83,126 @@ def reference_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int,
     return torch.autograd.grad(out, leaves, g)
 
 
+def _tile_pairs(tq: int, t_valid: int, q_offset: int, max_pos: int, tile: int):
+    """The kernels' walk: (i0, nq, j0, nk, base, kind) for every tile pair.
+
+    Query a of the tile meets key b at distance base + c, c = a - b +
+    tile - 1. kind is 'high' when every distance of the pair is >=
+    max_pos, 'low' when every one is <= -max_pos, else 'mixed'.
+    """
+    for i0 in range(0, tq, tile):
+        for j0 in range(0, t_valid, tile):
+            base = i0 + q_offset - j0 - (tile - 1)
+            if base >= max_pos:
+                kind = "high"
+            elif base + 2 * tile - 2 <= -max_pos:
+                kind = "low"
+            else:
+                kind = "mixed"
+            yield i0, min(tile, tq - i0), j0, min(tile, t_valid - j0), base, kind
+
+
+def _window(table, base: int, max_pos: int, tile: int):
+    """Rows clip(base + c, +-max_pos) + max_pos of the table, c in [0, 2*tile-1)."""
+    dist = torch.arange(2 * tile - 1, device=table.device) + base
+    return dist.clamp(-max_pos, max_pos) + max_pos
+
+
+def _skew_index(nq: int, nk: int, tile: int, device):
+    """c[a, b] = a - b + tile - 1: where R holds the position logit of (a, b)."""
+    a = torch.arange(nq, device=device)[:, None]
+    b = torch.arange(nk, device=device)[None, :]
+    return a - b + tile - 1
+
+
+def _tile_logits(qt, kt, table, max_pos, base, kind, tile):
+    """Logits [G, nq, nk] of one tile pair the kernels' way: the content
+    product plus, for a mixed pair, R = Q . E_window^T read through the
+    skew, or, for a clipped pair, one scalar a query."""
+    s = qt @ kt.transpose(1, 2)
+    if kind == "mixed":
+        r = qt @ table[_window(table, base, max_pos, tile)].T  # [G, nq, 2*tile-1]
+        c = _skew_index(qt.shape[1], kt.shape[1], tile, qt.device)
+        return s + r.gather(2, c.expand(qt.shape[0], -1, -1))
+    row = 2 * max_pos if kind == "high" else 0
+    return s + (qt @ table[row])[:, :, None]
+
+
+def tiled_attention(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int = 0,
+                    tile: int = 64, return_lse: bool = False):
+    """The forward kernel's arithmetic in plain PyTorch, tile pair by tile
+    pair: the window of 2*tile-1 rows of E, R and its skew, the clipped
+    pairs' two scalars, the online softmax. Same function as
+    `reference_attention`; for tests and checks, on no model's path.
+    Returns out (q's dtype), and the fp32 row log-sum-exp when asked.
+    """
+    qf, kf, vf, table = q.float(), k.float(), v.float(), rel_table.float()
+    g, tq, d = q.shape
+    out = torch.zeros(g, tq, d, device=q.device)
+    m = torch.full((g, tq), float("-inf"), device=q.device)
+    l = torch.zeros(g, tq, device=q.device)
+    for i0, nq, j0, nk, base, kind in _tile_pairs(tq, t_valid, q_offset, max_pos, tile):
+        rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
+        s = _tile_logits(qf[:, rows], kf[:, keys], table, max_pos, base, kind, tile)
+        m_new = torch.maximum(m[:, rows], s.amax(dim=2))
+        corr = torch.exp(m[:, rows] - m_new)
+        p = torch.exp(s - m_new[:, :, None])
+        l[:, rows] = l[:, rows] * corr + p.sum(dim=2)
+        out[:, rows] = out[:, rows] * corr[:, :, None] + p @ vf[:, keys]
+        m[:, rows] = m_new
+    out = (out / l[:, :, None]).to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
+
+
+def tiled_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int, g,
+                          tile: int = 64):
+    """The backward kernel's arithmetic in plain PyTorch: weights recomputed
+    per tile pair from the row log-sum-exp, ds written skewed into dR, the
+    table's gradient as dE_window = dR^T . Q added to its rows, the clipped
+    pairs (of clipped and of mixed tile pairs) by two sums a query. Returns
+    (dq, dk, dv, dtable) like `reference_attention_grads`; for tests and
+    checks only.
+    """
+    out, lse = tiled_attention(q, k, v, rel_table, max_pos, t_valid, q_offset, tile, True)
+    qf, kf, vf, table, gf = q.float(), k.float(), v.float(), rel_table.float(), g.float()
+    groups, tq, _ = q.shape
+    delta = (gf * out.float()).sum(dim=2)
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    dtable = torch.zeros_like(table)
+    # ds summed over the pairs clipped to row 2*max_pos / row 0, per query
+    c_hi = torch.zeros(groups, tq, device=q.device)
+    c_lo = torch.zeros(groups, tq, device=q.device)
+    for i0, nq, j0, nk, base, kind in _tile_pairs(tq, t_valid, q_offset, max_pos, tile):
+        rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
+        qt, kt = qf[:, rows], kf[:, keys]
+        s = _tile_logits(qt, kt, table, max_pos, base, kind, tile)
+        p = torch.exp(s - lse[:, rows, None])
+        ds = p * (gf[:, rows] @ vf[:, keys].transpose(1, 2) - delta[:, rows, None])
+        dv[:, keys] += p.transpose(1, 2) @ gf[:, rows]
+        dk[:, keys] += ds.transpose(1, 2) @ qt
+        dq[:, rows] += ds @ kt
+        if kind == "mixed":
+            window = _window(table, base, max_pos, tile)
+            c = _skew_index(nq, nk, tile, q.device)
+            # a pair that is itself clipped goes to its query's sum, as in a clipped pair of tiles
+            dist = base + c
+            c_hi[:, rows] += (ds * (dist >= max_pos)).sum(dim=2)
+            c_lo[:, rows] += (ds * (dist <= -max_pos)).sum(dim=2)
+            dr = torch.zeros(groups, nq, 2 * tile - 1, device=q.device)
+            # zero outside the parallelogram and on the window's clipped rows
+            dr.scatter_(2, c.expand(groups, -1, -1), ds * (dist.abs() < max_pos))
+            dq[:, rows] += dr @ table[window]
+            dtable.index_add_(0, window, torch.einsum("gac,gad->cd", dr, qt))
+        elif kind == "high":
+            c_hi[:, rows] += ds.sum(dim=2)
+        else:
+            c_lo[:, rows] += ds.sum(dim=2)
+    dq += c_hi[:, :, None] * table[2 * max_pos] + c_lo[:, :, None] * table[0]
+    dtable[2 * max_pos] += torch.einsum("ga,gad->d", c_hi, qf)
+    dtable[0] += torch.einsum("ga,gad->d", c_lo, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dtable.to(rel_table.dtype)
+
+
 def _bind(name: str, entry: str, argtypes):
     lib = _build.load(name)
     fn = getattr(lib, entry)
@@ -97,13 +222,20 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     return _bind(BWD_KERNEL, "cmgan_flash_rel_attention_bwd",
-                 [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                 [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def _raise_on(lib, rc: int, what: str):
     if rc != 0:
         msg = lib.cmgan_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def _check_layout(name: str, t):
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start at a 16-byte boundary: the kernels load 16 bytes at a time")
 
 
 def _check(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int):
@@ -115,8 +247,7 @@ def _check(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int):
             raise TypeError(f"{name}: dtype {t.dtype} differs from q's {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_layout(name, t)
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"expected q [G,Tq,D], k/v [G,Tk,D]; got {q.shape}, {k.shape}, {v.shape}")
     g, tq, d = q.shape
@@ -152,22 +283,29 @@ def _launch_forward(q, k, v, rel_table, max_pos, t_valid, q_offset, want_lse: bo
 
 
 def _launch_backward(q, k, v, rel_table, out, lse, grad_out, max_pos, t_valid, q_offset):
-    """One backward launch (both kernels); returns (dq, dk, dv, dtable)."""
+    """One backward launch (delta, then the kernels); returns (dq, dk, dv, dtable)."""
     global backward_launches
     lib = _bwd_kernel()
     g, tq, d = q.shape
+    bf16 = int(q.dtype == torch.bfloat16)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(g, tq, dtype=torch.float32, device=q.device)
-    # the kernel adds into the table's gradient with fp32 atomics
-    dtable = torch.zeros(rel_table.shape, dtype=torch.float32, device=q.device)
+    dtable = torch.empty(rel_table.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        # the table's gradient arrives as rows of partial sums, one a block of the
+        # kernel that sums it (or one in all for a table too long for a block's
+        # shared memory); the library says how many, and adds them into dtable
+        rows = lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, g, tq, max_pos)
+        if rows < 0:
+            _raise_on(lib, -rows, "flash_rel_attention_bwd")
+        partials = torch.empty(rows, rel_table.numel(), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.cmgan_flash_rel_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_table.data_ptr(),
             out.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            dtable.data_ptr(), g, tq, k.shape[1], d, max_pos, t_valid, q_offset,
-            int(q.dtype == torch.bfloat16), stream,
+            dtable.data_ptr(), partials.data_ptr(), g, tq, k.shape[1], d, max_pos, t_valid,
+            q_offset, bf16, rows, stream,
         )
     _raise_on(lib, rc, "flash_rel_attention_bwd")
     backward_launches += 1
@@ -187,8 +325,9 @@ class _FlashRelAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, rel_table, out, lse = ctx.saved_tensors
-        grads = _launch_backward(q, k, v, rel_table, out, lse,
-                                 grad_out.to(q.dtype).contiguous(), *ctx.args)
+        grad_out = grad_out.to(q.dtype).contiguous()
+        _check_layout("the output's gradient", grad_out)
+        grads = _launch_backward(q, k, v, rel_table, out, lse, grad_out, *ctx.args)
         return (*grads, None, None, None)
 
 
