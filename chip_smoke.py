@@ -45,8 +45,23 @@ failure, none falling back to the CPU or to a plain version:
      with a failed one;
  11. the train CLI at the default cut_len 32000 (no launches), host and
      host_async, fp32 and --bf16;
- 12. utterances per second of Trainer.train_step for each of those, the
-     host PESQ scorer's share of a step, and a profile of one G step.
+ 12. utterances per second of Trainer.train_step for each of those and in
+     the device label mode, the host PESQ scorer's share of a step, and a
+     profile of one G step;
+ 13. the evaluate CLI on a written test dir of 8 pairs (2 to 20 s) with
+     weights written by save_variables: bucketed fp32 and --bf16 (kernel
+     launches as enhance_batch's grouping implies), --exact on two
+     tracks; the aggregates, a saved track against Enhancer.enhance, the
+     clean-against-clean scores, realtime factors and the host metrics'
+     share of the wall time;
+ 14. the batched torch PESQ on the card against the same function on the
+     CPU and against the host C++ scorer, a silent row's label, and its
+     time a batch beside the host scorer's;
+ 15. the fused G + label + D step (pesq_label_mode='device') at cut_len
+     64000: launch counts, the label and D phases, then the whole step,
+     under torch.cuda.set_sync_debug_mode("error"), its D update against
+     d_step fed the same labels, a failed label's bitwise undo, and one
+     epoch of the train CLI with --pesq_label_mode device.
 
 Then the card's line, a JSON line with each kernel's numbers, and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, or without
@@ -102,6 +117,18 @@ GSTEP_PARAM_REL = 5e-3
 GSTEP_TRUTH_SLACK = 1e-4
 TRAIN_BATCH = 4
 FLASH_CUT, DEFAULT_CUT = 64000, 32000   # 641 and 321 frames
+EVAL_SECONDS = (2, 3, 4, 5, 6, 8, 12, 20)   # [13] the test dir's track lengths
+EVAL_EXACT = ("p3.wav", "p7.wav")           # [13] --exact on the 5 s and 20 s tracks
+EVAL_ALONE, EVAL_BATCHED = "p7.wav", "p2.wav"  # [13] the 20 s track; the 4 s one, in a batch
+# [13] a saved track against Enhancer.enhance on the same weights, both rounded
+# to 16-bit PCM as the CLI saves: the 20 s track takes the same path in both
+EVAL_TRACK_REL = 1e-5
+# [14] the torch PESQ on the card against the same function on the CPU, MOS:
+# float32 FFTs of two libraries (1.2e-6 seen on the CPU against JAX)
+PESQ_DEVICE_ATOL = 1e-3
+# [15] D's parameters after the fused step against d_step fed the same labels
+# from a copy of the state, relative L2 (cuDNN deterministic for both)
+FUSED_VS_D_STEP_REL = 1e-5
 
 
 def log(msg: str):
@@ -306,6 +333,10 @@ def device_breakdown(fn, wall_ms: float, top: int = 8, tag: str = "[3]"):
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         ms = e.self_device_time_total / 1e3
         log(f"{tag}   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count} {e.key[:90]}")
+
+
+def rounded(values, digits: int = 6) -> list:
+    return [round(float(v), digits) for v in values]
 
 
 def rel_l2(a, b) -> float:
@@ -645,21 +676,26 @@ def g_step_flash_vs_dense():
         raise AssertionError("the kernels' gradients are further from float64 than dense float32's")
 
 
-def write_dataset(root: str, n_train: int = 12, n_test: int = 4, seconds: int = 5):
-    """A seeded VCTK-DEMAND-shaped directory: {train,test}/{clean,noisy}/pN.wav."""
+def write_pairs(root: str, seconds, seed0: int):
+    """Seeded clean/noisy pairs, {clean,noisy}/pN.wav, pair N seconds[N] long."""
     import numpy as np
 
     from cmgan_torch.data import write_wav
 
+    for kind in ("clean", "noisy"):
+        os.makedirs(os.path.join(root, kind))
+    for i, sec in enumerate(seconds):
+        clean = synthetic_track(sec * SR, seed0 + i)
+        noise = np.random.default_rng(seed0 + 500 + i).standard_normal(clean.shape)
+        write_wav(os.path.join(root, "clean", f"p{i}.wav"), clean, SR)
+        write_wav(os.path.join(root, "noisy", f"p{i}.wav"),
+                  clean + (0.05 * noise).astype(np.float32), SR)
+
+
+def write_dataset(root: str, n_train: int = 12, n_test: int = 4, seconds: int = 5):
+    """A seeded VCTK-DEMAND-shaped directory: {train,test}/{clean,noisy}/pN.wav."""
     for split, count, seed0 in (("train", n_train, 1000), ("test", n_test, 2000)):
-        for kind in ("clean", "noisy"):
-            os.makedirs(os.path.join(root, split, kind))
-        for i in range(count):
-            clean = synthetic_track(seconds * SR, seed0 + i)
-            noise = np.random.default_rng(seed0 + 500 + i).standard_normal(clean.shape)
-            write_wav(os.path.join(root, split, "clean", f"p{i}.wav"), clean, SR)
-            write_wav(os.path.join(root, split, "noisy", f"p{i}.wav"),
-                      clean + (0.05 * noise).astype(np.float32), SR)
+        write_pairs(os.path.join(root, split), [seconds] * count, seed0)
 
 
 class LabelCount:
@@ -795,7 +831,8 @@ def train_through_cli(tmp: str):
 
 
 def training_rates(smi: str):
-    """[12] utterances per second of train_step, PESQ's share, a G-step profile."""
+    """[12] utterances per second of train_step in the three label modes,
+    PESQ's share, a G-step profile."""
     import torch
 
     from cmgan_torch.train import Trainer
@@ -805,7 +842,7 @@ def training_rates(smi: str):
     for cut in (FLASH_CUT, DEFAULT_CUT):
         clean, noisy = train_batch(cut, seed=80)
         for dtype, dname in ((None, "fp32"), (torch.bfloat16, "bf16")):
-            for mode in ("host", "host_async"):
+            for mode in ("host", "host_async", "device"):
                 trainer = Trainer(train_config(cut, mode=mode), [None], None, dtype=dtype,
                                   device="cuda")
 
@@ -842,6 +879,313 @@ def training_rates(smi: str):
                     device_breakdown(g_only, g_ms, top=12, tag="[12]")
                 del trainer
                 torch.cuda.empty_cache()
+
+
+def expected_eval_launches(cfg, seconds, exact: bool, batch_cap: int = 8) -> int:
+    """Kernel #1 launches the evaluate CLI should make on tracks of these
+    lengths: one a TSCB for each model call whose segments reach
+    FLASH_MIN_FRAMES, the calls as Enhancer.enhance_batch groups the tracks
+    (bucket mode: whole seconds, same-length tracks together, longer than
+    cut_len one at a time) or one a track (exact)."""
+    import math
+
+    import numpy as np
+
+    from cmgan_torch.inference import BATCH_BUDGET_SAMPLES, segment_track
+    from cmgan_torch.models.conformer import FLASH_MIN_FRAMES
+
+    dsp, cut = cfg.dsp, cfg.eval.cut_len
+
+    def call(n):  # one model call on a track of n samples, as enhance folds it
+        segments, _ = segment_track(np.ones(n, np.float32), dsp.hop, cut)
+        flash = dsp.num_frames(segments.shape[1]) >= FLASH_MIN_FRAMES
+        return cfg.model.num_tscb_blocks if flash else 0
+
+    if exact:
+        return sum(call(sec * SR) for sec in seconds)
+    groups = {}
+    launches = 0
+    for sec in seconds:
+        padded = sec * SR   # whole seconds: the bucket is the track's own length
+        if padded > cut:
+            launches += call(padded)
+        else:
+            groups[padded] = groups.get(padded, 0) + 1
+    for padded, count in groups.items():
+        cap = max(1, min(batch_cap, BATCH_BUDGET_SAMPLES // padded))
+        launches += math.ceil(count / cap) * call(padded)
+    return launches
+
+
+def evaluate_cli(tmp: str, smi: str):
+    """[13] the evaluate CLI at full width on a written test dir; returns the
+    fp32 bucketed run's kernel #1 launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cmgan_torch.checkpoint import save_variables
+    from cmgan_torch.cli import evaluate as cli
+    from cmgan_torch.config import CMGANConfig
+    from cmgan_torch.data import read_wav, write_wav
+    from cmgan_torch.inference import Enhancer
+    from cmgan_torch.metrics import compute_metrics
+    from cmgan_torch.ops import flash_attention as fa
+
+    cfg = CMGANConfig()
+    test_dir = os.path.join(tmp, "eval")
+    write_pairs(test_dir, EVAL_SECONDS, seed0=3000)
+    exact_dir = os.path.join(tmp, "eval_exact")
+    for kind in ("clean", "noisy"):
+        os.makedirs(os.path.join(exact_dir, kind))
+        for name in EVAL_EXACT:
+            shutil.copy(os.path.join(test_dir, kind, name), os.path.join(exact_dir, kind, name))
+    enh = Enhancer(cfg, device="cuda", seed=0)
+    weights = os.path.join(tmp, "generator")
+    save_variables(weights, enh.model.state_dict())
+
+    exact_seconds = [EVAL_SECONDS[int(n[1:-4])] for n in EVAL_EXACT]
+    runs = (("fp32", (), EVAL_SECONDS, False), ("fp32 again", (), EVAL_SECONDS, False),
+            ("bf16", ("--bf16",), EVAL_SECONDS, False),
+            ("bf16 again", ("--bf16",), EVAL_SECONDS, False),
+            ("exact fp32", ("--exact",), exact_seconds, True))
+    limits = {"pesq": (1.0, 4.65), "csig": (1.0, 5.0), "cbak": (1.0, 5.0), "covl": (1.0, 5.0),
+              "ssnr": (-10.0, 35.0), "stoi": (-1.0, 1.0)}
+    fp32_launches = None
+    for name, extra, seconds, exact in runs:
+        save = os.path.join(tmp, "tracks_" + name.split()[0])
+        directory = exact_dir if exact else test_dir
+        fa.launches = 0
+        result = cli.main(["--test_dir", directory, "--model_path", weights, "--json",
+                           "--save_tracks", "--save_dir", save, *extra])
+        torch.cuda.synchronize()
+        launches, want = fa.launches, expected_eval_launches(cfg, seconds, exact)
+        share = 1.0 - result["realtime_factor"] / result["enhance_realtime_factor"]
+        log(f"[13] evaluate {name}: {len(seconds)} tracks, {sum(seconds)} s; realtime_factor "
+            f"{result['realtime_factor']}, enhance_realtime_factor "
+            f"{result['enhance_realtime_factor']}, host metrics {100 * share:.1f}% of the wall "
+            f"time; kernel #1 launches {launches} (expected {want}) on {smi}")
+        bad = [k for k, (lo, hi) in limits.items()
+               if not (np.isfinite(result[k]) and lo <= result[k] <= hi)]
+        if bad or launches != want or want == 0 or result["tracks"] != len(seconds):
+            raise AssertionError(f"evaluate {name}: aggregates out of range {bad} or "
+                                 f"{launches} launches, expected {want}")
+        if name == "fp32":
+            fp32_launches = launches
+
+    # a saved track against Enhancer.enhance on the same weights, both as the
+    # CLI saves them (16-bit PCM); the 20 s track is enhanced alone in both
+    for name, limit in ((EVAL_ALONE, EVAL_TRACK_REL), (EVAL_BATCHED, None)):
+        noisy, _ = read_wav(os.path.join(test_dir, "noisy", name))
+        ref_path = os.path.join(tmp, "ref_" + name)
+        write_wav(ref_path, enh.enhance(noisy[0], mode="bucket"), SR)
+        ref, _ = read_wav(ref_path)
+        saved, _ = read_wav(os.path.join(tmp, "tracks_fp32", name))
+        err = rel_l2(saved[0], ref[0])
+        log(f"[13] saved {name} ({saved.shape[1] / SR:.0f} s) against Enhancer.enhance, 16-bit "
+            f"PCM both: rel L2 {err:.3e}" + (f" (tol {limit})" if limit else
+                                            " (batched with 7 padding rows; no limit)"))
+        if limit is not None and not err <= limit:
+            raise AssertionError("the evaluate CLI's track disagrees with Enhancer.enhance")
+    clean, _ = read_wav(os.path.join(test_dir, "clean", EVAL_EXACT[0]))
+    scores = compute_metrics(clean[0], clean[0], SR)
+    log(f"[13] compute_metrics(clean, clean), {clean.shape[1] / SR:.0f} s: pesq {scores[0]:.6f} "
+        f"stoi {scores[5]:.9f}")
+    if not (abs(scores[0] - 4.64) <= 0.01 and abs(scores[5] - 1.0) <= 1e-6):
+        raise AssertionError("clean against clean must score PESQ 4.64 and STOI 1")
+    del enh
+    torch.cuda.empty_cache()
+    return fp32_launches
+
+
+def device_pesq(smi: str):
+    """[14] the batched torch PESQ on the card: against the CPU, against the
+    host C++ scorer, a silent row, and ms a batch beside the host scorer."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch.metrics.pesq_native import pesq_batch
+    from cmgan_torch.metrics.pesq_torch import pesq_labels_torch, pesq_mos_torch
+    from cmgan_torch.train import init_train_state, make_train_steps
+    from cmgan_torch.train.steps import pesq_labels_host
+
+    # three speech-like pairs at three SNRs and one G step's est_audio
+    clean = np.stack([synthetic_track(FLASH_CUT, 4000 + i) for i in range(4)])
+    noise = np.random.default_rng(4000).standard_normal(clean.shape).astype(np.float32)
+    deg = clean + np.array([0.005, 0.02, 0.06, 0.0], np.float32)[:, None] * noise
+    cfg = train_config(FLASH_CUT)
+    state = init_train_state(cfg, 0, 1, device="cuda")
+    batch_clean, batch_noisy = train_batch(FLASH_CUT, seed=90)
+    _, handoff = make_train_steps(cfg, 1)[0](state, batch_clean, batch_noisy)
+    clean[3], deg[3] = batch_clean[0], handoff["est_audio"][0].cpu().numpy()
+    del state, handoff
+    torch.cuda.empty_cache()
+
+    ref, dg = torch.from_numpy(clean), torch.from_numpy(deg)
+    on_card = pesq_mos_torch(ref.cuda(), dg.cuda()).cpu().numpy()
+    on_cpu = pesq_mos_torch(ref, dg).numpy()
+    host = pesq_batch(clean, deg)
+    err, err_host = float(np.abs(on_card - on_cpu).max()), float(np.abs(on_card - host).max())
+    log(f"[14] pesq_mos_torch B 4 x {FLASH_CUT}: card {rounded(on_card)}, CPU "
+        f"{rounded(on_cpu)}, host C++ {rounded(host)}; max |card - CPU| "
+        f"{err:.3e} (tol {PESQ_DEVICE_ATOL}), max |card - host C++| {err_host:.3e} (no limit)")
+    if not (np.all(np.isfinite(on_card)) and err <= PESQ_DEVICE_ATOL):
+        raise AssertionError("the torch PESQ on the card disagrees with the CPU")
+    silent = ref.clone()
+    silent[1] = 0.0
+    labels = pesq_labels_torch(silent.cuda(), dg.cuda()).cpu().numpy()
+    log(f"[14] labels with a silent clean row: {rounded(labels)}")
+    if labels[1] != -1.0 or not np.all(labels[[0, 2, 3]] >= 1.0):
+        raise AssertionError("a silent row must be labeled -1 and the others scored")
+
+    timings = {}
+    for b, n in ((4, FLASH_CUT), (16, DEFAULT_CUT)):
+        c = np.stack([synthetic_track(n, 5000 + i) for i in range(b)])
+        d = c + 0.02 * np.random.default_rng(5000).standard_normal(c.shape).astype(np.float32)
+        cc, dd = torch.from_numpy(c).cuda(), torch.from_numpy(d).cuda()
+        ms = cuda_ms(lambda: pesq_labels_torch(cc, dd), reps=10)
+        pesq_labels_host(c, d)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pesq_labels_host(c, d)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 3
+        timings[f"{b}x{n}"] = {"device_ms": ms, "host_ms": host_ms}
+        log(f"[14] labels B {b} x {n}: pesq_labels_torch {ms:.3f} ms on the card (CUDA events), "
+            f"host C++ scorer {host_ms:.1f} ms (host clock) on {smi}")
+    return timings
+
+
+class LabelSpy:
+    """Wraps the fused step's label function: snapshots the discriminator's
+    state where its phase begins (after the G phase), keeps the labels, and
+    can turn on torch.cuda.set_sync_debug_mode("error") from there on."""
+
+    def __init__(self, state, error_mode: bool = False):
+        from cmgan_torch.train import steps
+
+        self.steps, self.inner = steps, steps.pesq_labels_torch
+        self.state, self.error_mode = state, error_mode
+
+    def __call__(self, clean, est):
+        import torch
+
+        if self.error_mode:
+            torch.cuda.set_sync_debug_mode("error")
+        self.disc = [t.clone() for t in self.state.disc.state_dict().values()]
+        self.opt = [t.clone() for s in self.state.disc_opt.state.values() for t in s.values()]
+        self.labels = self.inner(clean, est)
+        return self.labels
+
+    def __enter__(self):
+        self.steps.pesq_labels_torch = self
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.steps.pesq_labels_torch = self.inner
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def fused_step_on_card(tmp: str, smi: str):
+    """[15] the fused G + label + D step at cut_len 64000, batch 4, fp32;
+    returns its forward and backward launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.train import init_train_state, make_train_steps
+
+    cfg = train_config(FLASH_CUT, mode="device")
+    state = init_train_state(cfg, 0, 10, device="cuda")
+    g_step, d_step, _, _, fused_step = make_train_steps(cfg, 10)
+    if not all(g["capturable"] for g in state.disc_opt.param_groups):
+        raise AssertionError("device mode on the GPU needs the capturable discriminator optimizer")
+    clean, noisy = train_batch(FLASH_CUT, seed=100)
+    fa.launches = fa.backward_launches = 0
+    metrics, loss = fused_step(state, clean, noisy)  # the first call also moves the constants
+    torch.cuda.synchronize()
+    launches, blocks = (fa.launches, fa.backward_launches), cfg.model.num_tscb_blocks
+    log(f"[15] fused step cut_len {FLASH_CUT} batch {TRAIN_BATCH} fp32: gen loss "
+        f"{metrics['gen_loss'].item():.5f}, disc loss {loss.item():.5f}, launches {launches[0]} "
+        f"fwd / {launches[1]} bwd")
+    if launches != (blocks, blocks) or not (np.isfinite(loss.item()) and loss.item() > 0):
+        raise AssertionError("the fused step must launch one forward and one backward kernel "
+                             "a TSCB")
+
+    # its D update against d_step fed the same labels, from a copy of the state;
+    # the label and D phases under the sync checker
+    clean, noisy = train_batch(FLASH_CUT, seed=101)
+    torch.backends.cudnn.deterministic = True
+    twin = copy.deepcopy(state)
+    with LabelSpy(state, error_mode=True) as spy:
+        _, loss = fused_step(state, clean, noisy)
+    _, handoff = g_step(twin, clean, noisy)
+    twin_loss = d_step(twin, handoff["clean_mag"], handoff["est_mag"], spy.labels.cpu().numpy())
+    torch.backends.cudnn.deterministic = False
+    err = whole_rel_l2([p.detach().double() for p in state.disc.parameters()],
+                       [p.detach().double() for p in twin.disc.parameters()])
+    log(f"[15] label and D phases ran under set_sync_debug_mode('error'); labels "
+        f"{rounded(spy.labels.cpu().numpy())}; D loss fused {loss.item():.6f}, "
+        f"d_step {twin_loss.item():.6f}; D parameters rel L2 {err:.3e} "
+        f"(tol {FUSED_VS_D_STEP_REL})")
+    if not err <= FUSED_VS_D_STEP_REL:
+        raise AssertionError("the fused step's D update disagrees with d_step")
+    del twin, handoff
+
+    # a failed label: the D phase is undone bitwise, the G update stands
+    clean, noisy = train_batch(FLASH_CUT, seed=102)
+    clean[1] = 0.0
+    gen_before = [p.detach().clone() for p in state.gen.parameters()]
+    with LabelSpy(state, error_mode=True) as spy:
+        _, loss = fused_step(state, clean, noisy)
+    same = (all(torch.equal(a, b) for a, b in zip(state.disc.state_dict().values(), spy.disc))
+            and all(torch.equal(a, b) for a, b in zip(
+                [t for s in state.disc_opt.state.values() for t in s.values()], spy.opt)))
+    g_moved = not all(torch.equal(p, q) for p, q in zip(state.gen.parameters(), gen_before))
+    log(f"[15] a silent clean row: labels {rounded(spy.labels.cpu().numpy())}, "
+        f"D loss {loss.item()}, D parameters, buffers and AdamW state bitwise unchanged {same}, "
+        f"G moved {g_moved}")
+    if not (same and g_moved and loss.item() == 0.0 and spy.labels[1].item() == -1.0):
+        raise AssertionError("a failed label must leave the discriminator's state as it was")
+
+    # the whole step under the sync checker, inputs already on the card (the
+    # copy of a host batch to the card waits for the host by nature)
+    clean_d, noisy_d = (torch.from_numpy(a).cuda() for a in train_batch(FLASH_CUT, seed=103))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused_step(state, clean_d, noisy_d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("[15] the whole fused step ran under set_sync_debug_mode('error')")
+    del state
+    torch.cuda.empty_cache()
+
+    # one epoch of the train CLI in device mode
+    data_dir = os.path.join(tmp, "data")
+    write_dataset(data_dir)
+    steps, test_batches = 12 // TRAIN_BATCH, 4 // TRAIN_BATCH
+    fresh = init_train_state(cfg, 0, steps, device="cuda")
+    d0 = fresh.disc.conv1.layer.weight.detach().clone()
+    del fresh
+    trainer, fwd, bwd, labels, ckpt = run_train_cli(data_dir, os.path.join(tmp, "ckpt_device"),
+                                                    FLASH_CUT, ["--pesq_label_mode", "device"])
+    d_updates = [int(s["step"].item()) for s in trainer.state.disc_opt.state.values()]
+    d_moved = not torch.equal(trainer.state.disc.conv1.layer.weight, d0)
+    log(f"[15] train CLI --pesq_label_mode device cut_len {FLASH_CUT}: steps "
+        f"{trainer.state.step}, launches {fwd} fwd / {bwd} bwd, D updates {max(d_updates)}, D "
+        f"moved {d_moved}, host-labeled test batches {labels.batches}, checkpoint "
+        f"{os.path.basename(ckpt)}")
+    want = (blocks * (steps + test_batches), blocks * steps)
+    if (fwd, bwd) != want or trainer.state.step != steps or not d_moved:
+        raise AssertionError(f"expected {want} launches, {steps} steps and a moved D")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1046,6 +1390,14 @@ def main() -> int:
     lap("10-11 train CLI")
     training_rates(smi)
     lap("12 training rates")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        eval_launches = evaluate_cli(tmp, smi)
+    lap("13 evaluate CLI")
+    pesq_times = device_pesq(smi)
+    lap("14 device PESQ")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        fused_fwd, fused_bwd = fused_step_on_card(tmp, smi)
+    lap("15 fused step")
     log(f"seconds by phase: {json.dumps(laps)}, in all {sum(laps.values()):.1f} "
         f"(imports and the card's start not counted)")
 
@@ -1056,6 +1408,8 @@ def main() -> int:
         "replaces": "cmgan_tpu/ops/flash_attention.py:91",
         "launches": main_launches,
         "launches_train_epoch": train_fwd,
+        "launches_evaluate": eval_launches,
+        "launches_fused_step": fused_fwd,
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1069,6 +1423,7 @@ def main() -> int:
         "source": "cmgan_torch/ops/csrc/flash_rel_attention_bwd.cu",
         "replaces": "cmgan_tpu/ops/flash_attention.py:250",
         "launches": train_bwd,
+        "launches_fused_step": fused_bwd,
         "max_abs_err": bwd_main["max_abs_err"],
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],
@@ -1091,6 +1446,7 @@ def main() -> int:
         "library_ms": ln_main["library_ms"],
         "cases": ln_cases,
     }]}
+    log(f"device PESQ against the host scorer: {json.dumps(pesq_times)}")
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

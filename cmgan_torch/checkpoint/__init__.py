@@ -35,11 +35,26 @@ def restore_train_state(path: str, state):
     ckpt = torch.load(path, map_location=state.device, weights_only=True)
     state.gen.load_state_dict(ckpt["gen"], strict=True)
     state.disc.load_state_dict(ckpt["disc"], strict=True)
-    state.gen_opt.load_state_dict(ckpt["gen_opt"])
-    state.disc_opt.load_state_dict(ckpt["disc_opt"])
+    _load_optimizer(state.gen_opt, ckpt["gen_opt"])
+    _load_optimizer(state.disc_opt, ckpt["disc_opt"])
     state.step = int(ckpt["step"])
     state.rng_state = ckpt["rng_state"].cpu()
     return state
+
+
+def _load_optimizer(opt, saved):
+    """Load an AdamW state_dict but keep this optimizer's `capturable` flag
+    (the saving run's label mode may have been another), with each step
+    count where that flag wants it: on the parameter's device when
+    capturable, else on the CPU."""
+    capturable = [group["capturable"] for group in opt.param_groups]
+    opt.load_state_dict(saved)
+    for group, flag in zip(opt.param_groups, capturable):
+        group["capturable"] = flag
+        for p in group["params"]:
+            entry = opt.state.get(p)
+            if entry and "step" in entry:
+                entry["step"] = entry["step"].to(p.device if flag else "cpu", torch.float32)
 
 
 def save_variables(path: str, variables: Dict[str, torch.Tensor]):

@@ -43,7 +43,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=("host", "host_async", "device"),
                    help="PESQ label path: reference-faithful synchronous "
                    "host scorer, overlapped host scorer (D one step "
-                   "stale), or fused on-device scorer (not ported yet)")
+                   "stale), or fused on-device scorer")
     p.add_argument("--time_loss_domain", type=str, default=d.time_loss_domain,
                    choices=("reference", "normalized"),
                    help="time-L1 target: raw clean (reference quirk, "
@@ -61,11 +61,6 @@ def main(argv=None):
 
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.pesq_label_mode == "device":
-        raise NotImplementedError(
-            "--pesq_label_mode device waits for the on-device PESQ slice "
-            "(metrics/pesq_jax.py is not ported yet); use host or host_async"
-        )
 
     cfg = CMGANConfig(
         model=ModelConfig(remat=args.remat),

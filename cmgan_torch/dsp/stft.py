@@ -11,16 +11,24 @@ shifted chunk streams, then the window-square envelope is divided out.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
+@functools.lru_cache(maxsize=16)
 def hamming_window(n_fft: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Periodic Hamming window, identical to torch.hamming_window(n_fft)."""
+    """Periodic Hamming window, identical to torch.hamming_window(n_fft).
+    Built once per (size, type, device): a copy from host memory to the GPU
+    waits for the host, so making it at every call would stall the stream.
+    Callers must not write to it. It is made outside inference mode, so a
+    window first made under `torch.inference_mode` still serves autograd."""
     n = np.arange(n_fft)
     w = 0.54 - 0.46 * np.cos(2.0 * np.pi * n / n_fft)
-    return torch.as_tensor(w, dtype=dtype, device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(w, dtype=dtype, device=device)
 
 
 def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:

@@ -27,6 +27,12 @@ from cmgan_torch.models import TSCNet
 from cmgan_torch.models.layers import torch_default_init_
 
 
+# rows per enhance_batch call fall inversely with the bucket length: about
+# this many samples a call. Sized for a 16 GB accelerator and kept as it
+# is; it changes how tracks are grouped, not the results.
+BATCH_BUDGET_SAMPLES = 2_000_000
+
+
 def segment_track(noisy: np.ndarray, hop: int, cut_len: int) -> Tuple[np.ndarray, int]:
     """Wrap-pad to a hop multiple and fold long tracks into a batch.
 
@@ -113,12 +119,8 @@ class Enhancer:
             else:
                 groups.setdefault(padded, []).append(i)
 
-        # rows per batch fall inversely with bucket length (~2M samples a
-        # batch). The budget was sized for a 16 GB accelerator and is kept
-        # as it is; it changes how tracks are grouped, not the results.
-        budget_samples = 2_000_000
         for padded, idxs in groups.items():
-            cap = max(1, min(batch_cap, budget_samples // padded))
+            cap = max(1, min(batch_cap, BATCH_BUDGET_SAMPLES // padded))
             for lo in range(0, len(idxs), cap):
                 part = idxs[lo : lo + cap]
                 rows, scales = [], []

@@ -2,8 +2,8 @@
 
 Same loop structure as the JAX package's Trainer (and the CMGAN
 reference's): loss weights, LR schedule, per-epoch test pass and
-checkpointing, with full-state checkpoints that resume. The on-device
-PESQ label mode and more than one device are not ported yet.
+checkpointing, with full-state checkpoints that resume. More than one
+device is not ported yet.
 """
 
 from __future__ import annotations
@@ -50,9 +50,8 @@ class Trainer:
         self.train_loader = train_loader
         self.test_loader = test_loader
         steps_per_epoch = max(len(train_loader), 1)
-        self.g_step, self.d_step, self.test_fwd, self.test_disc_loss = make_train_steps(
-            cfg, steps_per_epoch
-        )
+        (self.g_step, self.d_step, self.test_fwd, self.test_disc_loss,
+         self.fused_step) = make_train_steps(cfg, steps_per_epoch)
         if state is None:
             state = init_train_state(cfg, cfg.train.seed, steps_per_epoch, dtype=dtype,
                                      device=device)
@@ -73,8 +72,11 @@ class Trainer:
         tensors (not fetched: callers decide when to sync).
 
         pesq_label_mode='host': the G phase, the native CPU scorer, the D
-        phase, in that order. 'host_async': the same scorer runs in a
-        background thread while the device goes on; the D update for step
+        phase, in that order. 'device': one fused step with the labels
+        computed on the device; nothing is read back to the host, so steps
+        queue up on the device and the loop blocks only where it fetches
+        losses (every log_interval steps). 'host_async': the same scorer
+        runs in a background thread while the device goes on; the D update for step
         t is applied during step t+1, so the generator sees D one step
         stale and the deferred update reads the spectral-norm state as
         batch t+1's G phase left it. The deferred update keeps the
@@ -82,6 +84,10 @@ class Trainer:
         the PREVIOUS batch's disc loss, or None on the first step of an
         epoch; `drain_pending_d()` applies the final deferred update.
         """
+        if self.cfg.train.pesq_label_mode == "device":
+            metrics, disc_loss = self.fused_step(self.state, clean, noisy)
+            self._maybe_ema()
+            return metrics["gen_loss"], disc_loss
         metrics, handoff = self.g_step(self.state, clean, noisy)
         self._maybe_ema()
         if self.cfg.train.pesq_label_mode == "host_async":
@@ -205,7 +211,8 @@ class Trainer:
         flush(step)
 
     def test(self) -> float:
-        """Per-epoch eval pass; returns the mean generator loss.
+        """Per-epoch eval pass; returns the mean generator loss. Its labels
+        come from the host scorer in every label mode, as in the JAX package.
 
         A batch of fewer rows than batch_size (the last one) is
         wrap-padded to the full size, and the averages are weighted by

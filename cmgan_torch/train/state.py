@@ -70,23 +70,42 @@ def make_disc_lr_schedule(cfg: CMGANConfig, steps_per_epoch: int):
     return make_lr_schedule(cfg, steps_per_epoch, cfg.train.disc_lr_mult * cfg.train.init_lr)
 
 
-def make_optimizer(module: torch.nn.Module, lr: float) -> torch.optim.AdamW:
+def make_optimizer(module: torch.nn.Module, lr: float,
+                   capturable: bool = False) -> torch.optim.AdamW:
     """AdamW over all parameters, decay 0.01 on every one of them: equal to
     `optax.adamw(lr, 0.9, 0.999, 1e-8, weight_decay=0.01)` term for term.
-    The steps set the learning rate from the schedules before each update."""
-    return torch.optim.AdamW(module.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=0.01)
+    The steps set the learning rate from the schedules before each update.
+
+    capturable: keep Adam's step count on the parameters' (CUDA) device and
+    compute the bias corrections there, so an update can be undone by a
+    device-side select without reading anything back to the host (the
+    fused step's skip); torch keeps the count on the CPU otherwise."""
+    opt = torch.optim.AdamW(module.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.01, capturable=capturable)
+    # capturable is chosen for the device-side skip, not for CUDA graphs: torch
+    # would warn once that it runs uncaptured
+    opt._warned_capturable_if_run_uncaptured = True
+    return opt
+
+
+def init_adam_state(opt: torch.optim.AdamW):
+    """Create AdamW's per-parameter state (step 0, zero moments) where torch
+    has not yet, as its first step would; the step count on the parameter's
+    device when the optimizer is capturable, else a CPU scalar."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            state = opt.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=torch.float32,
+                                            device=p.device if group["capturable"] else "cpu")
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
 def check_supported(cfg: CMGANConfig):
     """Raise for what the trainer cannot do yet."""
     mode = cfg.train.pesq_label_mode
-    if mode == "device":
-        raise NotImplementedError(
-            "pesq_label_mode='device' waits for the on-device PESQ slice "
-            "(metrics/pesq_jax.py is not ported yet); use 'host' or 'host_async'"
-        )
-    if mode not in ("host", "host_async"):
+    if mode not in ("host", "host_async", "device"):
         raise ValueError(
             f"pesq_label_mode must be 'host', 'host_async' or 'device', got {mode!r}"
         )
@@ -114,7 +133,9 @@ def init_train_state(cfg: CMGANConfig, seed: int, steps_per_epoch: int,
         gen=gen,
         disc=disc,
         gen_opt=make_optimizer(gen, make_lr_schedule(cfg, steps_per_epoch, cfg.train.init_lr)(0)),
-        disc_opt=make_optimizer(disc, make_disc_lr_schedule(cfg, steps_per_epoch)(0)),
+        disc_opt=make_optimizer(disc, make_disc_lr_schedule(cfg, steps_per_epoch)(0),
+                                capturable=cfg.train.pesq_label_mode == "device"
+                                and device.type == "cuda"),
         step=0,
         rng_state=torch.Generator(device=device).manual_seed(seed).get_state(),
     )

@@ -14,6 +14,11 @@ synchronous CPU labeling):
     [clean, est] as one batch of 2B, MSE to (1, pesq_label) targets,
     gradients, update; skipped entirely when the labels are invalid.
 
+With `pesq_label_mode='device'` the three run as one step with no host
+round trip (`fused_step`): the labels come from the batched torch PESQ
+on the device (metrics/pesq_torch.py), and a batch with a failed label
+is undone by a device-side select instead of being skipped on the host.
+
 The steps update the `TrainState` they are given in place.
 
 Reference quirks kept on purpose, as in the JAX package: the time-domain
@@ -21,9 +26,6 @@ L1 loss and the PESQ labels compare the *normalized-domain* est_audio
 with the *unnormalized* clean waveform. The time-loss side suppresses
 output gain; `TrainConfig.time_loss_domain='normalized'` targets
 clean * c instead. The label side is harmless (PESQ level-aligns).
-
-The fused G + label + D step of `pesq_label_mode='device'` waits for the
-on-device PESQ scorer and is not here.
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ import torch
 
 from cmgan_torch.config import CMGANConfig
 from cmgan_torch.dsp import istft, power_compress, power_uncompress, stft
+from cmgan_torch.metrics.pesq_torch import pesq_labels_torch
 from cmgan_torch.train.state import (
     TrainState,
     check_supported,
+    init_adam_state,
     make_disc_lr_schedule,
     make_lr_schedule,
     rng_scope,
@@ -168,8 +172,17 @@ def _set_lr(opt: torch.optim.Optimizer, lr: float):
         group["lr"] = lr
 
 
+def _disc_state_tensors(state: TrainState):
+    """Everything a discriminator update changes: its parameters, its
+    buffers (spectral-norm u and sigma) and AdamW's state of each parameter
+    (step count and both moments)."""
+    params = list(state.disc.parameters())
+    opt_state = [t for p in params for t in state.disc_opt.state[p].values()]
+    return params + list(state.disc.buffers()) + opt_state
+
+
 def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
-    """Returns (g_step, d_step, test_fwd, test_disc_loss)."""
+    """Returns (g_step, d_step, test_fwd, test_disc_loss, fused_step)."""
     check_supported(cfg)
     gen_lr = make_lr_schedule(cfg, steps_per_epoch, cfg.train.init_lr)
     disc_lr = make_disc_lr_schedule(cfg, steps_per_epoch)
@@ -217,6 +230,22 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
         }
         return metrics, handoff
 
+    def _d_update(state: TrainState, clean_mag, est_mag, labels, step_now: int):
+        """The discriminator's loss, gradients and AdamW update; labels are
+        the normalized PESQ targets on the device."""
+        state.disc.train()
+        with rng_scope(state):
+            pred_max, pred_enh = _disc_pairs(state.disc, clean_mag, est_mag)
+            loss = ((pred_max - 1.0) ** 2).mean() + ((pred_enh - labels) ** 2).mean()
+            state.disc_opt.zero_grad(set_to_none=True)
+            loss.backward()
+        # step_now is the post-G value, so this batch's step is step_now - 1:
+        # the decay follows the shared global step, not D's own update count
+        _set_lr(state.disc_opt, disc_lr(step_now - 1))
+        state.disc_opt.step()
+        state.disc_opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
     def d_step(state: TrainState, clean_mag, est_mag, pesq_scores, at_step=None):
         """One discriminator update; returns its loss (0 when skipped).
 
@@ -235,18 +264,40 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
         if pesq_scores.min() < 0.0:
             return torch.zeros((), device=state.device)
         (labels,) = _on_device(state, (pesq_scores - offset) / scale)
-        state.disc.train()
-        with rng_scope(state):
-            pred_max, pred_enh = _disc_pairs(state.disc, clean_mag, est_mag)
-            loss = ((pred_max - 1.0) ** 2).mean() + ((pred_enh - labels) ** 2).mean()
-            state.disc_opt.zero_grad(set_to_none=True)
-            loss.backward()
-        # step_now is the post-G value, so this batch's step is step_now - 1:
-        # the decay follows the shared global step, not D's own update count
-        _set_lr(state.disc_opt, disc_lr(step_now - 1))
-        state.disc_opt.step()
-        state.disc_opt.zero_grad(set_to_none=True)
-        return loss.detach()
+        return _d_update(state, clean_mag, est_mag, labels, step_now)
+
+    def fused_step(state: TrainState, clean, noisy):
+        """The G update, PESQ labels of (clean, est_audio) on the device and
+        the D update, with no host round trip (pesq_label_mode='device').
+        Returns (metrics, disc_loss) as in g_step and d_step.
+
+        A batch with a failed label (a silent row or a non-finite score) is
+        undone as d_step skips it, but decided on the device: the update
+        runs, then every discriminator tensor it changed (parameters,
+        spectral-norm buffers, AdamW's moments and step count) is selected
+        back to its value before, and the loss is 0. The dropout stream
+        still advances. On a CUDA state this needs the capturable
+        discriminator optimizer that init_train_state builds for this mode
+        (torch keeps Adam's step count on the CPU otherwise).
+        """
+        if state.device.type == "cuda" and not all(
+                g["capturable"] for g in state.disc_opt.param_groups):
+            raise ValueError("fused_step needs a capturable discriminator optimizer on the GPU: "
+                             "build the state with pesq_label_mode='device'")
+        clean, noisy = _on_device(state, clean, noisy)
+        metrics, handoff = g_step(state, clean, noisy)
+        with torch.no_grad():
+            scores = pesq_labels_torch(clean, handoff["est_audio"])
+            valid = scores.min() >= 0.0
+            init_adam_state(state.disc_opt)
+            kept = _disc_state_tensors(state)
+            before = [t.clone() for t in kept]
+        loss = _d_update(state, handoff["clean_mag"], handoff["est_mag"],
+                         (scores - offset) / scale, state.step)
+        with torch.no_grad():
+            for t, old in zip(kept, before):
+                t.copy_(torch.where(valid, t, old))
+        return metrics, torch.where(valid, loss, 0.0)
 
     @torch.no_grad()
     def test_fwd(state: TrainState, clean, noisy):
@@ -277,4 +328,4 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
         pred_max, pred_enh = _disc_pairs(state.disc, clean_mag, est_mag)
         return (pred_max - 1.0) ** 2 + (pred_enh - labels) ** 2
 
-    return g_step, d_step, test_fwd, test_disc_loss
+    return g_step, d_step, test_fwd, test_disc_loss, fused_step

@@ -36,6 +36,18 @@ def test_hamming_window():
     )
 
 
+def test_window_is_built_once_and_serves_autograd_after_inference_mode(rng):
+    """The window is cached per (size, type, device); one first made under
+    inference mode (as Enhancer makes it) must still take part in autograd
+    (as the training step uses it)."""
+    with torch.inference_mode():
+        tstft.stft(torch.from_numpy(_signal(rng, 2, 1600)), N_FFT, HOP)
+    assert tstft.hamming_window(N_FFT) is tstft.hamming_window(N_FFT)
+    x = torch.from_numpy(_signal(rng, 2, 1600)).requires_grad_()
+    tstft.istft(tstft.stft(x, N_FFT, HOP), N_FFT, HOP).square().sum().backward()
+    assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
+
+
 @pytest.mark.parametrize("length", [16000, 16050, 32000])
 def test_frame_signal(rng, length):
     x = _signal(rng, 2, length)

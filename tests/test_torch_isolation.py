@@ -40,7 +40,9 @@ def test_port_sources_import_no_jax():
             "cmgan_torch/train/state.py", "cmgan_torch/models/discriminator.py",
             "cmgan_torch/metrics/pesq_native.py", "cmgan_torch/data/dataset.py",
             "cmgan_torch/checkpoint/__init__.py", "cmgan_torch/cli/train.py",
-            "cmgan_torch/ops/fused_norm.py"} <= rel
+            "cmgan_torch/ops/fused_norm.py", "cmgan_torch/metrics/pesq_torch.py",
+            "cmgan_torch/metrics/composite.py", "cmgan_torch/metrics/stoi.py",
+            "cmgan_torch/metrics/pesq_ref.py", "cmgan_torch/cli/evaluate.py"} <= rel
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
@@ -52,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
         "import cmgan_torch.inference, cmgan_torch.cli.enhance, cmgan_torch.convert\n"
         "import cmgan_torch.cli.train, cmgan_torch.train, cmgan_torch.checkpoint\n"
         "import cmgan_torch.metrics, cmgan_torch.data.dataset, cmgan_torch.ops.fused_norm\n"
-        "import cmgan_torch.models.discriminator\n"
+        "import cmgan_torch.models.discriminator, cmgan_torch.cli.evaluate\n"
+        "import cmgan_torch.metrics.pesq_torch, cmgan_torch.metrics.composite\n"
+        "import cmgan_torch.metrics.stoi, cmgan_torch.metrics.pesq_ref\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,)
@@ -94,6 +98,7 @@ def test_kernel_sources_are_in_the_tree_and_nothing_is_built_at_import():
         "def no(*a, **k): raise AssertionError('a build ran at import')\n"
         "subprocess.run = subprocess.Popen = no\n"
         "import cmgan_torch.train, cmgan_torch.cli.train, cmgan_torch.ops, cmgan_torch.metrics\n"
+        "import cmgan_torch.cli.evaluate, cmgan_torch.metrics.pesq_torch\n"
         "assert 'triton' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -30,18 +30,20 @@ import torch
 from cmgan_tpu.config import CMGANConfig as JaxConfig
 from cmgan_tpu.config import ModelConfig as JaxModelConfig
 from cmgan_tpu.config import TrainConfig as JaxTrainConfig
+from cmgan_tpu.metrics.pesq_jax import pesq_labels_jax
 from cmgan_tpu.models import MetricDiscriminator as JaxDisc
 from cmgan_tpu.models import TSCNet as JaxTSCNet
 from cmgan_tpu.train import init_train_state as jax_init_train_state
 from cmgan_tpu.train import make_train_steps as jax_make_train_steps
 from cmgan_tpu.train import state as jstate
 from cmgan_tpu.train import steps as jsteps
-from cmgan_torch.checkpoint import restore_variables
+from cmgan_torch.checkpoint import restore_train_state, restore_variables, save_train_state
 from cmgan_torch.cli import train as cli_train
 from cmgan_torch.config import CMGANConfig, MeshConfig, ModelConfig, TrainConfig
 from cmgan_torch.convert import disc_state_dict_from_flax, state_dict_from_flax
 from cmgan_torch.data import write_wav
 from cmgan_torch.data.dataset import load_data
+from cmgan_torch.metrics.pesq_torch import pesq_labels_torch
 from cmgan_torch.models.conformer import BatchNorm
 from cmgan_torch.ops import flash_attention as fa
 from cmgan_torch.train import (
@@ -128,7 +130,7 @@ def stepped():
     state.disc.load_state_dict(disc_before)
 
     jg, jd, _, _, _ = jax_make_train_steps(jcfg, SPE)
-    tg, td, _, _ = make_train_steps(cfg, SPE)
+    tg, td, _, _, _ = make_train_steps(cfg, SPE)
     js1, jm, jh = jg(js0, jnp.asarray(clean), jnp.asarray(noisy))
     js1 = jax.device_get(js1)
     tm, th = tg(state, clean, noisy)
@@ -207,10 +209,106 @@ def test_d_step_matches_jax(stepped):
     assert stepped["state"].step == int(stepped["js2"].step) == 1
 
 
+@pytest.fixture(scope="module")
+def fused():
+    """One fused G + label + D step (pesq_label_mode='device') in both
+    packages from the same start."""
+    jcfg, cfg = _cfgs(pesq_label_mode="device")
+    js0 = jax_init_train_state(jcfg, 0, SPE)
+    state = _load_from_jax(init_train_state(cfg, 0, SPE, device="cpu"), js0)
+    clean, noisy = _batch()
+    js1, jm, jl = jax_make_train_steps(jcfg, SPE)[4](js0, jnp.asarray(clean), jnp.asarray(noisy))
+    tm, tl = make_train_steps(cfg, SPE)[4](state, clean, noisy)
+    return dict(js1=jax.device_get(js1), jm=_np(jm), jl=float(jl), state=state, tm=tm, tl=float(tl))
+
+
+def test_fused_step_labels_match_jax(stepped):
+    """The labels the fused step computes from the G phase's est_audio."""
+    clean, _ = _batch()
+    ours = pesq_labels_torch(torch.from_numpy(clean), stepped["th"]["est_audio"]).numpy()
+    theirs = np.asarray(pesq_labels_jax(jnp.asarray(clean), jnp.asarray(stepped["jh"]["est_audio"])))
+    assert np.all(ours >= 1.0)
+    np.testing.assert_allclose(ours, theirs, atol=1e-3, rtol=0)
+
+
+def test_fused_step_matches_jax(fused):
+    for k in ("gen_loss", "loss_ri", "loss_mag", "loss_time", "loss_gan"):
+        np.testing.assert_allclose(float(fused["tm"][k]), float(fused["jm"][k]), rtol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(fused["tl"], fused["jl"], rtol=1e-4)
+    assert fused["tl"] > 0
+    state = fused["state"]
+    assert state.step == int(fused["js1"].step) == 1
+    want, got = _disc_sd(fused["js1"]), state.disc.state_dict()
+    for name, ref in want.items():  # as in test_d_step_matches_jax
+        assert (got[name] - ref).abs().max() <= 4 * LR * 1.01, name
+        if name.endswith((".u", ".sigma")):
+            np.testing.assert_allclose(got[name].numpy(), ref.numpy(), atol=1e-5, rtol=1e-4,
+                                       err_msg=name)
+    close = sum(int(((got[n] - r).abs() <= 1e-6).sum()) for n, r in want.items())
+    assert close >= 0.98 * sum(r.numel() for r in want.values())
+    assert int(state.disc_opt.state_dict()["state"][0]["step"]) == 1
+
+
+def test_fused_step_undoes_the_d_update_of_a_failed_label(monkeypatch):
+    """A silent clean row fails its label: the G update stands, and the
+    discriminator's parameters, spectral-norm buffers and AdamW state are
+    bitwise those before the D phase; the loss is 0."""
+    _, cfg = _cfgs(pesq_label_mode="device")
+    state = init_train_state(cfg, 0, SPE, device="cpu")
+    fused_step = make_train_steps(cfg, SPE)[4]
+    _, loss = fused_step(state, *_batch(1))   # a valid batch: Adam's state is not zero
+    assert float(loss) > 0 and int(state.disc_opt.state_dict()["state"][0]["step"]) == 1
+
+    seen = {}
+
+    def labels_spy(clean, est):   # the D phase starts where the labels are computed
+        seen["disc"] = {k: v.clone() for k, v in state.disc.state_dict().items()}
+        seen["opt"] = [t.clone() for s in state.disc_opt.state.values() for t in s.values()]
+        seen["labels"] = pesq_labels_torch(clean, est)
+        return seen["labels"]
+
+    monkeypatch.setattr(tsteps, "pesq_labels_torch", labels_spy)
+    clean, noisy = _batch(2)
+    clean[1] = 0.0
+    gen_before = {k: v.clone() for k, v in state.gen.state_dict().items()}
+    metrics, loss = fused_step(state, clean, noisy)
+    assert seen["labels"][1] == -1.0 and seen["labels"][0] > 0
+    assert float(loss) == 0.0 and np.isfinite(float(metrics["gen_loss"])) and state.step == 2
+    for k, v in state.disc.state_dict().items():
+        assert torch.equal(v, seen["disc"][k]), k
+    now = [t for s in state.disc_opt.state.values() for t in s.values()]
+    assert len(now) == 3 * len(list(state.disc.parameters()))
+    assert all(torch.equal(a, b) for a, b in zip(now, seen["opt"]))
+    moved = [k for k, v in state.gen.state_dict().items() if not torch.equal(v, gen_before[k])]
+    assert len(moved) >= len(gen_before) // 2
+
+
+def test_restore_keeps_the_optimizers_capturable_flag(tmp_path):
+    """A checkpoint from a device-mode run on the GPU (a capturable
+    discriminator optimizer) restores into an optimizer that is not
+    capturable, with Adam's step count on the CPU."""
+    _, cfg = _cfgs()
+    state = init_train_state(cfg, 0, SPE, device="cpu")
+    g_step, d_step, _, _, _ = make_train_steps(cfg, SPE)
+    _, h = g_step(state, *_batch())
+    d_step(state, h["clean_mag"], h["est_mag"], np.array([2.0, 3.0]))
+    state.disc_opt.param_groups[0]["capturable"] = True   # as the saving run had it
+    save_train_state(str(tmp_path / "ckpt"), state)
+    fresh = init_train_state(cfg, 1, SPE, device="cpu")
+    restore_train_state(str(tmp_path / "ckpt"), fresh)
+    assert fresh.disc_opt.param_groups[0]["capturable"] is False
+    steps = [s["step"] for s in fresh.disc_opt.state.values()]
+    assert all(t.device.type == "cpu" and t.dtype == torch.float32 and float(t) == 1.0
+               for t in steps)
+    for a, b in zip(fresh.disc_opt.state.values(), state.disc_opt.state.values()):
+        assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+
+
 def test_flash_backward_is_on_the_cpu_training_path():
     _, cfg = _cfgs()
     state = init_train_state(cfg, 0, SPE, device="cpu")
-    g_step, _, _, _ = make_train_steps(cfg, SPE)
+    g_step, _, _, _, _ = make_train_steps(cfg, SPE)
     plain = fa.plain_calls
     g_step(state, *_batch())
     assert fa.plain_calls - plain == 4  # 'flash' forces it: time and frequency conformer of 2 TSCBs
@@ -235,7 +333,7 @@ def test_lr_schedules_at_epoch_boundaries():
 def test_steps_set_the_scheduled_lr():
     _, cfg = _cfgs(decay_epochs=1)
     state = init_train_state(cfg, 0, 1, device="cpu")  # one step an epoch: decay every step
-    g_step, d_step, _, _ = make_train_steps(cfg, 1)
+    g_step, d_step, _, _, _ = make_train_steps(cfg, 1)
     for want in (LR, LR / 2):
         _, h = g_step(state, *_batch())
         assert state.gen_opt.param_groups[0]["lr"] == want
@@ -246,7 +344,7 @@ def test_steps_set_the_scheduled_lr():
 def test_d_step_skips_an_invalid_batch_entirely():
     _, cfg = _cfgs()
     state = init_train_state(cfg, 0, SPE, device="cpu")
-    g_step, d_step, _, _ = make_train_steps(cfg, SPE)
+    g_step, d_step, _, _, _ = make_train_steps(cfg, SPE)
     _, h = g_step(state, *_batch())
     d_step(state, h["clean_mag"], h["est_mag"], np.array([2.0, 3.0]))  # Adam state exists now
     before = {k: v.clone() for k, v in state.disc.state_dict().items()}
@@ -265,11 +363,10 @@ def test_d_step_skips_an_invalid_batch_entirely():
 
 
 def test_unported_modes_raise():
-    _, cfg = _cfgs(pesq_label_mode="device")
-    with pytest.raises(NotImplementedError, match="on-device PESQ"):
-        init_train_state(cfg, 0, SPE, device="cpu")
-    with pytest.raises(NotImplementedError, match="on-device PESQ"):
-        make_train_steps(cfg, SPE)
+    _, cfg = _cfgs(pesq_label_mode="device")   # ported: builds
+    state = init_train_state(cfg, 0, SPE, device="cpu")
+    assert len(make_train_steps(cfg, SPE)) == 5
+    assert not state.disc_opt.param_groups[0]["capturable"]   # capturable only on the GPU
     with pytest.raises(ValueError):
         make_train_steps(_cfgs(pesq_label_mode="bogus")[1], SPE)
     two = dataclasses.replace(_cfgs()[1], mesh=MeshConfig(data_parallel=2))
@@ -281,8 +378,10 @@ def test_unported_modes_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             init_train_state(_cfgs()[1], 0, SPE)  # the default device is the GPU
-    with pytest.raises(NotImplementedError, match="on-device PESQ"):
-        cli_train.main(["--data_dir", "nowhere", "--pesq_label_mode", "device"])
+    assert cli_train.parse_args(["--data_dir", "x", "--pesq_label_mode", "device"]
+                                ).pesq_label_mode == "device"
+    with pytest.raises(SystemExit):
+        cli_train.parse_args(["--data_dir", "x", "--pesq_label_mode", "bogus"])
 
 
 def test_time_loss_domain_and_loss_region_match_jax():
@@ -471,6 +570,30 @@ def test_train_epoch_runs_every_batch_in_both_label_modes(data_dir):
         assert t.state.step == 2 and t._pending_d is None  # 5 files, batch 2, drop_last
         assert not torch.equal(t.state.disc.conv1.layer.weight, before)
         assert int(t.state.disc_opt.state_dict()["state"][0]["step"]) == 2
+
+
+def test_train_epoch_and_cli_in_device_mode(data_dir, tmp_path):
+    """pesq_label_mode='device' through the Trainer and the CLI: every batch
+    takes the fused step, the returned losses stay on the device until the
+    loop fetches them, and the discriminator moves."""
+    t = _trainer(data_dir, pesq_label_mode="device", log_interval=1)
+    before = t.state.disc.conv1.layer.weight.clone()
+    gen_loss, disc_loss = t.train_step(*_batch(1))
+    assert isinstance(gen_loss, torch.Tensor) and isinstance(disc_loss, torch.Tensor)
+    assert float(disc_loss) > 0 and t._pending_d is None
+    t.train_epoch(0)
+    assert t.state.step == 3
+    assert not torch.equal(t.state.disc.conv1.layer.weight, before)
+    assert int(t.state.disc_opt.state_dict()["state"][0]["step"]) == 3
+    assert np.isfinite(t.test())   # host labels, as in the other modes
+
+    args = ["--data_dir", data_dir, "--save_model_dir", str(tmp_path), "--epochs", "1",
+            "--batch_size", "2", "--cut_len", "1600", "--log_interval", "1", "--device", "cpu",
+            "--pesq_label_mode", "device"]
+    trainer = cli_train.main(args)
+    assert trainer.cfg.train.pesq_label_mode == "device" and trainer.state.step == 2
+    assert int(trainer.state.disc_opt.state_dict()["state"][0]["step"]) == 2
+    assert any(n.startswith("CMGAN_epoch_0_") for n in os.listdir(tmp_path))
 
 
 def test_cli_trains_checkpoints_and_resumes_on_the_cpu(data_dir, tmp_path):
