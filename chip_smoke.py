@@ -5,7 +5,8 @@
 
 CMGAN at its full published width (64 channels, 4 TSCBs, 4 heads of dim
 16, 201 bins, discriminator ndf 16) with seeded random weights, through
-the hand-written CUDA kernels: offline enhancement and GAN training.
+the hand-written CUDA kernels: offline enhancement, GAN training,
+evaluation, streaming and the TCP server.
 Phases, each printing lines, none catching its own
 failure, none falling back to the CPU or to a plain version:
 
@@ -61,7 +62,20 @@ failure, none falling back to the CPU or to a plain version:
      64000: launch counts, the label and D phases, then the whole step,
      under torch.cuda.set_sync_debug_mode("error"), its D update against
      d_step fed the same labels, a failed label's bitwise undo, and one
-     epoch of the train CLI with --pesq_label_mode device.
+     epoch of the train CLI with --pesq_label_mode device;
+ 16. the streaming engine, fp32 and bf16: a 20 s StreamingEnhancer stream
+     pushed in blocks of 3000 and of 700 (equal, no launches at the default
+     window), a StreamBatcher of 8 slots with 3 staggered streams against
+     solo streams, the long-context window (left_context 48000, 601 frames)
+     at 1 and 8 slots through kernel #1 (4 launches a tick) against 'xla',
+     ms a tick and streams served in real time at 1/8/32 slots (default)
+     and 1/8 (long context), a long-context tick's profile, and kernel #1
+     at the streaming shapes (G 404 and 3232, T 601);
+ 17. the TCP server: solo mode in a thread (a 20 s track equal to the
+     direct stream), 8 slots with 8 concurrent clients, then
+     `python -m cmgan_torch.cli.serve --slots 4 --left_context 48000` as
+     its own process with two clients and a SIGTERM shutdown; every stream
+     complete, no session aborted, each client's realtime factor.
 
 Then the card's line, a JSON line with each kernel's numbers, and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, or without
@@ -73,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -129,6 +144,22 @@ PESQ_DEVICE_ATOL = 1e-3
 # [15] D's parameters after the fused step against d_step fed the same labels
 # from a copy of the state, relative L2 (cuDNN deterministic for both)
 FUSED_VS_D_STEP_REL = 1e-5
+# [16] streaming: the default window (24000 + 8000 + 4000 samples, 361 frames,
+# dense attention) and the long-context one (48000 + 8000 + 4000, 601 frames,
+# kernel #1 once a TSCB a tick)
+CHUNK, LOOKAHEAD, LONG_CONTEXT = 8000, 4000, 48000
+# a slot of a StreamBatcher against a solo StreamingEnhancer on the same
+# chunks, relative L2: another batch size may make cuDNN choose another
+# algorithm, which sums in another order (fp32: ~1e-7); in bf16 another order
+# can move a result as far as bf16 stands from fp32
+SLOT_VS_SOLO_REL = {"float32": 1e-5, "bfloat16": BF16_VS_FP32_REL}
+STREAM_TICKS, STREAM_WARMUP = 20, 3   # timed ticks (median) after warm-up ticks
+# [17] the served streams of the CLI's process against a batcher of its slot
+# count in this process, same seeded weights and TF32 settings: another process
+# may make cuDNN choose other algorithms, and the windows run kernel #1 (as
+# [3]'s limit)
+SERVE_PROCESS_REL = FLASH_VS_XLA_REL
+SERVE_WAIT = 300          # seconds any client or server start may take
 
 
 def log(msg: str):
@@ -219,7 +250,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, max_pos=512):
+def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, max_pos=512, tag="[2]"):
     import torch
 
     from cmgan_torch.ops import flash_attention as fa
@@ -263,7 +294,7 @@ def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, max_pos=51
         "ms": ms, "plain_ms": plain_ms,
         **attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward=False),
     }
-    log(f"[2] kernel {json.dumps(case)}")
+    log(f"{tag} kernel {json.dumps(case)}")
     if not (close and finite):
         raise AssertionError(f"kernel disagrees with the plain version: {case}")
     return case
@@ -316,9 +347,10 @@ def realtime_factor(fn, audio_seconds: float, reps: int = 3) -> float:
     return audio_seconds * reps / (time.perf_counter() - t0)
 
 
-def device_breakdown(fn, wall_ms: float, top: int = 8, tag: str = "[3]"):
+def device_breakdown(fn, wall_ms: float, top: int = 8, tag: str = "[3]") -> dict:
     """Profile one call: the device kernels' summed time against the
-    call's unprofiled wall time, and the kernels that take the most."""
+    call's unprofiled wall time, and the kernels that take the most.
+    Returns each kernel's device ms by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -333,6 +365,7 @@ def device_breakdown(fn, wall_ms: float, top: int = 8, tag: str = "[3]"):
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         ms = e.self_device_time_total / 1e3
         log(f"{tag}   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count} {e.key[:90]}")
+    return {e.key: e.self_device_time_total / 1e3 for e in kernels}
 
 
 def rounded(values, digits: int = 6) -> list:
@@ -1188,6 +1221,330 @@ def fused_step_on_card(tmp: str, smi: str):
     return launches
 
 
+def stream_solo(cfg, model, track, block: int, **kw):
+    """A track through a solo StreamingEnhancer on the card, pushed in blocks."""
+    import numpy as np
+
+    from cmgan_torch.streaming import StreamingEnhancer
+
+    s = StreamingEnhancer(cfg, model, device="cuda", **kw)
+    parts = [s.push(track[i:i + block]) for i in range(0, track.size, block)]
+    return np.concatenate(parts + [s.flush()])
+
+
+def stream_slots(batcher, tracks, starts):
+    """Tracks through a StreamBatcher as the server drives it: track i opens a
+    slot at tick starts[i], feeds a chunk a tick (the last one zero-padded),
+    drains the lookahead with zero chunks and closes. Returns the aligned
+    outputs, trimmed to the tracks' lengths, and the ticks run."""
+    import numpy as np
+
+    chunk = batcher.chunk
+    drain = -(-batcher.lookahead // chunk) + 1
+    plans = []
+    for track in tracks:
+        n = -(-track.size // chunk) + drain
+        padded = np.zeros(n * chunk, np.float32)
+        padded[:track.size] = track
+        plans.append(padded.reshape(n, chunk))
+    slots, outs, ticks = [None] * len(tracks), [[] for _ in tracks], 0
+    for tick in range(max(s + len(p) for s, p in zip(starts, plans))):
+        blocks = {}
+        for i, (start, plan) in enumerate(zip(starts, plans)):
+            if tick == start:
+                slots[i] = batcher.open()
+            if start <= tick < start + len(plan):
+                blocks[slots[i]] = plan[tick - start]
+        ticks += bool(blocks)
+        result = batcher.step(blocks)
+        for i, (start, plan) in enumerate(zip(starts, plans)):
+            if start <= tick < start + len(plan):
+                outs[i].append(result[slots[i]])
+                if tick == start + len(plan) - 1:
+                    batcher.close(slots[i])
+    return [np.concatenate(o)[:t.size] for o, t in zip(outs, tracks)], ticks
+
+
+def tick_ms(cfg, model, slots: int, left_context: int):
+    """Median ms of a StreamBatcher tick with every slot active (host clock
+    from a synchronized card to the estimate read back); returns it with the
+    batcher and the tick's blocks."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch.streaming import StreamBatcher
+
+    b = StreamBatcher(cfg, model, num_slots=slots, left_context=left_context, device="cuda")
+    blocks = {b.open(): synthetic_track(CHUNK, seed=300 + i) for i in range(slots)}
+    times = []
+    for _ in range(STREAM_WARMUP + STREAM_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.step(blocks)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times[STREAM_WARMUP:])), b, blocks
+
+
+def streaming_on_card(smi: str):
+    """[16] the streaming engine at full width: block-size invariance, slots
+    against solo streams, the long-context window through kernel #1 against
+    'xla', ms a tick, a tick's profile, kernel #1 at the streaming shapes.
+    Returns (kernel #1's launches on the long-context streams, its cases)."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch.config import CMGANConfig, ModelConfig
+    from cmgan_torch.inference import load_generator
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.streaming import StreamBatcher
+
+    cfg = CMGANConfig()
+    cfg_xla = CMGANConfig(model=ModelConfig(attention_impl="xla"))
+    models = {"float32": load_generator(cfg, None, None, "cuda", seed=0)}
+    state = models["float32"].state_dict()
+    models["bfloat16"] = load_generator(cfg, state, torch.bfloat16, "cuda")
+    blocks = cfg.model.num_tscb_blocks
+    window = 24000 + CHUNK + LOOKAHEAD
+    log(f"[16] windows: default {window} samples ({cfg.dsp.num_frames(window)} frames), "
+        f"long-context {LONG_CONTEXT + CHUNK + LOOKAHEAD} "
+        f"({cfg.dsp.num_frames(LONG_CONTEXT + CHUNK + LOOKAHEAD)} frames); algorithmic latency "
+        f"{CHUNK + LOOKAHEAD} samples = {1e3 * (CHUNK + LOOKAHEAD) / SR:.0f} ms")
+
+    track = synthetic_track(20 * SR, seed=200)
+    for dt, model in models.items():
+        fa.launches = 0
+        by3000 = stream_solo(cfg, model, track, 3000)
+        by700 = stream_solo(cfg, model, track, 700)
+        log(f"[16] {dt} solo 20 s at the default window: out len {by3000.size}, rms "
+            f"{float(np.sqrt(np.mean(by3000 ** 2))):.6f}, blocks of 3000 against 700 max abs "
+            f"{float(np.abs(by3000 - by700).max()):.3e}, kernel #1 launches {fa.launches}")
+        if (by3000.shape != track.shape or not np.all(np.isfinite(by3000))
+                or not np.array_equal(by3000, by700) or fa.launches != 0):
+            raise AssertionError("a stream depends on its push block size, is not whole, or "
+                                 "launched kernel #1 at the default window")
+        tracks = [synthetic_track(sec * SR, seed=210 + i) for i, sec in enumerate((6, 5, 4))]
+        outs, ticks = stream_slots(StreamBatcher(cfg, model, num_slots=8, device="cuda"),
+                                   tracks, starts=(0, 2, 5))
+        errs = [rel_l2(o, stream_solo(cfg, model, t, t.size)) for o, t in zip(outs, tracks)]
+        log(f"[16] {dt} StreamBatcher 8 slots, 3 active from ticks 0, 2, 5 ({ticks} ticks): "
+            f"rel L2 against solo streams {[f'{e:.3e}' for e in errs]} "
+            f"(tol {SLOT_VS_SOLO_REL[dt]})")
+        if not all(e <= SLOT_VS_SOLO_REL[dt] for e in errs):
+            raise AssertionError("a slot disagrees with its solo stream")
+
+    # the long-context window: kernel #1 once a TSCB a tick, against 'xla'
+    dense = load_generator(cfg_xla, state, None, "cuda")
+    streaming_launches = 0
+    for slots in (1, 8):
+        tracks = [synthetic_track(4 * SR, seed=230 + i) for i in range(slots)]
+        fa.launches = 0
+        outs, ticks = stream_slots(StreamBatcher(cfg, models["float32"], num_slots=slots,
+                                                 left_context=LONG_CONTEXT, device="cuda"),
+                                   tracks, [0] * slots)
+        launches = fa.launches
+        streaming_launches += launches
+        ref, _ = stream_slots(StreamBatcher(cfg_xla, dense, num_slots=slots,
+                                            left_context=LONG_CONTEXT, device="cuda"),
+                              tracks, [0] * slots)
+        err = rel_l2(np.concatenate(outs), np.concatenate(ref))
+        log(f"[16] long-context fp32, {slots} slot(s), {ticks} ticks: kernel #1 launches "
+            f"{launches} (expected {blocks * ticks}), flash against xla rel L2 {err:.3e} "
+            f"(tol {FLASH_VS_XLA_REL})")
+        if launches != blocks * ticks or not err <= FLASH_VS_XLA_REL:
+            raise AssertionError("the long-context stream missed kernel #1 or disagrees with xla")
+    del dense
+    torch.cuda.empty_cache()
+
+    # ms a tick, streams served in real time
+    for dt, model in models.items():
+        for left_context, slot_counts in ((24000, (1, 8, 32)), (LONG_CONTEXT, (1, 8))):
+            for slots in slot_counts:
+                ms, b, blocks_in = tick_ms(cfg, model, slots, left_context)
+                log(f"[16] tick {dt} left_context {left_context} slots {slots}: {ms:.3f} ms "
+                    f"(median of {STREAM_TICKS}), streams in real time "
+                    f"{slots * CHUNK / SR / (ms / 1e3):.2f} on {smi}")
+                if dt == "float32" and left_context == LONG_CONTEXT and slots == 8:
+                    times = device_breakdown(lambda: b.step(blocks_in), ms, top=10, tag="[16]")
+                    flash = sum(v for k, v in times.items() if "flash_rel" in k)
+                    log(f"[16] kernel #1 in one long-context tick of 8 slots: {flash:.3f} ms, "
+                        f"{100 * flash / sum(times.values()):.1f}% of the device time, "
+                        f"{100 * flash / ms:.1f}% of the tick")
+                del b
+    # kernel #1 at the streaming shapes: G = 404 x slots, T = 601
+    t = cfg.dsp.num_frames(LONG_CONTEXT + CHUNK + LOOKAHEAD)
+    cases = [check_kernel_case(dt, 404 * slots, t, t, t, 0, seed=16 + slots, tag="[16]")
+             for dt in ("float32", "bfloat16") for slots in (1, 8)]
+    del models
+    torch.cuda.empty_cache()
+    return streaming_launches, cases
+
+
+@contextlib.contextmanager
+def tf32(cudnn: bool, matmul: bool):
+    """Within the block, cuDNN's convs and the matmuls take TF32 as given."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class ErrorLog(logging.Handler):
+    """Keeps the messages of the records at ERROR or above."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def timed_clients(addr, tracks):
+    """Each track through its own concurrent enhance_via_server client;
+    returns the outputs and each client's wall seconds."""
+    import threading
+
+    from cmgan_torch.cli.serve import enhance_via_server
+
+    outs, walls, errors = [None] * len(tracks), [None] * len(tracks), []
+
+    def run(i):
+        t0 = time.perf_counter()
+        try:
+            outs[i] = enhance_via_server(addr, tracks[i], block=3000, timeout=SERVE_WAIT)
+        except Exception as exc:  # reported below, with the others
+            errors.append(f"client {i}: {exc!r}")
+        walls[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(tracks))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(2 * SERVE_WAIT)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"a served stream did not complete: {errors}")
+    return outs, walls
+
+
+def check_served(tag, outs, walls, tracks, refs, limit, smi):
+    """Every stream complete and within `limit` (rel L2) of its direct stream."""
+    import numpy as np
+
+    for i, (out, wall, track, ref) in enumerate(zip(outs, walls, tracks, refs)):
+        err = rel_l2(out, ref)
+        log(f"[17] {tag} client {i}: {track.size / SR:.0f} s in {wall:.3f} s wall, realtime "
+            f"factor {track.size / SR / wall:.2f}, out len {out.size}, rel L2 against its direct "
+            f"stream {err:.3e} (tol {limit}) on {smi}")
+        if out.shape != track.shape or not np.isfinite(out).all() or not err <= limit:
+            raise AssertionError(f"{tag}: a served stream is incomplete or disagrees")
+
+
+def serving_on_card(smi: str):
+    """[17] the TCP server: solo mode in a thread against the direct stream,
+    8 slots with 8 concurrent clients, then the CLI as its own process at the
+    long-context window with two clients and a clean shutdown."""
+    import re
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cmgan_torch.cli.serve import make_server
+    from cmgan_torch.config import CMGANConfig
+    from cmgan_torch.inference import load_generator
+    from cmgan_torch.streaming import StreamBatcher
+
+    cfg = CMGANConfig()
+    model = load_generator(cfg, None, None, "cuda", seed=0)   # as the CLI's random init
+    errors = ErrorLog()
+    logging.getLogger("cmgan_torch.serve").addHandler(errors)
+    try:
+        for slots, seconds in ((0, (20,)), (8, (3, 4, 5, 6, 7, 8, 9, 10))):
+            server = make_server(cfg, model, port=0, slots=slots, device="cuda")
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            try:
+                tracks = [synthetic_track(s * SR, seed=400 + i) for i, s in enumerate(seconds)]
+                outs, walls = timed_clients(server.server_address, tracks)
+                refs = [stream_solo(cfg, model, t, t.size) for t in tracks]
+                ticks = server.worker.ticks if slots else None
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(SERVE_WAIT)
+            if slots == 0:
+                check_served("solo", outs, walls, tracks, refs, 0.0, smi)  # must be equal
+            else:
+                check_served(f"{slots} slots", outs, walls, tracks, refs,
+                             SLOT_VS_SOLO_REL["float32"], smi)
+                log(f"[17] {slots} slots: {len(tracks)} concurrent clients, {ticks} server "
+                    f"ticks, {sum(seconds)} s of audio in {max(walls):.3f} s")
+        if errors.messages:
+            raise AssertionError(f"the server logged errors: {errors.messages}")
+    finally:
+        logging.getLogger("cmgan_torch.serve").removeHandler(errors)
+
+    # the real entry point, as its own process
+    cmd = [sys.executable, "-m", "cmgan_torch.cli.serve", "--port", "0", "--slots", "4",
+           "--left_context", str(LONG_CONTEXT)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.DEVNULL,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    lines, ready = [], threading.Event()
+
+    def read_stderr():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+            if "serving on" in line:
+                ready.set()
+
+    reader = threading.Thread(target=read_stderr, daemon=True)
+    reader.start()
+    try:
+        t0 = time.perf_counter()
+        if not ready.wait(SERVE_WAIT):
+            raise AssertionError(f"the server process did not start: {lines[-20:]}")
+        started = re.search(r"serving on [^:]+:(\d+) \(TF32: cuDNN (\w+), matmul (\w+)\)",
+                            next(l for l in lines if "serving on" in l))
+        port = int(started.group(1))
+        server_tf32 = (started.group(2) == "True", started.group(3) == "True")
+        log(f"[17] {' '.join(cmd[1:])}: serving on port {port} after "
+            f"{time.perf_counter() - t0:.1f} s, TF32 cuDNN {server_tf32[0]}, matmul "
+            f"{server_tf32[1]}")
+        tracks = [synthetic_track(6 * SR, seed=420 + i) for i in range(2)]
+        outs, walls = timed_clients(("127.0.0.1", port), tracks)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(SERVE_WAIT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(SERVE_WAIT)
+    stopped = [l for l in lines if "stopped after" in l]
+    log(f"[17] server process exit code {rc}; {stopped[-1] if stopped else 'no tick count'}")
+    # the direct streams: a batcher of the server's 4 slots (the same shapes a
+    # tick, so cuDNN's same choices) under its TF32 settings (PyTorch's defaults)
+    with tf32(*server_tf32):
+        refs, _ = stream_slots(StreamBatcher(cfg, model, num_slots=4, left_context=LONG_CONTEXT,
+                                             device="cuda"), tracks, [0, 0])
+    check_served("the CLI, 4 slots, long context", outs, walls, tracks, refs,
+                 SERVE_PROCESS_REL, smi)
+    full, _ = stream_slots(StreamBatcher(cfg, model, num_slots=4, left_context=LONG_CONTEXT,
+                                         device="cuda"), tracks, [0, 0])
+    log(f"[17] the served streams against the same with TF32 off: rel L2 "
+        f"{rel_l2(np.concatenate(outs), np.concatenate(full)):.3e} (no limit)")
+    if rc != 0 or not stopped or any("batcher.step failed" in l or "Traceback" in l
+                                     for l in lines):
+        raise AssertionError(f"the server process failed or did not stop cleanly: {lines[-30:]}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1398,6 +1755,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         fused_fwd, fused_bwd = fused_step_on_card(tmp, smi)
     lap("15 fused step")
+    streaming_launches, stream_cases = streaming_on_card(smi)
+    lap("16 streaming")
+    serving_on_card(smi)
+    lap("17 serving")
     log(f"seconds by phase: {json.dumps(laps)}, in all {sum(laps.values()):.1f} "
         f"(imports and the card's start not counted)")
 
@@ -1410,6 +1771,7 @@ def main() -> int:
         "launches_train_epoch": train_fwd,
         "launches_evaluate": eval_launches,
         "launches_fused_step": fused_fwd,
+        "launches_streaming": streaming_launches,
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1417,6 +1779,7 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": None,
         "cases": cases,
+        "cases_streaming": stream_cases,
     }, {
         "name": "flash_rel_attention_bwd",
         "route": "cuda",

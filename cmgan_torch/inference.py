@@ -65,6 +65,33 @@ def bucket_pad(noisy: np.ndarray, hop: int, cut_len: int, bucket: int) -> np.nda
     return np.tile(noisy, reps)[:target]
 
 
+def load_generator(cfg: CMGANConfig, weights, dtype=None, device="cuda",
+                   seed: int = 0) -> TSCNet:
+    """The generator in eval mode on `device`, from `weights`:
+    - a TSCNet already there, in eval mode: returned as it is, so every
+      caller given it shares its parameters (dtype and seed do not apply);
+    - a reference-layout state_dict (for example from
+      `convert.state_dict_from_flax` or a `.pt`): loaded with strict=True;
+    - None: torch-default weights drawn from `seed`.
+    Raises without CUDA for a CUDA device: there is no fallback to the CPU.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    if isinstance(weights, TSCNet):
+        where = next(weights.parameters()).device
+        if where.type != device.type or weights.cfg != cfg.model or weights.training:
+            raise ValueError(f"the TSCNet must be in eval mode on {device} with the config's "
+                             f"model; it is on {where}, training={weights.training}")
+        return weights
+    model = TSCNet(cfg.model, dtype=dtype)
+    if weights is None:
+        torch_default_init_(model, torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(weights, strict=True)
+    return model.to(device).eval()
+
+
 class Enhancer:
     """Offline enhancement with one TSCNet on one device.
 
@@ -77,17 +104,8 @@ class Enhancer:
     def __init__(self, cfg: CMGANConfig, state_dict=None, dtype=torch.float32,
                  device="cuda", seed: int = 0):
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Enhancer: CUDA is not available; pass device='cpu' to run on the CPU"
-            )
         self.cfg = cfg
-        self.model = TSCNet(cfg.model, dtype=dtype)
-        if state_dict is None:
-            torch_default_init_(self.model, torch.Generator().manual_seed(seed))
-        else:
-            self.model.load_state_dict(state_dict, strict=True)
-        self.model.to(self.device).eval()
+        self.model = load_generator(cfg, state_dict, dtype, self.device, seed)
 
     def _enhance_batch(self, segments: np.ndarray) -> np.ndarray:
         """segments [B, L], already RMS-normalized -> enhanced [B, L]."""

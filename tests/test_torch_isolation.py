@@ -42,7 +42,8 @@ def test_port_sources_import_no_jax():
             "cmgan_torch/checkpoint/__init__.py", "cmgan_torch/cli/train.py",
             "cmgan_torch/ops/fused_norm.py", "cmgan_torch/metrics/pesq_torch.py",
             "cmgan_torch/metrics/composite.py", "cmgan_torch/metrics/stoi.py",
-            "cmgan_torch/metrics/pesq_ref.py", "cmgan_torch/cli/evaluate.py"} <= rel
+            "cmgan_torch/metrics/pesq_ref.py", "cmgan_torch/cli/evaluate.py",
+            "cmgan_torch/streaming.py", "cmgan_torch/cli/serve.py"} <= rel
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
@@ -57,6 +58,7 @@ def test_importing_the_port_loads_no_jax():
         "import cmgan_torch.models.discriminator, cmgan_torch.cli.evaluate\n"
         "import cmgan_torch.metrics.pesq_torch, cmgan_torch.metrics.composite\n"
         "import cmgan_torch.metrics.stoi, cmgan_torch.metrics.pesq_ref\n"
+        "import cmgan_torch.streaming, cmgan_torch.cli.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,)
@@ -76,6 +78,27 @@ def test_enhancer_defaults_to_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         Enhancer(cfg)
     assert Enhancer(cfg, device="cpu").device.type == "cpu"
+
+
+def test_streaming_and_server_default_to_cuda_and_raise_without_it():
+    from cmgan_torch.cli import serve
+    from cmgan_torch.config import CMGANConfig, ModelConfig
+    from cmgan_torch.inference import load_generator
+    from cmgan_torch.streaming import StreamBatcher, StreamingEnhancer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = CMGANConfig(model=ModelConfig(num_channels=16, num_tscb_blocks=1, dense_depth=1))
+    model = load_generator(cfg, None, device="cpu")
+    for make in (lambda **kw: StreamingEnhancer(cfg, model, **kw),
+                 lambda **kw: StreamBatcher(cfg, model, **kw),
+                 lambda **kw: serve.make_server(cfg, model, port=0, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert StreamingEnhancer(cfg, model, device="cpu").model is model
+    assert StreamBatcher(cfg, model, device="cpu").device.type == "cpu"
+    serve.make_server(cfg, model, port=0, device="cpu").server_close()
+    assert serve.parse_args([]).device == "cuda"
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():
@@ -99,6 +122,7 @@ def test_kernel_sources_are_in_the_tree_and_nothing_is_built_at_import():
         "subprocess.run = subprocess.Popen = no\n"
         "import cmgan_torch.train, cmgan_torch.cli.train, cmgan_torch.ops, cmgan_torch.metrics\n"
         "import cmgan_torch.cli.evaluate, cmgan_torch.metrics.pesq_torch\n"
+        "import cmgan_torch.streaming, cmgan_torch.cli.serve\n"
         "assert 'triton' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
