@@ -6,7 +6,8 @@
 CMGAN at its full published width (64 channels, 4 TSCBs, 4 heads of dim
 16, 201 bins, discriminator ndf 16) with seeded random weights, through
 the hand-written CUDA kernels: offline enhancement, GAN training,
-evaluation, streaming and the TCP server.
+evaluation, streaming and the TCP server; then the 48 kHz long-form
+preset (6 TSCBs, 601 bins) at its full width.
 Phases, each printing lines, none catching its own
 failure, none falling back to the CPU or to a plain version:
 
@@ -17,8 +18,9 @@ failure, none falling back to the CPU or to a plain version:
      card, fp32 and bf16, at the 4 s bucket (T = 641) and the 16 s segment
      (T = 2561), with a t_valid < T case, a q_offset = 128 case, a
      max_pos = 64 case (most tile pairs clipped) and a t_valid = 1 case;
-     the tile-by-tile plain versions against both kernels at one small
-     shape;
+     head dims 8 (zero-padded to 16), 32 and 64; the tile-by-tile plain
+     versions against both kernels at one small shape; a tiny model of 2
+     heads of dim 8 through kernel #1 against 'xla';
   3. a 16 s track through Enhancer.enhance(mode='bucket') in fp32: exactly
      4 kernel launches, finite output of the input's length, agreement
      with attention_impl='xla', and the realtime factor;
@@ -29,12 +31,13 @@ failure, none falling back to the CPU or to a plain version:
      version: fp32 and bf16 at the training shape (G = 1616, T = 641) and
      at T = 2561, a t_valid < T, a q_offset and a max_pos = 64 case, a
      t_valid = 1 case (dq, dk and dE are zero) and a max_pos = 1536 case
-     (a table too long for a block's shared memory); the fp32 kernels' and
+     (a table too long for a block's shared memory); head dims 8, 32 and
+     64, fp32 and bf16; the fp32 kernels' and
      plain versions' distance from float64; the backward's device time by
      kernel;
   8. the fused LayerNorm kernel against its plain version and against
-     F.layer_norm at [1616*321, 64] and [5136*101, 64], fp32 and bf16,
-     forward and gradient;
+     F.layer_norm at [1616*321, 64] and [5136*101, 64], and at the widths
+     63, 65, 513 and 1024, fp32 and bf16, forward and gradient;
   9. one G step at cut_len 64000, batch 4, fp32: attention_impl='auto'
      (4 forward and 4 backward launches) against 'xla' (none), loss and
      every parameter's gradient; and both against the dense path in float64
@@ -74,8 +77,16 @@ failure, none falling back to the CPU or to a plain version:
  17. the TCP server: solo mode in a thread (a 20 s track equal to the
      direct stream), 8 slots with 8 concurrent clients, then
      `python -m cmgan_torch.cli.serve --slots 4 --left_context 48000` as
-     its own process with two clients and a SIGTERM shutdown; every stream
-     complete, no session aborted, each client's realtime factor.
+     its own process with two clients and a SIGTERM shutdown, its streams
+     against an fp32 batcher (the CLI pins TF32 off); every stream
+     complete, no session aborted, each client's realtime factor;
+ 18. the 48 kHz long-form preset: a 30 s track (4801 frames) in bucket
+     mode, fp32 and bf16, 6 launches of kernel #1 (G 1204, T 4801), its
+     realtime factor, peak memory and device profile, and trace() around
+     one call checked for the kernel; kernel #1 at that shape against its
+     plain version; 'auto' against 'xla' on a 10 s track; the matmul DFT
+     against torch.fft at n_fft 400 and 1200; the preset's train_step at
+     its cut_len 96000.
 
 Then the card's line, a JSON line with each kernel's numbers, and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, or without
@@ -154,12 +165,20 @@ CHUNK, LOOKAHEAD, LONG_CONTEXT = 8000, 4000, 48000
 # can move a result as far as bf16 stands from fp32
 SLOT_VS_SOLO_REL = {"float32": 1e-5, "bfloat16": BF16_VS_FP32_REL}
 STREAM_TICKS, STREAM_WARMUP = 20, 3   # timed ticks (median) after warm-up ticks
-# [17] the served streams of the CLI's process against a batcher of its slot
-# count in this process, same seeded weights and TF32 settings: another process
-# may make cuDNN choose other algorithms, and the windows run kernel #1 (as
-# [3]'s limit)
-SERVE_PROCESS_REL = FLASH_VS_XLA_REL
+# [17] the served streams of the CLI's process (TF32 pinned off by its main())
+# against an fp32 batcher of its slot count in this process, same seeded
+# weights: another process may make cuDNN choose other fp32 algorithms, which
+# sum in another order (~1e-7, as [16]'s slots against solo streams)
+SERVE_PROCESS_REL = 1e-5
 SERVE_WAIT = 300          # seconds any client or server start may take
+# [18] the 48 kHz preset: 'auto' against 'xla' on a track whose dense logits
+# fit the card; the matmul DFT against torch.fft (float32 sums of n_fft
+# products in another order, ~1e-7 seen on the CPU); its train_step's batch
+LONG_XLA_SECONDS = 10
+MATMUL_DFT_REL = 1e-5
+# batch 4 of the 2 s window does not fit the 80 GB card without remat (phase
+# 12's batch; measured: out of memory)
+PRESET_TRAIN_BATCH, PRESET_TRAIN_REMAT = 4, True
 
 
 def log(msg: str):
@@ -183,15 +202,16 @@ def max_sm_clock_hz() -> float:
     return 1e6 * float(out.strip().splitlines()[0])
 
 
-def attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward: bool):
+def attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward: bool, d=16):
     """The least time the card could take for the attention function (or its
     gradient) on these shapes: the largest of its products at the tensor
     cores' rate, its bytes at the memory's rate and its exponentials (one a
     query-key pair) at the special-function units' rate. A pair whose
     distance is clipped needs no position product: its position logit, its
     share of dq and of the table's gradient come from one scalar a query and
-    table end, so the forward needs 2 products of 2*16 FLOP for it, not 3,
-    and the backward 5 (content logit, dp, dv, dk, dq), not 8."""
+    table end, so the forward needs 2 products of 2*d FLOP for it, not 3,
+    and the backward 5 (content logit, dp, dv, dk, dq), not 8. d: the head
+    dim the caller asks for (not the width the kernels pad it to)."""
     import numpy as np
     import torch
 
@@ -200,7 +220,7 @@ def attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward:
     last = np.minimum(t_valid - 1, i + max_pos - 1)
     near = int(np.maximum(0, last - first + 1).sum())   # pairs a group with |i - j| < max_pos
     far = tq * t_valid - near
-    d, rows = 16, 2 * max_pos + 1
+    rows = 2 * max_pos + 1
     es = 2 if dtype_name == "bfloat16" else 4
     if backward:
         flops = 2 * d * g * (8 * near + 5 * far)
@@ -222,12 +242,12 @@ def attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward:
             "bound_parts_ms": {k: 1e3 * v for k, v in times.items()}}
 
 
-def synthetic_track(n: int, seed: int):
+def synthetic_track(n: int, seed: int, sr: int = SR):
     """A seeded sum of amplitude-modulated harmonics plus noise."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    t = np.arange(n) / SR
+    t = np.arange(n) / sr
     f0 = rng.uniform(100, 220)
     x = sum(np.sin(2 * np.pi * f0 * h * t + rng.uniform(0, 6.3)) / h for h in range(1, 6))
     x = x * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t))
@@ -250,20 +270,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, max_pos=512, tag="[2]"):
+def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, max_pos=512, tag="[2]",
+                      d=16):
     import torch
 
     from cmgan_torch.ops import flash_attention as fa
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    d = fa.HEAD_DIM
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
     # q pre-scaled by dim_head**-0.5 as the conformer passes it
-    q = randn(g, tq, d, scale=0.25)
+    q = randn(g, tq, d, scale=d ** -0.5)
     k, v = randn(g, tk, d), randn(g, tk, d)
     table = randn(2 * max_pos + 1, d)
     band = fa.make_rel_band(table, tk, max_pos)
@@ -278,21 +298,25 @@ def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, max_pos=51
             for s in range(0, g, PLAIN_GROUP_CHUNK)
         ])
 
+    count = fa.launches
     out = kernel()
+    launched = fa.launches - count
     ref = plain()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     atol, rtol = KERNEL_TOL[dtype_name]
     close = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
     finite = bool(torch.isfinite(out.float()).all())
+    if launched != 1 or out.shape != q.shape:
+        raise AssertionError(f"the wrapper launched {launched} kernels, out {tuple(out.shape)}")
 
     ms = cuda_ms(kernel, reps=10)
     plain_ms = cuda_ms(plain, reps=2)
     case = {
-        "dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "t_valid": t_valid,
+        "dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "D": d, "t_valid": t_valid,
         "q_offset": q_offset, "max_pos": max_pos, "max_abs_err": err, "tol": [atol, rtol],
         "ms": ms, "plain_ms": plain_ms,
-        **attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward=False),
+        **attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward=False, d=d),
     }
     log(f"{tag} kernel {json.dumps(case)}")
     if not (close and finite):
@@ -385,7 +409,7 @@ def bound_ms(flops: float, nbytes: float, dtype_name: str):
 
 
 def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PLAIN_GROUP_CHUNK,
-                        max_pos=512):
+                        max_pos=512, d=16):
     """The backward kernel against autograd through the plain version."""
     import torch
 
@@ -393,12 +417,11 @@ def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PL
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    d = fa.HEAD_DIM
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
-    q = randn(g, tq, d, scale=0.25)
+    q = randn(g, tq, d, scale=d ** -0.5)
     k, v = randn(g, tk, d), randn(g, tk, d)
     table = randn(2 * max_pos + 1, d)
     cot = randn(g, tq, d)
@@ -435,16 +458,20 @@ def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PL
         ok = (ok and bool(torch.isfinite(a.float()).all()) and err <= tol * max(top, floor)
               and a.dtype == dtype)
 
-    _, lse = fa._launch_forward(q, k, v, table, max_pos, t_valid, q_offset, True)
-    ms = cuda_ms(lambda: fa._launch_backward(q, k, v, table, out.detach(), lse, cot, max_pos,
+    # the backward alone at the kernels' width (a narrower head is padded to it)
+    width = fa.kernel_head_dim(d)
+    qp, kp, vp, tp, cp = (torch.nn.functional.pad(x, (0, width - d))
+                          for x in (q, k, v, table, cot))
+    outp, lse = fa._launch_forward(qp, kp, vp, tp, max_pos, t_valid, q_offset, True)
+    ms = cuda_ms(lambda: fa._launch_backward(qp, kp, vp, tp, outp, lse, cp, max_pos,
                                              t_valid, q_offset), reps=5)
     plain_ms = cuda_ms(plain, reps=1)
     case = {
-        "dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "t_valid": t_valid,
+        "dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "D": d, "t_valid": t_valid,
         "q_offset": q_offset, "max_pos": max_pos, "errors": errs, "tol_of_ref_max": tol,
         "max_abs_err": max(e["max_abs_err"] for n, e in errs.items() if n != "dE"),
         "ms": ms, "plain_ms": plain_ms,
-        **attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward=True),
+        **attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward=True, d=d),
     }
     log(f"[7] backward kernel {json.dumps(case)}")
     if not ok:
@@ -574,6 +601,118 @@ def check_layernorm_case(dtype_name, n, seed, c=64, eps=1e-5):
     if not ok:
         raise AssertionError(f"layernorm kernel disagrees: {case}")
     return case
+
+
+def ptxas_usage(nvcc_log: str):
+    """(kernel, 'N registers, S B spill stores, L B spill loads') for each
+    entry function of `nvcc -Xptxas=-v`'s report; the kernel as its name and
+    template arguments, read from the mangled name (13__nv_bfloat16: bf16,
+    f: fp32, Li<n>E: the integer n)."""
+    import re
+
+    out, name, spills = [], None, ""
+    for line in nvcc_log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"\d(flash_rel_(?:fwd|bwd|delta|sum_partials)|layernorm_fwd(?:_any)?)[IE]",
+                             mangled)
+            dtype = "bf16" if "bfloat16" in mangled else "fp32"
+            ints = re.findall(r"Li(\d+)E", mangled)
+            name = f"{base.group(1) if base else mangled[-48:]}<{', '.join([dtype, *ints])}>"
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            spills = f"{spill.group(1)} B spill stores, {spill.group(2)} B spill loads"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            out.append((name, f"{used.group(1)} registers, {spills}"))
+            name = None
+    return out
+
+
+def build_all():
+    """[1] every kernel source and the host PESQ scorer, one build each, all
+    started together; each kernel's registers and spills as ptxas reports
+    them, and the attention kernels' shared memory a block at each head dim."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cmgan_torch.metrics import pesq_native
+    from cmgan_torch.ops import _build
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.ops import fused_norm
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:  # one nvcc a source, all started together
+        pesq_build = pool.submit(pesq_native.build)
+        futures = [pool.submit(_build.build, name)
+                   for name in (fa.KERNEL, fa.BWD_KERNEL, fused_norm.KERNEL)]
+    failed = [str(f.exception()) for f in futures if f.exception() is not None]
+    if failed:  # every source's errors, not only the first's
+        raise RuntimeError("\n".join(failed))
+    for build in (f.result() for f in futures):
+        log(f"[1] built {os.path.relpath(build.path, ROOT)} in {build.seconds:.2f} s")
+        for kernel, usage in ptxas_usage(build.log):
+            log(f"[1]   {kernel}: {usage}")
+    fwd_lib, bwd_lib = fa._kernel(), fa._bwd_kernel()
+    for bf16 in (0, 1):
+        for hd in fa.KERNEL_HEAD_DIMS:
+            log(f"[1] dynamic shared memory a block, {'bf16' if bf16 else 'fp32'}, head dim {hd}, "
+                f"max_pos 512: forward {fwd_lib.cmgan_flash_rel_attention_fwd_smem(bf16, hd)} B; "
+                f"backward dq/dE kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 0, 512)}"
+                f" B in {bwd_lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, hd, 1616, 641, 512)}"
+                f" partial rows at G 1616, T 641 (1: dE in global memory; "
+                f"{bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 0, 1536)} B at max_pos "
+                f"1536), dk/dv kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 1, 512)} B")
+    log(f"[1] built {os.path.relpath(pesq_build.result(), ROOT)} (host PESQ scorer, g++); "
+        f"all builds {time.perf_counter() - t0:.2f} s")
+
+
+def head_dim_cases():
+    """[2] kernel #1 at head dims other than 16 (8 runs zero-padded to 16; 32
+    and 64 are instantiations of their own), fp32 and bf16, at the 4 s bucket's
+    shape."""
+    return [check_kernel_case(dt, 404, 641, 641, 641, 0, seed=20 + d, d=d)
+            for d in (8, 32, 64) for dt in ("float32", "bfloat16")]
+
+
+def backward_head_dim_cases():
+    """[7] kernel #2 at head dims 8, 32 and 64, fp32 and bf16 (at 32 and 64 in
+    fp32, and at 64 in bf16, the table's gradient goes through global memory:
+    its block-wide buffer does not fit)."""
+    return [check_backward_case(dt, 404, 641, 641, 641, 0, seed=30 + d, d=d)
+            for d in (8, 32, 64) for dt in ("float32", "bfloat16")]
+
+
+def two_heads_of_dim_8():
+    """[2] a tiny model of 16 channels in 2 heads of dim 8 (1 TSCB) on a 6 s
+    track in bucket mode (961 frames): 'auto' takes kernel #1, zero-padded to
+    dim 16, once, and agrees with 'xla'."""
+    import numpy as np
+
+    from cmgan_torch.config import CMGANConfig, ModelConfig
+    from cmgan_torch.inference import Enhancer
+    from cmgan_torch.ops import flash_attention as fa
+
+    tiny = dict(num_channels=16, attn_heads=2, num_tscb_blocks=1, dense_depth=2)
+    track = synthetic_track(6 * SR, seed=21)
+    auto = Enhancer(CMGANConfig(model=ModelConfig(**tiny)), device="cuda", seed=1)
+    xla = Enhancer(CMGANConfig(model=ModelConfig(**tiny, attention_impl="xla")),
+                   auto.model.state_dict(), device="cuda")
+    fa.launches = 0
+    y = auto.enhance(track, mode="bucket")
+    launches = fa.launches
+    err = rel_l2(y, xla.enhance(track, mode="bucket"))
+    log(f"[2] tiny model, 2 heads of dim 8, 6 s bucket: launches {launches}, 'auto' against "
+        f"'xla' rel L2 {err:.3e} (tol {FLASH_VS_XLA_REL})")
+    if launches != 1 or not np.all(np.isfinite(y)) or not err <= FLASH_VS_XLA_REL:
+        raise AssertionError("the 2-head model missed kernel #1 or disagrees with 'xla'")
+
+
+def layernorm_width_cases():
+    """[8] kernel #3 at widths off its pair path: odd (63, 65), wider than a
+    warp keeps in registers (513 odd, 1024 even), fp32 and bf16."""
+    return [check_layernorm_case(dt, 65536, seed=12, c=c)
+            for c in (63, 65, 513, 1024) for dt in ("float32", "bfloat16")]
 
 
 def train_config(cut_len: int, attention_impl: str = "auto", mode: str = "host"):
@@ -1380,19 +1519,6 @@ def streaming_on_card(smi: str):
     return streaming_launches, cases
 
 
-@contextlib.contextmanager
-def tf32(cudnn: bool, matmul: bool):
-    """Within the block, cuDNN's convs and the matmuls take TF32 as given."""
-    import torch
-
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 class ErrorLog(logging.Handler):
     """Keeps the messages of the records at ERROR or above."""
 
@@ -1527,22 +1653,167 @@ def serving_on_card(smi: str):
         reader.join(SERVE_WAIT)
     stopped = [l for l in lines if "stopped after" in l]
     log(f"[17] server process exit code {rc}; {stopped[-1] if stopped else 'no tick count'}")
-    # the direct streams: a batcher of the server's 4 slots (the same shapes a
-    # tick, so cuDNN's same choices) under its TF32 settings (PyTorch's defaults)
-    with tf32(*server_tf32):
-        refs, _ = stream_slots(StreamBatcher(cfg, model, num_slots=4, left_context=LONG_CONTEXT,
-                                             device="cuda"), tracks, [0, 0])
+    # the direct streams: an fp32 batcher of the server's 4 slots (the same
+    # shapes a tick), TF32 off as in this process
+    refs, _ = stream_slots(StreamBatcher(cfg, model, num_slots=4, left_context=LONG_CONTEXT,
+                                         device="cuda"), tracks, [0, 0])
     check_served("the CLI, 4 slots, long context", outs, walls, tracks, refs,
                  SERVE_PROCESS_REL, smi)
-    full, _ = stream_slots(StreamBatcher(cfg, model, num_slots=4, left_context=LONG_CONTEXT,
-                                         device="cuda"), tracks, [0, 0])
-    log(f"[17] the served streams against the same with TF32 off: rel L2 "
-        f"{rel_l2(np.concatenate(outs), np.concatenate(full)):.3e} (no limit)")
+    if server_tf32 != (False, False):
+        raise AssertionError(f"the serve CLI runs with TF32 on: cuDNN, matmul {server_tf32}")
     if rc != 0 or not stopped or any("batcher.step failed" in l or "Traceback" in l
                                      for l in lines):
         raise AssertionError(f"the server process failed or did not stop cleanly: {lines[-30:]}")
     del model
     torch.cuda.empty_cache()
+
+
+def long_form_on_card(smi: str):
+    """[18] the 48 kHz long-form preset (`long_form_48k()`: 64 channels, 6
+    TSCBs, 4 heads of dim 16, 601 bins) with seeded random weights. Returns
+    (kernel #1's launches on the 30 s fp32 call, its cases at the preset's
+    shape)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cmgan_torch.config import long_form_48k
+    from cmgan_torch.dsp import istft, stft
+    from cmgan_torch.inference import Enhancer
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.train import Trainer
+    from cmgan_torch.utils import trace
+
+    cfg = long_form_48k()
+    sr, seconds = cfg.dsp.sample_rate, cfg.eval.cut_len // cfg.dsp.sample_rate
+    frames = cfg.dsp.num_frames(cfg.eval.cut_len)
+    groups = (cfg.dsp.num_freqs + 1) // 2 * cfg.model.attn_heads   # the encoder halves the bins
+    blocks = cfg.model.num_tscb_blocks
+    dense_gb = 4 * groups * frames * frames / 1e9
+    log(f"[18] long_form_48k: {sr} Hz, n_fft {cfg.dsp.n_fft}, hop {cfg.dsp.hop}, "
+        f"{cfg.dsp.num_freqs} bins, {blocks} TSCBs, a {seconds} s window of {frames} frames: "
+        f"kernel #1 at G {groups}, T {frames}, {blocks} launches a segment; 'xla' is not run "
+        f"there (its dense logits would be [{groups}, {frames}, {frames}], {dense_gb:.1f} GB "
+        f"each in fp32)")
+    track = synthetic_track(seconds * sr, seed=48, sr=sr)
+
+    outs, state, launches_fp32 = {}, None, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        enh = Enhancer(cfg, state, dtype=dtype, device="cuda", seed=0)
+        state = enh.model.state_dict()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = 0
+        y = enh.enhance(track, mode="bucket")
+        launches = fa.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        outs[name] = y
+        if dtype == torch.float32:
+            launches_fp32 = launches
+        rtf = realtime_factor(lambda: enh.enhance(track, mode="bucket"), seconds, reps=2)
+        log(f"[18] {seconds} s at {sr} Hz {name}: launches {launches} (expected {blocks}), out "
+            f"len {y.shape[0]}, rms {float(np.sqrt(np.mean(y ** 2))):.6f}, peak memory "
+            f"{peak:.2f} GiB, realtime factor {rtf:.2f}x ({1e3 * seconds / rtf:.1f} ms a call) "
+            f"on {smi}")
+        if launches != blocks or y.shape != track.shape or not np.all(np.isfinite(y)):
+            raise AssertionError(f"the 48 kHz {name} call missed kernel #1 or is not whole")
+        if dtype == torch.float32:
+            device_breakdown(lambda: enh.enhance(track, mode="bucket"), 1e3 * seconds / rtf,
+                             top=12, tag="[18]")
+            with tempfile.TemporaryDirectory(dir=ROOT) as logdir:
+                with trace(logdir) as prof:
+                    enh.enhance(track, mode="bucket")
+                names = os.listdir(logdir)
+                with open(os.path.join(logdir, names[0])) as f:
+                    events = json.load(f)["traceEvents"]
+            kernel_events = sum(e.get("cat") == "kernel" and "flash_rel_fwd" in e.get("name", "")
+                                for e in events)
+            profiled = [e for e in prof.key_averages() if "flash_rel_fwd" in e.key]
+            log(f"[18] trace(): {names[0]}, {len(events)} events, {kernel_events} kernel events "
+                f"of flash_rel_fwd, {sum(e.count for e in profiled)} counted by key_averages()")
+            if len(names) != 1 or kernel_events != blocks:
+                raise AssertionError("trace() did not capture kernel #1")
+        del enh
+        torch.cuda.empty_cache()
+    err16 = rel_l2(outs["bf16"], outs["fp32"])
+    log(f"[18] bf16 against fp32: rel L2 {err16:.3e} (tol {BF16_VS_FP32_REL})")
+    if not err16 <= BF16_VS_FP32_REL:
+        raise AssertionError("the 48 kHz bf16 call is too far from fp32")
+
+    # kernel #1 at the preset's shape against its plain version
+    cases = [check_kernel_case(dt, groups, frames, frames, frames, 0, seed=48, tag="[18]")
+             for dt in ("float32", "bfloat16")]
+
+    # 'auto' against 'xla' where the dense logits fit the card
+    short = synthetic_track(LONG_XLA_SECONDS * sr, seed=49, sr=sr)
+    auto = Enhancer(cfg, state, device="cuda")
+    fa.launches = 0
+    y_auto = auto.enhance(short, mode="bucket")
+    launches = fa.launches
+    del auto
+    torch.cuda.empty_cache()
+    xla_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, attention_impl="xla"))
+    xla = Enhancer(xla_cfg, state, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    y_xla = xla.enhance(short, mode="bucket")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del xla
+    torch.cuda.empty_cache()
+    err = rel_l2(y_auto, y_xla)
+    log(f"[18] {LONG_XLA_SECONDS} s ({cfg.dsp.num_frames(short.size)} frames): 'auto' "
+        f"launches {launches}, against 'xla' rel L2 {err:.3e} (tol {FLASH_VS_XLA_REL}); "
+        f"'xla' peak memory {peak:.2f} GiB")
+    if launches != blocks or not err <= FLASH_VS_XLA_REL:
+        raise AssertionError("the 48 kHz flash path disagrees with 'xla'")
+
+    # the matmul DFT against torch.fft on the card
+    for n_fft, hop in ((400, 100), (cfg.dsp.n_fft, cfg.dsp.hop)):
+        x = torch.from_numpy(np.stack([synthetic_track(10 * sr, seed=50 + i, sr=sr)
+                                       for i in range(4)])).cuda()
+        spec = stft(x, n_fft, hop)
+        spec_mm = stft(x, n_fft, hop, dft_impl="matmul")
+        y_fft = istft(spec, n_fft, hop, length=x.shape[-1])
+        y_mm = istft(spec, n_fft, hop, length=x.shape[-1], dft_impl="matmul")
+        errs = [((a - b).norm() / b.norm()).item() for a, b in ((spec_mm, spec), (y_mm, y_fft))]
+        ms = [cuda_ms(f, reps=10) for f in (
+            lambda: stft(x, n_fft, hop), lambda: stft(x, n_fft, hop, dft_impl="matmul"))]
+        log(f"[18] stft/istft 'matmul' against 'fft', n_fft {n_fft} hop {hop}, 4 x 10 s: rel L2 "
+            f"{errs[0]:.3e} / {errs[1]:.3e} (tol {MATMUL_DFT_REL}); stft {ms[0]:.3f} ms 'fft', "
+            f"{ms[1]:.3f} ms 'matmul'")
+        if not max(errs) <= MATMUL_DFT_REL:
+            raise AssertionError("the matmul DFT disagrees with torch.fft on the card")
+
+    # one train_step of the preset at its own cut_len (dense), fp32, host labels
+    train_cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, remat=PRESET_TRAIN_REMAT),
+        train=dataclasses.replace(cfg.train, batch_size=PRESET_TRAIN_BATCH))
+    cut = cfg.train.cut_len
+    clean = np.stack([synthetic_track(cut, 90 + i, sr=sr) for i in range(PRESET_TRAIN_BATCH)])
+    noisy = clean + (0.05 * np.random.default_rng(90).standard_normal(clean.shape)).astype(
+        np.float32)
+    trainer = Trainer(train_cfg, [None], None, device="cuda")
+    fa.launches = fa.backward_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen_loss, disc_loss = trainer.train_step(clean, noisy)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        gen_loss, disc_loss = trainer.train_step(clean, noisy)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[18] train_step cut_len {cut} ({cfg.dsp.num_frames(cut)} frames) batch "
+        f"{PRESET_TRAIN_BATCH} remat {PRESET_TRAIN_REMAT} fp32 host labels: {step_ms:.1f} ms a "
+        f"step, peak memory {peak:.2f} GiB, gen loss {float(gen_loss):.5f}, disc loss "
+        f"{float(disc_loss):.5f}, launches {fa.launches} fwd / {fa.backward_launches} bwd on {smi}")
+    if trainer.state.step != 3 or not (np.isfinite(float(gen_loss)) and np.isfinite(float(disc_loss))):
+        raise AssertionError("the preset's train_step did not run")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches_fp32, cases
 
 
 def main() -> int:
@@ -1561,8 +1832,6 @@ def main() -> int:
     from cmgan_torch.config import CMGANConfig, ModelConfig
     from cmgan_torch.data import read_wav, write_wav
     from cmgan_torch.inference import Enhancer
-    from cmgan_torch.metrics import pesq_native
-    from cmgan_torch.ops import _build
     from cmgan_torch.ops import flash_attention as fa
     from cmgan_torch.ops import fused_norm
 
@@ -1582,31 +1851,7 @@ def main() -> int:
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     log(f"[1] allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    from concurrent.futures import ThreadPoolExecutor
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:  # one nvcc a source, all started together
-        pesq_build = pool.submit(pesq_native.build)
-        builds = list(pool.map(_build.build, (fa.KERNEL, fa.BWD_KERNEL, fused_norm.KERNEL)))
-    for build in builds:
-        log(f"[1] built {os.path.relpath(build.path, ROOT)} in {build.seconds:.2f} s")
-        for line in build.log.splitlines():
-            if "Compiling entry function" in line:
-                log(f"[1]   {line.split(chr(39))[1][-64:]}")
-            if "registers" in line or "spill" in line:
-                log(f"[1]   {line.strip()}")
-    fwd_lib, bwd_lib = fa._kernel(), fa._bwd_kernel()
-    for bf16 in (0, 1):
-        name = "bf16" if bf16 else "fp32"
-        log(f"[1] dynamic shared memory a block, {name}, max_pos 512: forward "
-            f"{fwd_lib.cmgan_flash_rel_attention_fwd_smem(bf16)} B; backward dq/dE kernel "
-            f"{bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, 0, 512)} B in "
-            f"{bwd_lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 1616, 641, 512)} blocks "
-            f"at G 1616, T 641 ({bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, 0, 1536)} B at "
-            f"max_pos 1536, dE in global memory), dk/dv kernel "
-            f"{bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, 1, 512)} B")
-    log(f"[1] built {os.path.relpath(pesq_build.result(), ROOT)} (host PESQ scorer, g++); "
-        f"all builds {time.perf_counter() - t0:.2f} s")
+    build_all()
 
     lap("1 build")
 
@@ -1622,8 +1867,10 @@ def main() -> int:
         # the G step's forward shape at cut_len 64000, batch 4
         cases.append(check_kernel_case(dtype_name, 1616, 641, 641, 641, 0, seed=5))
     cases.append(check_kernel_case("float32", 101, 641, 641, 1, 0, seed=6))  # one valid key
+    cases += head_dim_cases()
     check_tiled_against_kernels()
     main_case = cases[1]  # fp32 at the 16 s segment, the main path's shape
+    two_heads_of_dim_8()
 
     lap("2 forward kernel")
 
@@ -1704,6 +1951,7 @@ def main() -> int:
     # -- 7. the backward kernel against autograd through the plain version --
     bwd_cases = [check_backward_case(dt, 1616, 641, 641, 641, 0, seed=7)
                  for dt in ("float32", "bfloat16")]
+    bwd_cases += backward_head_dim_cases()
     bwd_cases.append(check_backward_case("float32", 101, 2561, 2561, 2561, 0, seed=8, chunk=16))
     bwd_cases.append(check_backward_case("bfloat16", 101, 2561, 2561, 2561, 0, seed=8, chunk=16))
     for dt in ("float32", "bfloat16"):  # most tile pairs clipped
@@ -1726,6 +1974,7 @@ def main() -> int:
     ln_cases = [check_layernorm_case(dt, n, seed=11)
                 for dt in ("float32", "bfloat16") for n in (1616 * 321, 5136 * 101)]
     ln_main = ln_cases[0]
+    ln_cases += layernorm_width_cases()
     # the op is on no model's path; its own entry point is the public function,
     # driven here on an activation-shaped tensor, forward and backward
     fused_norm.launches = 0
@@ -1759,6 +2008,8 @@ def main() -> int:
     lap("16 streaming")
     serving_on_card(smi)
     lap("17 serving")
+    long_launches, long_cases = long_form_on_card(smi)
+    lap("18 48 kHz preset")
     log(f"seconds by phase: {json.dumps(laps)}, in all {sum(laps.values()):.1f} "
         f"(imports and the card's start not counted)")
 
@@ -1778,8 +2029,10 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
+        "launches_48k": long_launches,
         "cases": cases,
         "cases_streaming": stream_cases,
+        "cases_48k": long_cases,
     }, {
         "name": "flash_rel_attention_bwd",
         "route": "cuda",

@@ -15,6 +15,7 @@ import os
 
 import torch
 
+from cmgan_torch.cli import pin_fp32
 from cmgan_torch.config import CMGANConfig
 from cmgan_torch.data import natsorted, read_wav, write_wav
 from cmgan_torch.inference import Enhancer
@@ -33,6 +34,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    pin_fp32()
     args = parse_args(argv)
     cfg = CMGANConfig()
     state_dict = torch.load(args.torch_ckpt, map_location="cpu", weights_only=True)

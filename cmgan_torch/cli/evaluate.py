@@ -19,6 +19,8 @@ import json
 import os
 import time
 
+from cmgan_torch.cli import pin_fp32
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate CMGAN on a test set (PyTorch port)")
@@ -64,6 +66,7 @@ def load_state_dict(args):
 
 
 def main(argv=None):
+    pin_fp32()
     import dataclasses
 
     import numpy as np

@@ -40,6 +40,8 @@ import time
 
 import numpy as np
 
+from cmgan_torch.cli import pin_fp32
+
 log = logging.getLogger("cmgan_torch.serve")
 
 _LEN = struct.Struct("<I")
@@ -500,6 +502,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    pin_fp32()
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
 
@@ -515,8 +518,8 @@ def main(argv=None):
         dtype=torch.bfloat16 if args.bf16 else None, device=args.device,
     )
     host, port = server.server_address[:2]
-    # PyTorch's defaults run cuDNN's convs in TF32 on the GPU: say so, since
-    # it moves the output by ~1e-3 against full fp32
+    # pin_fp32 turned TF32 off (PyTorch's defaults would run cuDNN's convs
+    # in TF32, ~1e-3 from float32): the log says what the ticks run under
     log.info("serving on %s:%d (TF32: cuDNN %s, matmul %s)", host, port,
              torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
 

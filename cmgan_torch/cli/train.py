@@ -14,6 +14,7 @@ import argparse
 import dataclasses
 import logging
 
+from cmgan_torch.cli import pin_fp32
 from cmgan_torch.config import CMGANConfig, MeshConfig, ModelConfig, TrainConfig
 
 
@@ -57,6 +58,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
+    pin_fp32()
     import torch
 
     args = parse_args(argv)

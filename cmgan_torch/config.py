@@ -23,8 +23,10 @@ class DSPConfig:
     n_fft: int = 400
     hop: int = 100
     compress_exponent: float = 0.3
-    # 'fft': torch.fft.{r,ir}fft. 'matmul' (the DFT as two matmuls) is
-    # only needed by seq-sharded training and is not ported yet.
+    # 'fft': torch.fft.{r,ir}fft. 'matmul': the DFT as two products with
+    # cached [n_fft, F] cos/sin matrices (dsp/stft.py), the JAX package's
+    # choice for seq-sharded training; training and streaming take it from
+    # here, offline enhancement always runs 'fft', as in the JAX package.
     dft_impl: str = "fft"
 
     @property
@@ -58,7 +60,8 @@ class ModelConfig:
     conv_dropout: float = 0.0
     max_rel_pos: int = 512
     # 'xla': dense logits; 'flash': the fused CUDA kernel
-    # (ops/flash_attention.py); 'auto': flash for sequences >= 512 frames.
+    # (ops/flash_attention.py); 'auto': flash for sequences >= 512 frames;
+    # 'seq' (a time axis sharded over devices) is not ported: the conformer raises.
     attention_impl: str = "auto"
     # rematerialize each TSCB in the backward pass of training
     remat: bool = False
@@ -78,7 +81,7 @@ class TrainConfig:
     pesq_label_mode: 'host' scores each batch with the native C++ PESQ
     between the G and the D step; 'host_async' scores it in a background
     thread while the next G step runs, so the D update lands one step
-    late; 'device' (on-GPU labels, one fused step) is not ported yet.
+    late; 'device' computes the labels on the GPU in one fused step.
     time_loss_domain: 'reference' compares est_audio with the raw clean
     waveform (the CMGAN reference's gain-suppressing quirk), 'normalized'
     with clean * c. gen_ema_decay > 0 keeps an EMA of the generator's
@@ -141,3 +144,37 @@ class CMGANConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+
+def long_form_48k(
+    num_tscb_blocks: int = 6,
+    num_channels: int = 64,
+    window_seconds: int = 30,
+    seq_parallel: int = 1,
+) -> CMGANConfig:
+    """The 48 kHz long-form denoising preset, the JAX package's field by field.
+
+    The 16 kHz config's frame rate at 48 kHz (n_fft 1200, hop 300: 6.25 ms,
+    601 frequency bins), six TSCBs, and 30 s evaluation windows: 4801
+    frames, which the time conformer runs through the flash-attention
+    kernel ('auto' takes it from 512 frames) at G = 301 x heads groups a
+    segment (the encoder halves 601 bins to 301). The training window,
+    two seconds, is 321 frames and dense. seq_parallel > 1 picks the
+    'matmul' DFT and the 'seq' attention of a time axis sharded over
+    devices; such a config is built, but its model raises until
+    multi-GPU is ported.
+    """
+    dsp = DSPConfig(
+        sample_rate=48_000, n_fft=1200, hop=300,
+        dft_impl="matmul" if seq_parallel > 1 else "fft",
+    )
+    model = ModelConfig(
+        num_channels=num_channels,
+        num_features=dsp.num_freqs,
+        num_tscb_blocks=num_tscb_blocks,
+        attention_impl="seq" if seq_parallel > 1 else "auto",
+    )
+    train = TrainConfig(cut_len=dsp.sample_rate * 2)
+    ev = EvalConfig(cut_len=dsp.sample_rate * window_seconds)
+    mesh = MeshConfig(seq_parallel=seq_parallel)
+    return CMGANConfig(dsp=dsp, model=model, train=train, eval=ev, mesh=mesh)

@@ -4,6 +4,10 @@ n_fft=400, hop=100, periodic Hamming window, onesided, center=True
 (reflect padding), normalized=False. Spectrograms are `[..., T, F]`
 (torch.stft lays them out `[..., F, T]`), as in the JAX package.
 
+The DFT is `torch.fft` (`dft_impl='fft'`) or two products with cached
+cos/sin matrices (`dft_impl='matmul'`: `rdft_matmul`, `irdft_matmul`),
+as in the JAX package.
+
 The overlap-add in `istft` uses `n_fft % hop == 0`: each frame splits
 into `n_fft // hop` hop-sized chunks and the OLA is a static sum of
 shifted chunk streams, then the window-square envelope is divided out.
@@ -18,17 +22,22 @@ import torch
 import torch.nn.functional as F
 
 
+def _device_constants(arrays, dtype, device):
+    """float64 numpy arrays as tensors of `dtype` on `device`, made outside
+    inference mode (a constant first made under `torch.inference_mode`
+    still serves autograd)."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in arrays)
+
+
 @functools.lru_cache(maxsize=16)
 def hamming_window(n_fft: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """Periodic Hamming window, identical to torch.hamming_window(n_fft).
     Built once per (size, type, device): a copy from host memory to the GPU
     waits for the host, so making it at every call would stall the stream.
-    Callers must not write to it. It is made outside inference mode, so a
-    window first made under `torch.inference_mode` still serves autograd."""
+    Callers must not write to it."""
     n = np.arange(n_fft)
-    w = 0.54 - 0.46 * np.cos(2.0 * np.pi * n / n_fft)
-    with torch.inference_mode(False):
-        return torch.as_tensor(w, dtype=dtype, device=device)
+    return _device_constants((0.54 - 0.46 * np.cos(2.0 * np.pi * n / n_fft),), dtype, device)[0]
 
 
 def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -43,12 +52,50 @@ def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return xp.unfold(-1, n_fft, hop)
 
 
+@functools.lru_cache(maxsize=16)
+def _rdft_matrices(n_fft: int, dtype=torch.float32, device=None):
+    """The real-input DFT as two [n_fft, F] product operands, cos and sin of
+    -2 pi n k / n_fft. Built once per (size, type, device), like the window;
+    callers must not write to them."""
+    k = np.arange(n_fft // 2 + 1)
+    n = np.arange(n_fft)
+    ang = -2.0 * np.pi * np.outer(n, k) / n_fft
+    return _device_constants((np.cos(ang), np.sin(ang)), dtype, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _irdft_matrices(n_fft: int, dtype=torch.float32, device=None):
+    """The onesided inverse DFT as two [F, n_fft] product operands:
+    x[n] = (1/N) sum_k w_k (Re X_k cos(2 pi k n / N) - Im X_k sin(...)),
+    w_k = 2 except w_0 = w_{N/2} = 1 (the hermitian fold)."""
+    nf = n_fft // 2 + 1
+    k = np.arange(nf)
+    n = np.arange(n_fft)
+    ang = 2.0 * np.pi * np.outer(k, n) / n_fft
+    w = np.full(nf, 2.0)
+    w[0] = 1.0
+    if n_fft % 2 == 0:
+        w[-1] = 1.0
+    scale = w[:, None] / n_fft
+    return _device_constants((np.cos(ang) * scale, np.sin(ang) * scale), dtype, device)
+
+
+def rdft_matmul(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """rFFT of the last axis as two matrix products: [..., n_fft] -> complex
+    [..., F]. Within ~1e-5 of `torch.fft.rfft` in float32."""
+    cos, sin = _rdft_matrices(n_fft, frames.dtype, frames.device)
+    return torch.complex(frames @ cos, frames @ sin)  # sin already carries the -2 pi
+
+
+def irdft_matmul(spec: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Inverse of `rdft_matmul`: complex [..., F] -> real [..., n_fft]."""
+    re, im = spec.real, spec.imag
+    cos, sin = _irdft_matrices(n_fft, re.dtype, spec.device)
+    return re @ cos - im @ sin
+
+
 def _check_dft_impl(dft_impl: str):
-    if dft_impl == "matmul":
-        raise NotImplementedError(
-            "dft_impl='matmul' belongs to seq-parallel training, not ported yet"
-        )
-    if dft_impl != "fft":
+    if dft_impl not in ("fft", "matmul"):
         raise ValueError(f"unknown dft_impl {dft_impl!r}")
 
 
@@ -59,11 +106,14 @@ def stft(
     window: torch.Tensor | None = None,
     dft_impl: str = "fft",
 ) -> torch.Tensor:
-    """Onesided centered STFT. x: [..., L] -> complex [..., T, F]."""
+    """Onesided centered STFT. x: [..., L] -> complex [..., T, F].
+    dft_impl: 'fft' (torch.fft.rfft) or 'matmul' (`rdft_matmul`)."""
     _check_dft_impl(dft_impl)
     if window is None:
         window = hamming_window(n_fft, x.dtype, x.device)
     frames = frame_signal(x, n_fft, hop) * window
+    if dft_impl == "matmul":
+        return rdft_matmul(frames, n_fft)
     return torch.fft.rfft(frames, n=n_fft, dim=-1)
 
 
@@ -93,12 +143,16 @@ def istft(
 
     spec: complex [..., T, F] -> [..., (T-1)*hop] (or `length` samples).
     Matches torch.istft(onesided=True, center=True).
+    dft_impl: 'fft' (torch.fft.irfft) or 'matmul' (`irdft_matmul`).
     """
     _check_dft_impl(dft_impl)
     if window is None:
         window = hamming_window(n_fft, torch.float32, spec.device)
     num_frames = spec.shape[-2]
-    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
+    if dft_impl == "matmul":
+        frames = irdft_matmul(spec, n_fft) * window
+    else:
+        frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
     y = _overlap_add(frames, hop)
     # window-square envelope, the same for every batch element
     norm = _overlap_add((window * window).expand(num_frames, n_fft), hop)

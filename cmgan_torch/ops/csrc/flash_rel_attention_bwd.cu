@@ -13,10 +13,11 @@
 //   dv_j = sum_i p_ij g_i                   dE[r] = sum over groups and all
 //                                                   (i, j) with r_ij = r of ds_ij q_i
 //
-// q, k, v, out, g, dq, dk, dv are [G, T, 16] contiguous, fp32 or bf16 (every
-// sum in fp32, written in the input type); lse is the forward kernel's fp32
-// [G, Tq] row log-sum-exp; dE is written as fp32 [2*max_pos+1, 16]. Memory is
-// O(T): the weights are recomputed tile by tile from lse.
+// q, k, v, out, g, dq, dk, dv are [G, T, HD] contiguous, HD 16, 32 or 64 (a
+// template parameter, as in the forward), fp32 or bf16 (every sum in fp32,
+// written in the input type); lse is the forward kernel's fp32 [G, Tq] row
+// log-sum-exp; dE is written as fp32 [2*max_pos+1, HD]. Memory is O(T): the
+// weights are recomputed tile by tile from lse.
 //
 // Every product runs on the tensor cores through mma.sync.m16n8k16
 // (flash_rel_common.cuh: bf16 as it is, fp32 as three bf16 parts and six part
@@ -40,7 +41,8 @@
 // 16-row blocks of the window, skips the blocks of depth where dR is zero by
 // construction, and adds its result into a block-wide fp32 [2*max_pos+1, 16]
 // buffer in shared memory (65,600 B at max_pos 512) with plain
-// read-modify-writes (each cell has one owner a tile pair). Clipped pairs, in
+// read-modify-writes (each cell has one owner a tile pair; the buffer grows
+// with HD: 131,200 B at HD 32). Clipped pairs, in
 // a wholly clipped tile pair or in a mixed one, are summed per query in
 // registers (rows 0 and 2*max_pos of the table collect them all); only these
 // sums, once a (group, query tile), use shared atomics. Blocks are persistent (one a
@@ -49,8 +51,9 @@
 // the rows in a fixed order: no global atomics. Only the shared atomics of
 // rows 0 and 2*max_pos sum in an order that varies from run to run.
 //
-// A table too long for that buffer (max_pos above 758 in fp32, 1466 in bf16,
-// beside the tiles in the 227 KB a block may have) takes the same kernel with
+// A table too long for that buffer (at HD 16, max_pos above 758 in fp32, 1466
+// in bf16, beside the tiles in the 227 KB a block may have; at HD 32 the fp32
+// buffer never fits, at HD 64 neither type's) takes the same kernel with
 // de_global set: the blocks keep no buffer and add into one zeroed row of the
 // scratch with global atomics, one a cell and tile pair. The models' max_pos
 // is 512.
@@ -78,36 +81,38 @@ enum Mode { kOwnQ = 0, kOwnK = 1 };
 
 // warps a block of the kernel that owns the queries: with bf16, two blocks of
 // four warps fit a multiprocessor and beat one of eight; fp32's three planes
-// leave room for one block either way, and eight warps beat four
-template <typename T>
-constexpr int kWarpsQ = sizeof(T) == 2 ? 4 : 8;
+// leave room for one block either way, and eight warps beat four, up to HD 32
+// (at HD 64 the tiles of eight warps exceed a block's shared memory)
+template <typename T, int HD>
+constexpr int kWarpsQ = sizeof(T) == 2 || HD > 32 ? 4 : 8;
 
 constexpr int DRS = 88;   // elements per row of a warp's dR scratch (80 used): 16-byte rows,
                           // conflict-free for ldmatrix
 constexpr int PS = 72;    // elements per row of the P and dS tiles (64 used)
 
-template <typename T>
+template <typename T, int HD>
 __global__ void flash_rel_delta(const T* __restrict__ out, const T* __restrict__ gout,
                                 float* __restrict__ delta, int rows) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
   float acc = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc += widen(out[static_cast<size_t>(r) * D + d]) * widen(gout[static_cast<size_t>(r) * D + d]);
+  for (int d = 0; d < HD; ++d) acc += widen(out[static_cast<size_t>(r) * HD + d]) * widen(gout[static_cast<size_t>(r) * HD + d]);
   delta[r] = acc;
 }
 
-// Where column d of table row r sits in a dE buffer: the two halves of a row
-// swap on every other pair of rows, so that a half-warp's 8-byte
-// read-modify-writes of four neighbouring rows fall on 32 different banks.
+// Where column d of table row r sits in a dE buffer: the two halves of each
+// 16 columns swap on every other pair of rows, so that a half-warp's 8-byte
+// read-modify-writes of four neighbouring rows fall on different banks.
 __device__ __forceinline__ int de_col(int r, int d) { return d ^ (((r >> 1) & 1) << 3); }
 
-// dE[e] = sum over the rows of partial sums (each laid out by de_col), in a fixed order
+// dE[e] = sum over the rows of partial sums (each laid out by de_col), in a
+// fixed order; rows of the table hd wide
 __global__ void flash_rel_sum_partials(const float* __restrict__ partials, float* __restrict__ dtable,
-                                       int n_rows, int n) {
+                                       int n_rows, int n, int hd) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  const int at = (e & ~(D - 1)) + de_col(e / D, e % D);
+  const int at = (e / hd) * hd + de_col(e / hd, e % hd);
   float acc = 0.f;
   for (int b = 0; b < n_rows; ++b) acc += partials[static_cast<size_t>(b) * n + at];
   dtable[e] = acc;
@@ -117,10 +122,11 @@ __global__ void flash_rel_sum_partials(const float* __restrict__ partials, float
 // planes), one scratch chunk a warp, then fp32 arrays. A warp's chunk holds its
 // R scratch; its dR rows lie over it (R is consumed before ds exists), and so
 // do its rows of P and dS where no dR is kept.
-template <typename T, int NW, int MODE>
+template <typename T, int NW, int MODE, int HD>
 struct Layout {
   static constexpr bool kOwnsQ = MODE == kOwnQ;
   static constexpr int P = Parts<T>::N;
+  static constexpr int TS = stage_stride(HD);
   static constexpr int BQ = 16 * NW;
   static constexpr int WIN = BQ + BK;
   static constexpr int QPL = BQ * TS, KPL = BK * TS, EPL = WIN * TS;  // elements a plane
@@ -140,23 +146,24 @@ struct Layout {
   static constexpr int lse = scratch + NW * CHUNK;
   static constexpr int delta = lse + 4 * BQ;
   static constexpr int eh = delta + 4 * BQ;
-  static constexpr int el = eh + 4 * D;
-  static constexpr int debuf = el + 4 * D;   // (2*max_pos+1) * 16 floats where the block keeps dE
+  static constexpr int el = eh + 4 * HD;
+  static constexpr int debuf = el + 4 * HD;  // (2*max_pos+1) * HD floats where the block keeps dE
   static int bytes(int max_pos, bool shared_de) {
-    return debuf + (kOwnsQ && shared_de ? 4 * (2 * max_pos + 1) * D : 0);
+    return debuf + (kOwnsQ && shared_de ? 4 * (2 * max_pos + 1) * HD : 0);
   }
 };
 
 // sum_a c[a] q[a][:] over the warp's 16 queries, added to one row of the dE
 // buffer (the block's, or with de_global the one in global memory): the pairs
 // clipped to that row
-template <int P>
+template <int P, int HD>
 __device__ __forceinline__ void add_clipped_row(float* debuf, float* de_all, int de_global, int r,
                                                 const float* c, const bf16* qs_w, int q_plane,
                                                 int lane) {
+  constexpr int TS = stage_stride(HD);
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < HD / 8; ++h) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int d = 2 * t + 8 * h + e;
@@ -166,7 +173,7 @@ __device__ __forceinline__ void add_clipped_row(float* debuf, float* de_all, int
       x += __shfl_xor_sync(0xffffffffu, x, 8);
       x += __shfl_xor_sync(0xffffffffu, x, 16);
       if (g == 0) {
-        const int at = r * D + de_col(r, d);
+        const int at = r * HD + de_col(r, d);
         if (de_global) {
           atomicAdd(de_all + at, x);
         } else {
@@ -183,17 +190,19 @@ __device__ __forceinline__ void add_clipped_row(float* debuf, float* de_all, int
 // Window rows 16m .. 16m+15 meet the queries of warp kk at that warp's dR
 // columns 16(m - kk) ..; the other depth blocks are zero by construction. Warp
 // w owns window blocks w and w + NW: five depth blocks in all, for every warp.
-template <typename T, int NW, int CHUNK>
+template <typename T, int NW, int CHUNK, int HD>
 __device__ __forceinline__ void window_grad(const unsigned char* scratch, const bf16* qs,
                                             float* debuf, float* de_all, int de_global, int base,
                                             int max_pos, int w, int lane) {
-  constexpr int P = Parts<T>::N, WIN = 16 * NW + BK;
+  constexpr int P = Parts<T>::N, WIN = 16 * NW + BK, TS = stage_stride(HD), NB = HD / 8;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
     const int m = w + mi * NW;
     if (m >= WIN / 16) break;
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float acc[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
     // the warp kk = m - back holds window block m at its dR columns 16 * back ..
 #pragma unroll
     for (int back = 0; back < RCOLS / 16; ++back) {
@@ -202,7 +211,7 @@ __device__ __forceinline__ void window_grad(const unsigned char* scratch, const 
       FragA<P> da;
       load_a_scratch_trans(da, reinterpret_cast<const T*>(scratch + kk * CHUNK), DRS, 16 * back, 0, lane);
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
+      for (int n = 0; n < NB; ++n) {
         FragB<P> qb;
         load_b_trans<P>(qb, qs, 16 * NW * TS, TS, 8 * n, 16 * kk, lane);
         mma(acc[n], da, qb);
@@ -219,8 +228,8 @@ __device__ __forceinline__ void window_grad(const unsigned char* scratch, const 
       if (dist <= -max_pos || dist >= max_pos) continue;
       const int r = dist + max_pos;
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int at = r * D + de_col(r, 8 * n + 2 * t);
+      for (int n = 0; n < NB; ++n) {
+        const int at = r * HD + de_col(r, 8 * n + 2 * t);
         if (de_global) {  // uniform in the grid
           atomicAdd(de_all + at, acc[n][2 * rr]);
           atomicAdd(de_all + at + 1, acc[n][2 * rr + 1]);
@@ -236,7 +245,7 @@ __device__ __forceinline__ void window_grad(const unsigned char* scratch, const 
   }
 }
 
-template <typename T, int NW, int MODE>
+template <typename T, int NW, int MODE, int HD>
 __global__ void __launch_bounds__(32 * NW, 1)
 flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ table, const T* __restrict__ gout,
@@ -244,11 +253,13 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
               T* __restrict__ dq, T* __restrict__ dk,
               T* __restrict__ dv, float* __restrict__ partials, int G, int Tq, int Tk,
               int max_pos, int t_valid, int q_offset, int de_global) {
-  using L = Layout<T, NW, MODE>;
-  constexpr int NT = 32 * NW, BQ = L::BQ, WIN = L::WIN, P = L::P;
+  using L = Layout<T, NW, MODE, HD>;
+  constexpr int NT = 32 * NW, BQ = L::BQ, WIN = L::WIN, P = L::P, TS = L::TS;
   constexpr int QPL = L::QPL, KPL = L::KPL, EPL = L::EPL, CHUNK = L::CHUNK;
+  constexpr int KD = HD / 16, NB = HD / 8;
   constexpr bool kOwnsQ = L::kOwnsQ;
-  constexpr int NPW = NW == 4 ? 2 : 1;  // 8-wide blocks of dk / dv a warp owns
+  // 8-wide blocks of dk / dv a warp owns: the warps w and w + 4 own one key block
+  constexpr int NPW = NB * 4 / NW;
 
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem + L::qs);
@@ -269,11 +280,11 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   T* dr_w = reinterpret_cast<T*>(scratch + w * CHUNK);
   T* pb_w = reinterpret_cast<T*>(scratch + w * CHUNK + L::pb);
   T* dsb_w = reinterpret_cast<T*>(scratch + w * CHUNK + L::dsb);
-  const int n_rows = (2 * max_pos + 1) * D;
+  const int n_rows = (2 * max_pos + 1) * HD;
 
   // once a block: the table's two end rows, zero dE buffer (the global one arrives zeroed)
-  if (tid < D) {
-    eh[tid] = widen(table[2 * max_pos * D + tid]);
+  if (tid < HD) {
+    eh[tid] = widen(table[2 * max_pos * HD + tid]);
     el[tid] = widen(table[tid]);
   }
   if (kOwnsQ && !de_global) {
@@ -288,31 +299,31 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int grp = item / per_group;
     const int own0 = (item % per_group) * (kOwnsQ ? BQ : BK);
-    const T* qg = q + static_cast<size_t>(grp) * Tq * D;
-    const T* gg = gout + static_cast<size_t>(grp) * Tq * D;
-    const T* kg = k + static_cast<size_t>(grp) * Tk * D;
-    const T* vg = v + static_cast<size_t>(grp) * Tk * D;
+    const T* qg = q + static_cast<size_t>(grp) * Tq * HD;
+    const T* gg = gout + static_cast<size_t>(grp) * Tq * HD;
+    const T* kg = k + static_cast<size_t>(grp) * Tk * HD;
+    const T* vg = v + static_cast<size_t>(grp) * Tk * HD;
     const float* lg = lse + static_cast<size_t>(grp) * Tq;
     const float* dg = delta + static_cast<size_t>(grp) * Tq;
 
     __syncthreads();  // the previous item's tiles are consumed; the block's set-up is visible
     if (kOwnsQ) {
-      stage_rows<T, NT>(qs, QPL, qg, own0, BQ, Tq, tid);
-      stage_rows<T, NT>(gs, QPL, gg, own0, BQ, Tq, tid);
+      stage_rows<T, NT, HD>(qs, QPL, qg, own0, BQ, Tq, tid);
+      stage_rows<T, NT, HD>(gs, QPL, gg, own0, BQ, Tq, tid);
       for (int e = tid; e < BQ; e += NT) {
         lse_s[e] = own0 + e < Tq ? lg[own0 + e] : 0.f;
         delta_s[e] = own0 + e < Tq ? dg[own0 + e] : 0.f;
       }
     } else {
-      stage_rows<T, NT>(ks, KPL, kg, own0, BK, Tk, tid);
-      stage_rows<T, NT>(vs, KPL, vg, own0, BK, Tk, tid);
+      stage_rows<T, NT, HD>(ks, KPL, kg, own0, BK, Tk, tid);
+      stage_rows<T, NT, HD>(vs, KPL, vg, own0, BK, Tk, tid);
     }
 
-    float dq_acc[2][4];              // rows g, g+8; d = 8n + 2t, +1
+    float dq_acc[NB][4];             // rows g, g+8; d = 8n + 2t, +1
     float c_hi[2], c_lo[2];          // this lane's share of the clipped pairs' ds sums
     float dk_acc[NPW][4], dv_acc[NPW][4];
 #pragma unroll
-    for (int n = 0; n < 2; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
+    for (int n = 0; n < NB; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
     c_hi[0] = c_hi[1] = c_lo[0] = c_lo[1] = 0.f;
 #pragma unroll
     for (int n = 0; n < NPW; ++n) {
@@ -324,8 +335,8 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int n_inner = kOwnsQ ? (t_valid + BK - 1) / BK : (own0 < t_valid ? n_qtiles : 0);
     // the tiles that change with the walk travel through registers
     constexpr int VR = kOwnsQ ? BK : BQ;
-    TileFetch<T, NT, VR> a_next, b_next;  // K and V, or Q and g
-    TileFetch<T, NT, WIN> e_next;
+    TileFetch<T, NT, VR, HD> a_next, b_next;  // K and V, or Q and g
+    TileFetch<T, NT, WIN, HD> e_next;
     float lse_next = 0.f, delta_next = 0.f;
     auto fetch = [&](int it) {
       const int i0 = kOwnsQ ? own0 : it * BQ;
@@ -358,7 +369,7 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       if (kOwnsQ) {
         // the previous pair's share of the table's gradient: its dR stays until
         // the next block sync, Q for the whole item
-        if (prev_mixed) window_grad<T, NW, CHUNK>(scratch, qs, debuf, partials, de_global, prev_base, max_pos, w, lane);
+        if (prev_mixed) window_grad<T, NW, CHUNK, HD>(scratch, qs, debuf, partials, de_global, prev_base, max_pos, w, lane);
         prev_mixed = kind == kMixed;
         prev_base = base;
         a_next.store(ks, tid);
@@ -375,9 +386,12 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       __syncthreads();
       if (it + 1 < n_inner) fetch(it + 1);  // in flight while this pair is computed
 
-      FragA<P> qa, ga;
-      load_a<P>(qa, qs, QPL, TS, 16 * w, 0, lane);
-      load_a<P>(ga, gs, QPL, TS, 16 * w, 0, lane);
+      FragA<P> qa[KD], ga[KD];
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        load_a<P>(qa[kd], qs, QPL, TS, 16 * w, 16 * kd, lane);
+        load_a<P>(ga[kd], gs, QPL, TS, 16 * w, 16 * kd, lane);
+      }
       const bf16* qs_w = qs + 16 * w * TS;
       float pos_hi[2] = {0.f, 0.f}, pos_lo[2] = {0.f, 0.f};
       if (kind != kMixed) {
@@ -385,7 +399,7 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         for (int rr = 0; rr < 2; ++rr) {
           float hi = 0.f, lo = 0.f;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
+          for (int h = 0; h < NB; ++h) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int d = 2 * t + 8 * h + e;
@@ -400,13 +414,16 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       }
 
       float s[BK / 8][4], dp[BK / 8][4];
-      warp_logits<P>(s, qa, ks, es, EPL, rt, kind, pos_hi, pos_lo, w, lane);
+      warp_logits<P, HD>(s, qa, ks, es, EPL, rt, kind, pos_hi, pos_lo, w, lane);
 #pragma unroll
       for (int nb = 0; nb < BK / 8; ++nb) {
         dp[nb][0] = dp[nb][1] = dp[nb][2] = dp[nb][3] = 0.f;
-        FragB<P> vb;
-        load_b<P>(vb, vs, KPL, TS, 8 * nb, 0, lane);
-        mma(dp[nb], ga, vb);
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          FragB<P> vb;
+          load_b<P>(vb, vs, KPL, TS, 8 * nb, 16 * kd, lane);
+          mma(dp[nb], ga[kd], vb);
+        }
       }
       // s becomes p, dp becomes ds
       const int nk = t_valid - j0;
@@ -438,7 +455,7 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
           FragA<P> da;
           frag_from(da, dsv);
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
+          for (int n = 0; n < NB; ++n) {
             FragB<P> kb;
             load_b_trans<P>(kb, ks, KPL, TS, 8 * n, 16 * kk, lane);
             mma(dq_acc[n], da, kb);
@@ -514,7 +531,7 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
           FragA<P> da;
           load_a_scratch(da, dr_w, DRS, 0, 16 * kk, lane);
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
+          for (int n = 0; n < NB; ++n) {
             FragB<P> eb;
             load_b_trans<P>(eb, es, EPL, TS, 8 * n, 16 * w + 16 * kk, lane);
             mma(dq_acc[n], da, eb);
@@ -545,24 +562,24 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     if (kOwnsQ) {
       if (prev_mixed) {
         __syncthreads();  // the last pair's dR is whole
-        window_grad<T, NW, CHUNK>(scratch, qs, debuf, partials, de_global, prev_base, max_pos, w, lane);
+        window_grad<T, NW, CHUNK, HD>(scratch, qs, debuf, partials, de_global, prev_base, max_pos, w, lane);
       }
       const float ch[2] = {quad_sum(c_hi[0]), quad_sum(c_hi[1])};
       const float cl[2] = {quad_sum(c_lo[0]), quad_sum(c_lo[1])};
       // uniform in the block: skip the rows its distances never reach
       if (own0 + BQ - 1 + q_offset >= max_pos) {
-        add_clipped_row<P>(debuf, partials, de_global, 2 * max_pos, ch, qs + 16 * w * TS, QPL, lane);
+        add_clipped_row<P, HD>(debuf, partials, de_global, 2 * max_pos, ch, qs + 16 * w * TS, QPL, lane);
       }
       if (own0 + q_offset - (t_valid - 1) <= -max_pos) {
-        add_clipped_row<P>(debuf, partials, de_global, 0, cl, qs + 16 * w * TS, QPL, lane);
+        add_clipped_row<P, HD>(debuf, partials, de_global, 0, cl, qs + 16 * w * TS, QPL, lane);
       }
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int row = own0 + 16 * w + g + 8 * rr;
         if (row >= Tq) continue;
-        T* o = dq + (static_cast<size_t>(grp) * Tq + row) * D;
+        T* o = dq + (static_cast<size_t>(grp) * Tq + row) * HD;
 #pragma unroll
-        for (int n = 0; n < 2; ++n) {
+        for (int n = 0; n < NB; ++n) {
           const int d = 8 * n + 2 * t;
           narrow2(dq_acc[n][2 * rr] + ch[rr] * eh[d] + cl[rr] * el[d],
                   dq_acc[n][2 * rr + 1] + ch[rr] * eh[d + 1] + cl[rr] * el[d + 1], o + d);
@@ -577,7 +594,7 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         if (row >= Tk) continue;
 #pragma unroll
         for (int n = 0; n < NPW; ++n) {
-          const size_t at = (static_cast<size_t>(grp) * Tk + row) * D + 8 * (n_first + n) + 2 * t;
+          const size_t at = (static_cast<size_t>(grp) * Tk + row) * HD + 8 * (n_first + n) + 2 * t;
           narrow2(dk_acc[n][2 * rr], dk_acc[n][2 * rr + 1], dk + at);
           narrow2(dv_acc[n][2 * rr], dv_acc[n][2 * rr + 1], dv + at);
         }
@@ -607,10 +624,10 @@ struct Plan {
   int bytes, blocks;
 };
 
-template <typename T, int NW, int MODE>
+template <typename T, int NW, int MODE, int HD>
 int plan(int G, int extent, int max_pos, bool shared_de, Plan* p) {
-  using L = Layout<T, NW, MODE>;
-  auto kernel = flash_rel_bwd<T, NW, MODE>;
+  using L = Layout<T, NW, MODE, HD>;
+  auto kernel = flash_rel_bwd<T, NW, MODE, HD>;
   p->bytes = L::bytes(max_pos, shared_de);
   if (p->bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p->bytes);
@@ -635,18 +652,18 @@ int plan(int G, int extent, int max_pos, bool shared_de, Plan* p) {
 }
 
 // the block's dE buffer fits beside the tiles
-template <typename T>
+template <typename T, int HD>
 bool shared_de_fits(int max_pos) {
-  return Layout<T, kWarpsQ<T>, kOwnQ>::bytes(max_pos, true) <= MAX_SMEM;
+  return Layout<T, kWarpsQ<T, HD>, kOwnQ, HD>::bytes(max_pos, true) <= MAX_SMEM;
 }
 
-template <typename T, int NW, int MODE>
+template <typename T, int NW, int MODE, int HD>
 int launch_one(const Args& a) {
-  const bool shared_de = shared_de_fits<T>(a.max_pos);
+  const bool shared_de = shared_de_fits<T, HD>(a.max_pos);
   Plan p;
-  int err = plan<T, NW, MODE>(a.G, MODE == kOwnQ ? a.Tq : a.Tk, a.max_pos, shared_de, &p);
+  int err = plan<T, NW, MODE, HD>(a.G, MODE == kOwnQ ? a.Tq : a.Tk, a.max_pos, shared_de, &p);
   if (err != 0) return err;
-  const int n = (2 * a.max_pos + 1) * D;
+  const int n = (2 * a.max_pos + 1) * HD;
   // rows of `partials` the kernel writes: one a block, or one for all blocks
   const int rows = shared_de ? p.blocks : 1;
   if (MODE == kOwnQ) {
@@ -656,7 +673,7 @@ int launch_one(const Args& a) {
       if (err != 0) return err;
     }
   }
-  flash_rel_bwd<T, NW, MODE><<<static_cast<unsigned>(p.blocks), 32 * NW, p.bytes, a.stream>>>(
+  flash_rel_bwd<T, NW, MODE, HD><<<static_cast<unsigned>(p.blocks), 32 * NW, p.bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.table), static_cast<const T*>(a.gout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -666,29 +683,37 @@ int launch_one(const Args& a) {
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || MODE != kOwnQ) return err;
   flash_rel_sum_partials<<<(n + 255) / 256, 256, 0, a.stream>>>(
-      static_cast<const float*>(a.partials), static_cast<float*>(a.dtable), rows, n);
+      static_cast<const float*>(a.partials), static_cast<float*>(a.dtable), rows, n, HD);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int HD>
 int launch(const Args& a) {
   const int rows = a.G * a.Tq;
-  flash_rel_delta<T><<<(rows + 255) / 256, 256, 0, a.stream>>>(
+  flash_rel_delta<T, HD><<<(rows + 255) / 256, 256, 0, a.stream>>>(
       static_cast<const T*>(a.out), static_cast<const T*>(a.gout), static_cast<float*>(a.delta), rows);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   // the kernels read the delta written above: same stream, so in order
-  err = launch_one<T, kWarpsQ<T>, kOwnQ>(a);
-  return err != 0 ? err : launch_one<T, 4, kOwnK>(a);
+  err = launch_one<T, kWarpsQ<T, HD>, kOwnQ, HD>(a);
+  return err != 0 ? err : launch_one<T, 4, kOwnK, HD>(a);
 }
 
 // rows of `partials` a launch at these shapes writes, or minus the CUDA error
-template <typename T>
+template <typename T, int HD>
 int partial_rows(int G, int Tq, int max_pos) {
-  if (!shared_de_fits<T>(max_pos)) return 1;
+  if (!shared_de_fits<T, HD>(max_pos)) return 1;
   Plan p;
-  const int err = plan<T, kWarpsQ<T>, kOwnQ>(G, Tq, max_pos, true, &p);
+  const int err = plan<T, kWarpsQ<T, HD>, kOwnQ, HD>(G, Tq, max_pos, true, &p);
   return err != 0 ? -err : p.blocks;
+}
+
+template <typename T, int HD>
+int smem_bytes(int which, int max_pos) {
+  if (which == 0) {
+    return Layout<T, kWarpsQ<T, HD>, kOwnQ, HD>::bytes(max_pos, shared_de_fits<T, HD>(max_pos));
+  }
+  return which == 1 ? Layout<T, 4, kOwnK, HD>::bytes(max_pos, false) : -1;
 }
 
 }  // namespace
@@ -696,40 +721,47 @@ int partial_rows(int G, int Tq, int max_pos) {
 // Plain C entry for ctypes. Launches on `stream` and returns the first CUDA
 // error (0 on success); does not synchronise. Scratch from the caller, none
 // of it zeroed: `delta` fp32 [G, Tq]; `partials` fp32 [partial_rows,
-// (2*max_pos+1)*16] with partial_rows at least what
+// (2*max_pos+1)*head_dim] with partial_rows at least what
 // cmgan_flash_rel_attention_bwd_partial_rows gives for these shapes; `dtable`
-// fp32 [2*max_pos+1, 16] receives the table's gradient. Pointers are 16-byte
-// aligned.
+// fp32 [2*max_pos+1, head_dim] receives the table's gradient. Pointers are
+// 16-byte aligned; head_dim is 16, 32 or 64.
 extern "C" int cmgan_flash_rel_attention_bwd(
     const void* q, const void* k, const void* v, const void* table, const void* out,
     const void* gout, const void* lse, void* dq, void* dk, void* dv, void* delta,
     void* dtable, void* partials, int G, int Tq, int Tk, int head_dim, int max_pos, int t_valid,
     int q_offset, int is_bf16, int partial_rows, void* stream) {
-  if (head_dim != D || G <= 0 || Tq <= 0 || t_valid <= 0 || t_valid > Tk || max_pos < 0) {
+  if (G <= 0 || Tq <= 0 || t_valid <= 0 || t_valid > Tk || max_pos < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a = {q, k, v, table, out, gout, lse, dq, dk, dv, delta, dtable, partials,
                   G, Tq, Tk, max_pos, t_valid, q_offset, partial_rows,
                   static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
+  return with_head_dim(head_dim, static_cast<int>(cudaErrorInvalidValue), [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return is_bf16 ? launch<__nv_bfloat16, HD>(a) : launch<float, HD>(a);
+  });
 }
 
 // Rows the `partials` scratch needs on the current device: one a block of the
 // kernel that sums the table's gradient in shared memory, or one in all where
 // the table is too long for that. Negative: minus a CUDA error.
-extern "C" int cmgan_flash_rel_attention_bwd_partial_rows(int is_bf16, int G, int Tq, int max_pos) {
+extern "C" int cmgan_flash_rel_attention_bwd_partial_rows(int is_bf16, int head_dim, int G,
+                                                          int Tq, int max_pos) {
   if (G <= 0 || Tq <= 0 || max_pos < 0) return -static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? partial_rows<__nv_bfloat16>(G, Tq, max_pos) : partial_rows<float>(G, Tq, max_pos);
+  return with_head_dim(head_dim, -static_cast<int>(cudaErrorInvalidValue), [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return is_bf16 ? partial_rows<__nv_bfloat16, HD>(G, Tq, max_pos)
+                   : partial_rows<float, HD>(G, Tq, max_pos);
+  });
 }
 
 // Dynamic shared memory, in bytes, of one block of kernel `which` (0: the
 // kernel that sums dq and the table's gradient, 1: the dk/dv kernel), or -1.
-extern "C" int cmgan_flash_rel_attention_bwd_smem(int is_bf16, int which, int max_pos) {
-  const auto pick = [&](auto zero) -> int {
-    using T = decltype(zero);
-    if (which == 0) return Layout<T, kWarpsQ<T>, kOwnQ>::bytes(max_pos, shared_de_fits<T>(max_pos));
-    if (which == 1) return Layout<T, 4, kOwnK>::bytes(max_pos, false);
-    return -1;
-  };
-  return is_bf16 ? pick(__nv_bfloat16()) : pick(0.f);
+extern "C" int cmgan_flash_rel_attention_bwd_smem(int is_bf16, int head_dim, int which,
+                                                  int max_pos) {
+  return with_head_dim(head_dim, -1, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return is_bf16 ? smem_bytes<__nv_bfloat16, HD>(which, max_pos)
+                   : smem_bytes<float, HD>(which, max_pos);
+  });
 }

@@ -36,6 +36,11 @@
 // adds R[r][r - b + 63] to the content logit of (r, b). A tile pair whose
 // every distance is clipped needs no window: its position logit is one of two
 // scalars a query, q_a . E[2*max_pos] or q_a . E[0].
+//
+// The head dim. Rows of q, k, v and E are HD wide, HD a multiple of 16 (the
+// libraries instantiate 16, 32 and 64; the wrapper zero-pads other widths up
+// to the next, which changes no product). A product over the head dim takes
+// HD / 16 depth steps, one whose result is HD wide HD / 8 tiles of 8 columns.
 
 #pragma once
 
@@ -44,6 +49,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // One definition per library: each .cu includes this header once.
 extern "C" const char* cmgan_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -51,13 +58,26 @@ extern "C" const char* cmgan_cuda_error_string(int code) {
 
 namespace flash_rel {
 
-constexpr int D = 16;        // head dim: one depth step of a tile product
 constexpr int BK = 64;       // keys per tile
-constexpr int TS = 24;       // bf16 elements per staged row of 16: 48 B, 16-byte aligned,
-                             // conflict-free for ldmatrix
+// bf16 elements per staged row of HD: 2 * HD + 16 bytes, 16-byte aligned, and
+// the eight rows an ldmatrix reads fall on eight different groups of 4 banks
+__host__ __device__ constexpr int stage_stride(int hd) { return hd + 8; }
 constexpr int RCOLS = 80;    // columns of R a warp computes (79 needed)
 constexpr int RS = 20;       // floats per column of the R scratch
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may ask for
+
+// f(std::integral_constant<int, HD>()) for a head dim the libraries are built
+// for (16, 32, 64: ops/flash_attention.py KERNEL_HEAD_DIMS), `otherwise` for
+// any other
+template <typename F>
+int with_head_dim(int head_dim, int otherwise, F f) {
+  switch (head_dim) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    default: return otherwise;
+  }
+}
 
 enum Clip { kMixed = 0, kHigh = 1, kLow = 2 };
 
@@ -270,53 +290,56 @@ __device__ __forceinline__ void load_a_scratch_trans(FragA<3>& a, const float* m
 
 // ---- staging ----
 
-// One 16-byte chunk of a row of T (chunk c of row r) into the staged tile
-__device__ __forceinline__ void store_chunk(bf16* dst, int plane, int r, int c, uint4 x, bf16) {
-  *reinterpret_cast<uint4*>(dst + r * TS + 8 * c) = x;
+// One 16-byte chunk of a row of T (chunk c of row r) into the staged tile,
+// rows ts elements apart
+__device__ __forceinline__ void store_chunk(bf16* dst, int plane, int ts, int r, int c, uint4 x,
+                                            bf16) {
+  *reinterpret_cast<uint4*>(dst + r * ts + 8 * c) = x;
 }
-__device__ __forceinline__ void store_chunk(bf16* dst, int plane, int r, int c, uint4 x, float) {
+__device__ __forceinline__ void store_chunk(bf16* dst, int plane, int ts, int r, int c, uint4 x,
+                                            float) {
   uint32_t lo[3], hi[3];
   split3(__uint_as_float(x.x), __uint_as_float(x.y), lo);
   split3(__uint_as_float(x.z), __uint_as_float(x.w), hi);
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    *reinterpret_cast<uint2*>(dst + p * plane + r * TS + 4 * c) = make_uint2(lo[p], hi[p]);
+    *reinterpret_cast<uint2*>(dst + p * plane + r * ts + 4 * c) = make_uint2(lo[p], hi[p]);
   }
 }
 
-// Rows row0 .. row0 + nrows - 1 of src ([limit, 16] contiguous) into the
+// Rows row0 .. row0 + nrows - 1 of src ([limit, HD] contiguous) into the
 // staged tile dst; rows at or past `limit` are zero.
-template <typename T, int NT>
+template <typename T, int NT, int HD>
 __device__ __forceinline__ void stage_rows(bf16* dst, int plane, const T* __restrict__ src,
                                            int row0, int nrows, int limit, int tid) {
-  constexpr int C = D * sizeof(T) / 16;  // 16-byte chunks in a row
+  constexpr int C = HD * sizeof(T) / 16;  // 16-byte chunks in a row
   for (int e = tid; e < nrows * C; e += NT) {
     const int r = e / C, c = e % C;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < limit) {
-      x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c * (16 / sizeof(T)));
+      x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * HD + c * (16 / sizeof(T)));
     }
-    store_chunk(dst, plane, r, c, x, T());
+    store_chunk(dst, plane, stage_stride(HD), r, c, x, T());
   }
 }
 
 // A tile on its way from global to shared memory, held in registers: fetched
 // while the previous tile pair is computed, stored (and split) once that one
 // is consumed, so the loads' latency hides behind the products.
-template <typename T, int NT, int ROWS>
+template <typename T, int NT, int ROWS, int HD>
 struct TileFetch {
-  static constexpr int C = D * sizeof(T) / 16;        // 16-byte chunks in a row
+  static constexpr int C = HD * sizeof(T) / 16;       // 16-byte chunks in a row
   static constexpr int N = (ROWS * C + NT - 1) / NT;  // chunks a thread carries
   uint4 x[N];
 
-  // rows row0 .. of src ([limit, 16] contiguous); rows at or past `limit` are zero
+  // rows row0 .. of src ([limit, HD] contiguous); rows at or past `limit` are zero
   __device__ __forceinline__ void fetch_rows(const T* __restrict__ src, int row0, int limit, int tid) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int e = tid + i * NT, r = e / C, c = e % C;
       x[i] = make_uint4(0u, 0u, 0u, 0u);
       if (e < ROWS * C && row0 + r < limit) {
-        x[i] = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c * (16 / sizeof(T)));
+        x[i] = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * HD + c * (16 / sizeof(T)));
       }
     }
   }
@@ -327,15 +350,16 @@ struct TileFetch {
       const int e = tid + i * NT, r = e / C, c = e % C;
       if (e < ROWS * C) {
         const int row = min(max(base + r, -max_pos), max_pos) + max_pos;
-        x[i] = *reinterpret_cast<const uint4*>(table + row * D + c * (16 / sizeof(T)));
+        x[i] = *reinterpret_cast<const uint4*>(table + row * HD + c * (16 / sizeof(T)));
       }
     }
   }
   __device__ __forceinline__ void store(bf16* dst, int tid) const {
+    constexpr int TS = stage_stride(HD);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int e = tid + i * NT;
-      if (e < ROWS * C) store_chunk(dst, ROWS * TS, e / C, e % C, x[i], T());
+      if (e < ROWS * C) store_chunk(dst, ROWS * TS, TS, e / C, e % C, x[i], T());
     }
   }
 };
@@ -343,30 +367,37 @@ struct TileFetch {
 // ---- the logits of one warp: 16 queries against 64 keys ----
 
 // s[nb][0..1]: row g, keys 8nb + 2t, + 1;  s[nb][2..3]: row g + 8, the same keys.
-// ks: the staged key tile; es: the staged window (kMixed only), its planes e_plane
-// apart; rt: this warp's R scratch;
+// qa: the warp's queries, HD / 16 depth steps; ks: the staged key tile; es: the
+// staged window (kMixed only), its planes e_plane apart; rt: this warp's R scratch;
 // pos_hi / pos_lo: the two clipped scalars of rows g and g + 8.
-template <int P>
-__device__ __forceinline__ void warp_logits(float (*s)[4], const FragA<P>& qa, const bf16* ks,
-                                            const bf16* es, int e_plane, float* rt, int kind,
-                                            const float* pos_hi, const float* pos_lo, int w,
-                                            int lane) {
+template <int P, int HD>
+__device__ __forceinline__ void warp_logits(float (*s)[4], const FragA<P> (&qa)[HD / 16],
+                                            const bf16* ks, const bf16* es, int e_plane,
+                                            float* rt, int kind, const float* pos_hi,
+                                            const float* pos_lo, int w, int lane) {
+  constexpr int TS = stage_stride(HD);
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int nb = 0; nb < BK / 8; ++nb) {
     s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-    FragB<P> kb;
-    load_b<P>(kb, ks, BK * TS, TS, 8 * nb, 0, lane);
-    mma(s[nb], qa, kb);
+#pragma unroll
+    for (int kd = 0; kd < HD / 16; ++kd) {
+      FragB<P> kb;
+      load_b<P>(kb, ks, BK * TS, TS, 8 * nb, 16 * kd, lane);
+      mma(s[nb], qa[kd], kb);
+    }
   }
   if (kind == kMixed) {
     __syncwarp();  // the scratch's earlier readers are done
 #pragma unroll
     for (int nb = 0; nb < RCOLS / 8; ++nb) {
       float r[4] = {0.f, 0.f, 0.f, 0.f};
-      FragB<P> eb;
-      load_b<P>(eb, es, e_plane, TS, 16 * w + 8 * nb, 0, lane);
-      mma(r, qa, eb);
+#pragma unroll
+      for (int kd = 0; kd < HD / 16; ++kd) {
+        FragB<P> eb;
+        load_b<P>(eb, es, e_plane, TS, 16 * w + 8 * nb, 16 * kd, lane);
+        mma(r, qa[kd], eb);
+      }
       const int c = 8 * nb + 2 * t;
       rt[c * RS + g] = r[0];
       rt[(c + 1) * RS + g] = r[1];

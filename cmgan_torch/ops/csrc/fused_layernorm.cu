@@ -8,12 +8,15 @@
 // with the statistics and the affine in fp32 and y written in x's type (fp32
 // or bf16); scale and bias are fp32 [C].
 //
-// One warp owns one row: each lane loads pairs of neighbouring elements (one
-// 8-byte or 4-byte load a lane for C = 64, the width the conformer uses),
-// keeps them in registers, reduces sum x and sum x^2 across the warp by
-// shuffle, and writes the normalised pairs back. x is read once and y written
-// once, nothing else touches device memory. C must be even and at most
-// MAX_C.
+// One warp owns one row. For an even C of at most MAX_C (pair-aligned rows)
+// each lane loads pairs of neighbouring elements (one 8-byte or 4-byte load a
+// lane for C = 64, the width the conformer uses), keeps them in registers,
+// reduces sum x and sum x^2 across the warp by shuffle, and writes the
+// normalised pairs back: x is read once and y written once, nothing else
+// touches device memory. Any other C (odd, or wider than a warp keeps) takes
+// the same warp a row with a strided loop of single elements, in two passes
+// over the row: the statistics, then the output. The second pass reads the
+// row again, mostly from the L1 and L2 caches.
 //
 // What bounds it on an H100 SXM (700 W part, 3.35 TB/s): bytes. A row costs
 // about 5 FLOP an element against 2 * C * sizeof(T) bytes, far below the
@@ -21,6 +24,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -39,6 +43,44 @@ __device__ __forceinline__ void store2(float* p, float2 y) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float2 y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(y.x, y.y);
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void narrow(float x, float* p) { *p = x; }
+__device__ __forceinline__ void narrow(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
+
+__device__ __forceinline__ void warp_sums(float& sum, float& sumsq) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    sumsq += __shfl_xor_sync(0xffffffffu, sumsq, off);
+  }
+}
+
+// any C >= 1: a strided loop a lane, two passes over the row
+template <typename T>
+__global__ void __launch_bounds__(32 * WARPS)
+layernorm_fwd_any(const T* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ bias, T* __restrict__ y, long long n_rows,
+                  int C, float eps) {
+  const long long row = static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32;
+  if (row >= n_rows) return;  // whole warps leave together
+  const int lane = threadIdx.x % 32;
+  const T* xr = x + row * C;
+  T* yr = y + row * C;
+  float sum = 0.f, sumsq = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float v = widen(xr[c]);
+    sum += v;
+    sumsq += v * v;
+  }
+  warp_sums(sum, sumsq);
+  const float mean = sum / C;
+  const float rstd = rsqrtf(sumsq / C - mean * mean + eps);
+  for (int c = lane; c < C; c += 32) {
+    narrow((widen(xr[c]) - mean) * rstd * scale[c] + bias[c], yr + c);
+  }
 }
 
 template <typename T>
@@ -64,11 +106,7 @@ layernorm_fwd(const T* __restrict__ x, const float* __restrict__ scale,
       sumsq += vals[i].x * vals[i].x + vals[i].y * vals[i].y;
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    sumsq += __shfl_xor_sync(0xffffffffu, sumsq, off);
-  }
+  warp_sums(sum, sumsq);
   const float mean = sum / C;
   const float rstd = rsqrtf(sumsq / C - mean * mean + eps);
 #pragma unroll
@@ -85,29 +123,39 @@ layernorm_fwd(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+template <typename T>
+int launch(const void* x, const float* scale, const float* bias, void* y, long long n_rows, int C,
+           float eps, cudaStream_t s) {
+  const unsigned grid = static_cast<unsigned>((n_rows + WARPS - 1) / WARPS);
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  // the pair loads need an even C and x, y, scale, bias at pair boundaries
+  const uintptr_t pair = 2 * sizeof(T);
+  const bool pairs = C % 2 == 0 && C <= MAX_C && reinterpret_cast<uintptr_t>(x) % pair == 0 &&
+                     reinterpret_cast<uintptr_t>(y) % pair == 0 &&
+                     reinterpret_cast<uintptr_t>(scale) % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(bias) % 8 == 0;
+  if (pairs) {
+    layernorm_fwd<T><<<grid, 32 * WARPS, 0, s>>>(xp, scale, bias, yp, n_rows, C, eps);
+  } else {
+    layernorm_fwd_any<T><<<grid, 32 * WARPS, 0, s>>>(xp, scale, bias, yp, n_rows, C, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry for ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); does not synchronise.
+// cudaGetLastError() (0 on success); does not synchronise. Any C >= 1.
 extern "C" int cmgan_fused_layernorm_fwd(const void* x, const void* scale, const void* bias,
                                          void* y, long long n_rows, int C, float eps,
                                          int is_bf16, void* stream) {
-  if (n_rows <= 0 || C <= 0 || C % 2 != 0 || C > MAX_C) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const unsigned grid = static_cast<unsigned>((n_rows + WARPS - 1) / WARPS);
+  if (n_rows <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(scale);
   const float* bp = static_cast<const float*>(bias);
-  if (is_bf16) {
-    layernorm_fwd<__nv_bfloat16><<<grid, 32 * WARPS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), sp, bp, static_cast<__nv_bfloat16*>(y),
-        n_rows, C, eps);
-  } else {
-    layernorm_fwd<float><<<grid, 32 * WARPS, 0, s>>>(
-        static_cast<const float*>(x), sp, bp, static_cast<float*>(y), n_rows, C, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch<__nv_bfloat16>(x, sp, bp, y, n_rows, C, eps, s)
+                 : launch<float>(x, sp, bp, y, n_rows, C, eps, s);
 }
 
 extern "C" const char* cmgan_cuda_error_string(int code) {

@@ -17,10 +17,17 @@ PyTorch: the CPU tests check the index work there, where no kernel runs.
 
 `flash_rel_attention_at` is the wrapper, differentiable in q, k, v and
 the table. For CPU tensors it runs the plain version
-(`reference_attention`) under ordinary autograd; for CUDA tensors it
-launches the kernels, through a `torch.autograd.Function` when a
-gradient is wanted, or raises. `reference_attention_grads` is the
+(`reference_attention`, any head dim) under ordinary autograd; for CUDA
+tensors it launches the kernels, through a `torch.autograd.Function`
+when a gradient is wanted, or raises. `reference_attention_grads` is the
 backward's plain version.
+
+The kernels are built for head dims of 16, 32 and 64 (`KERNEL_HEAD_DIMS`).
+A narrower head is zero-padded on its last axis up to the next of them:
+zero columns add nothing to q.k or q.E, q carries the softmax scale of
+the true head dim, and the padded columns of the output and of every
+gradient are sliced away, so the result is exact. A head wider than 64
+raises on CUDA.
 """
 
 from __future__ import annotations
@@ -29,10 +36,12 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from cmgan_torch.ops import _build
 
-HEAD_DIM = 16
+# head dims the kernels are instantiated for (csrc/flash_rel_common.cuh)
+KERNEL_HEAD_DIMS = (16, 32, 64)
 KERNEL = "flash_rel_attention"
 BWD_KERNEL = "flash_rel_attention_bwd"
 
@@ -221,8 +230,11 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    return _bind(BWD_KERNEL, "cmgan_flash_rel_attention_bwd",
-                 [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    lib = _bind(BWD_KERNEL, "cmgan_flash_rel_attention_bwd",
+                [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    rows = lib.cmgan_flash_rel_attention_bwd_partial_rows
+    rows.argtypes, rows.restype = [ctypes.c_int] * 5, ctypes.c_int
+    return lib
 
 
 def _raise_on(lib, rc: int, what: str):
@@ -252,8 +264,8 @@ def _check(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int):
         raise ValueError(f"expected q [G,Tq,D], k/v [G,Tk,D]; got {q.shape}, {k.shape}, {v.shape}")
     g, tq, d = q.shape
     tk = k.shape[1]
-    if d != HEAD_DIM or k.shape[0] != g or k.shape[2] != d:
-        raise ValueError(f"the kernel takes D = {HEAD_DIM} and matching groups; got q {q.shape}, k {k.shape}")
+    if k.shape[0] != g or k.shape[2] != d:
+        raise ValueError(f"q and k/v need matching groups and head dims; got q {q.shape}, k {k.shape}")
     if rel_table.shape != (2 * max_pos + 1, d):
         raise ValueError(f"rel_table {tuple(rel_table.shape)}, expected {(2 * max_pos + 1, d)}")
     if not 1 <= t_valid <= tk:
@@ -295,7 +307,7 @@ def _launch_backward(q, k, v, rel_table, out, lse, grad_out, max_pos, t_valid, q
         # the table's gradient arrives as rows of partial sums, one a block of the
         # kernel that sums it (or one in all for a table too long for a block's
         # shared memory); the library says how many, and adds them into dtable
-        rows = lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, g, tq, max_pos)
+        rows = lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, d, g, tq, max_pos)
         if rows < 0:
             _raise_on(lib, -rows, "flash_rel_attention_bwd")
         partials = torch.empty(rows, rel_table.numel(), dtype=torch.float32, device=q.device)
@@ -331,11 +343,21 @@ class _FlashRelAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head of dim d at: the least of
+    KERNEL_HEAD_DIMS that holds it. Raises for a head wider than all."""
+    for width in KERNEL_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"the CUDA kernels take a head dim of at most {KERNEL_HEAD_DIMS[-1]}; got {d}")
+
+
 def flash_rel_attention_at(q, k, v, rel_table, max_pos: int,
                            t_valid: int | None = None, q_offset: int = 0):
     """Fused attention with Shaw relative positions at a query offset.
 
-    q: [G, Tq, D]; k, v: [G, Tk, D]; rel_table: [2*max_pos+1, D], D = 16.
+    q: [G, Tq, D]; k, v: [G, Tk, D]; rel_table: [2*max_pos+1, D]; on CUDA
+    D <= 64 (`kernel_head_dim`).
     q carries the softmax scale, the table is unscaled. Query i sits at
     global position i + q_offset (q_offset + Tq <= Tk). Keys at or past
     t_valid (default Tk) are masked. Returns [G, Tq, D] in q's dtype,
@@ -354,6 +376,13 @@ def flash_rel_attention_at(q, k, v, rel_table, max_pos: int,
         )
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
+    d = q.shape[2]
+    width = kernel_head_dim(d)
+    if width != d:
+        # zero columns up to the kernels' width; F.pad and the slice carry
+        # the gradient, so the padded columns' gradients are dropped
+        q, k, v, rel_table = (F.pad(t, (0, width - d)) for t in (q, k, v, rel_table))
+        return flash_rel_attention_at(q, k, v, rel_table, max_pos, t_valid, q_offset)[..., :d]
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rel_table)):
         return _FlashRelAttention.apply(q, k, v, rel_table, max_pos, t_valid, q_offset)

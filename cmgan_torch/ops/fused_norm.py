@@ -2,11 +2,13 @@
 
 `fused_layernorm(x, scale, bias, eps)` normalises x [..., C] with fp32
 statistics in the E[x^2] - E[x]^2 form, eps inside the rsqrt and an
-fp32 affine, and returns x's dtype (fp32 or bf16). For CUDA tensors the
-forward is the hand-written kernel in `csrc/fused_layernorm.cu` (one
-warp a row, x read once and y written once) or it raises; for CPU
-tensors it is the plain version, `_ln_reference`. The backward is the
-plain closed formula on either device, as in the JAX package.
+fp32 affine, and returns x's dtype (fp32 or bf16), for any width C >= 1.
+For CUDA tensors the forward is the hand-written kernel in
+`csrc/fused_layernorm.cu` (one warp a row; x read once and y written
+once for an even C up to 512, two passes over the row otherwise) or it
+raises; for CPU tensors it is the plain version, `_ln_reference`. The
+backward is the plain closed formula on either device, as in the JAX
+package.
 
 The op is not wired into the models: they use
 `cmgan_torch.models.layers.LayerNorm`. Whether the kernel should take
@@ -24,7 +26,6 @@ import torch
 from cmgan_torch.ops import _build
 
 KERNEL = "fused_layernorm"
-MAX_C = 512  # the kernel keeps a row in one warp's registers
 
 # Kernel launches; the wrapper adds one per launch. Callers reset to 0.
 launches = 0
@@ -60,9 +61,9 @@ def _kernel():
 def _check(x, scale, bias):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x: dtype {x.dtype}; the kernel takes float32 or bfloat16")
+    if x.dim() < 1 or x.shape[-1] < 1:
+        raise ValueError(f"x needs a last axis of at least 1; got {tuple(x.shape)}")
     c = x.shape[-1]
-    if x.dim() < 1 or c % 2 or not 2 <= c <= MAX_C:
-        raise ValueError(f"the kernel takes an even last axis of at most {MAX_C}; got {tuple(x.shape)}")
     for name, t in (("scale", scale), ("bias", bias)):
         if t.shape != (c,):
             raise ValueError(f"{name} {tuple(t.shape)}, expected {(c,)}")

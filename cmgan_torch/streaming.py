@@ -46,8 +46,8 @@ def _window_fn(model, windows: torch.Tensor, c: torch.Tensor, dsp: DSPConfig) ->
     """
     with torch.inference_mode():
         x = windows * c[:, None]
-        # dft_impl threaded through: a config trained with 'matmul' must
-        # stream through the same DFT (stft raises for it until it is ported)
+        # dft_impl threaded through: a config trained with 'matmul' streams
+        # through the same DFT
         spec = stft(x, dsp.n_fft, dsp.hop, dft_impl=dsp.dft_impl)
         packed = power_compress(spec, dsp.compress_exponent)
         est_real, est_imag = model(packed)

@@ -2,8 +2,9 @@
 
 Same loop structure as the JAX package's Trainer (and the CMGAN
 reference's): loss weights, LR schedule, per-epoch test pass and
-checkpointing, with full-state checkpoints that resume. More than one
-device is not ported yet.
+checkpointing, with full-state checkpoints that resume, and the JAX
+package's JSONL metrics stream (`metrics_path`). More than one device is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from cmgan_torch.config import CMGANConfig
 from cmgan_torch.data.dataset import BatchLoader
 from cmgan_torch.train.state import TrainState, check_supported, init_train_state
 from cmgan_torch.train.steps import make_train_steps, pesq_labels_host
+from cmgan_torch.utils import MetricsLogger
 
 log = logging.getLogger("cmgan_torch.train")
 
@@ -34,7 +36,11 @@ log = logging.getLogger("cmgan_torch.train")
 class Trainer:
     """dtype: compute type of the models' convs and linears (None:
     float32). The default device is the GPU; without CUDA pass
-    device="cpu" explicitly (the CPU runs the kernels' plain versions)."""
+    device="cpu" explicitly (the CPU runs the kernels' plain versions).
+    metrics_path: a JSONL file that gets one record a completed step
+    (`step`, `time`, `epoch`, `gen_loss`, `disc_loss`, `step_seconds`),
+    written where the loop reads the losses back (every log_interval
+    steps and at the epoch's end), as in the JAX package."""
 
     def __init__(
         self,
@@ -44,9 +50,11 @@ class Trainer:
         dtype: torch.dtype | None = None,
         device="cuda",
         state: Optional[TrainState] = None,
+        metrics_path: Optional[str] = None,
     ):
         check_supported(cfg)
         self.cfg = cfg
+        self.metrics_logger = MetricsLogger(metrics_path) if metrics_path else None
         self.train_loader = train_loader
         self.test_loader = test_loader
         steps_per_epoch = max(len(train_loader), 1)
@@ -169,6 +177,7 @@ class Trainer:
         async_mode = self.cfg.train.pesq_label_mode == "host_async"
         pending = {}  # step_in_epoch -> {rows, gen, disc}
         flush_t0 = time.perf_counter()
+        global_step0 = self.state.step  # the step count before the epoch's first step
 
         def flush(step):
             # One blocking fetch for the whole window. Only COMPLETE steps
@@ -187,6 +196,10 @@ class Trainer:
             flush_t0 = time.perf_counter()
             utt = sum(pending[s]["rows"] for s in done)
             rate = utt / elapsed if elapsed > 0 else 0.0
+            if self.metrics_logger is not None:
+                for s, (g, d) in zip(done, fetched):
+                    self.metrics_logger.log(global_step0 + s, epoch=epoch, gen_loss=float(g),
+                                            disc_loss=float(d), step_seconds=elapsed / len(done))
             gen_loss, disc_loss = fetched[-1]
             log.info("epoch %d step %d loss %.5f disc_loss %.5f (%.1f utt/s)",
                      epoch, step, float(gen_loss), float(disc_loss), rate)

@@ -105,11 +105,60 @@ def test_rms_normalize(rng):
 
 
 def test_matmul_dft_not_ported(rng):
-    x = torch.from_numpy(_signal(rng, 1, 1600))
-    with pytest.raises(NotImplementedError):
-        tstft.stft(x, N_FFT, HOP, dft_impl="matmul")
-    with pytest.raises(NotImplementedError):
-        tstft.istft(tstft.stft(x, N_FFT, HOP), N_FFT, HOP, dft_impl="matmul")
+    """The matmul DFT, once refused, is ported: `stft` / `istft` with
+    dft_impl='matmul' against the JAX package's at n_fft 400, and an unknown
+    dft_impl still raises."""
+    x = _signal(rng, 1, 1600)
+    ours = tstft.stft(torch.from_numpy(x), N_FFT, HOP, dft_impl="matmul")
+    ref = jstft.stft(jnp.asarray(x), N_FFT, HOP, dft_impl="matmul")
+    np.testing.assert_allclose(ours.numpy(), _complex_np(ref), atol=1e-5)
+    back = tstft.istft(ours, N_FFT, HOP, dft_impl="matmul")
+    ref_back = jstft.istft(ref, N_FFT, HOP, dft_impl="matmul")
+    np.testing.assert_allclose(back.numpy(), np.asarray(ref_back), atol=1e-5)
+    with pytest.raises(ValueError):
+        tstft.stft(torch.from_numpy(x), N_FFT, HOP, dft_impl="dct")
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("n_fft,hop", [(400, 100), (1200, 300)])
+def test_matmul_dft_matches_jax_and_the_fft(rng, n_fft, hop):
+    """rdft_matmul / irdft_matmul against the JAX package's (the same float32
+    matrices, products summed in another order: 1e-5 absolute), and the 'matmul' STFT round trip against the
+    port's 'fft' (<= 1e-5 relative L2: float32 sums of n_fft products)."""
+    frames = _signal(rng, 3, 7, n_fft)
+    spec = tstft.rdft_matmul(torch.from_numpy(frames), n_fft)
+    np.testing.assert_allclose(spec.numpy(), _complex_np(jstft.rdft_matmul(jnp.asarray(frames), n_fft)),
+                               atol=1e-5)
+    back = tstft.irdft_matmul(spec, n_fft)
+    np.testing.assert_allclose(back.numpy(), np.asarray(jstft.irdft_matmul(jnp.asarray(spec.numpy()), n_fft)),
+                               atol=1e-5)
+    assert _rel(back.numpy(), frames) <= 1e-5
+
+    x = _signal(rng, 2, 12 * hop + 37)
+    by_mm = tstft.stft(torch.from_numpy(x), n_fft, hop, dft_impl="matmul")
+    by_fft = tstft.stft(torch.from_numpy(x), n_fft, hop)
+    assert _rel(by_mm.numpy(), by_fft.numpy()) <= 1e-5
+    y_mm = tstft.istft(by_fft, n_fft, hop, length=x.shape[-1], dft_impl="matmul")
+    y_fft = tstft.istft(by_fft, n_fft, hop, length=x.shape[-1])
+    assert _rel(y_mm.numpy(), y_fft.numpy()) <= 1e-5
+
+
+def test_dft_matrices_are_built_once_and_serve_autograd_after_inference_mode(rng):
+    """Like the window: cached per (size, type, device), made outside
+    inference mode, so a first use under `torch.inference_mode` (streaming)
+    leaves them usable by a training step's autograd."""
+    with torch.inference_mode():
+        tstft.istft(tstft.stft(torch.from_numpy(_signal(rng, 1, 1200)), 1200, 300,
+                               dft_impl="matmul"), 1200, 300, dft_impl="matmul")
+    cpu = torch.device("cpu")
+    assert tstft._rdft_matrices(1200, torch.float32, cpu) is tstft._rdft_matrices(1200, torch.float32, cpu)
+    x = torch.from_numpy(_signal(rng, 2, 1200)).requires_grad_()
+    spec = tstft.stft(x, 1200, 300, dft_impl="matmul")
+    tstft.istft(spec, 1200, 300, dft_impl="matmul").square().sum().backward()
+    assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
 
 
 def test_gradients_through_the_dsp_chain_match_jax(rng):

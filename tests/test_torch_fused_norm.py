@@ -70,6 +70,21 @@ def test_gradient_matches_jax(rng, dtype):
         np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32), **tol)
 
 
+@pytest.mark.parametrize("c", [1, 3, 63, 513, 1024])
+def test_any_width_matches_jax(rng, c):
+    """Widths off the kernel's pair path (odd, or wider than a warp keeps in
+    registers): forward and gradient against the JAX op, fp32."""
+    x, scale, bias = _inputs(rng, (37, c))
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+    ref, vjp = jax.vjp(lambda *a: jfn.fused_layernorm(*a), *map(jnp.asarray, (x, scale, bias)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    out = fn.fused_layernorm(*leaves)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=2e-6, rtol=1e-6)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(cot))
+    for a, b in zip(grads, vjp(jnp.asarray(cot))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-4)
+
+
 def test_gradient_matches_autograd_through_the_plain_version(rng):
     x, scale, bias = map(torch.from_numpy, _inputs(rng, (40, 64)))
     cot = torch.from_numpy(rng.standard_normal((40, 64)).astype(np.float32))
@@ -88,10 +103,15 @@ def test_wrapper_counts_and_rejects(rng):
     assert (fn.launches, fn.plain_calls) == (launches, plain + 1)
     with pytest.raises(TypeError):
         fn.fused_layernorm(x.double(), scale, bias)
-    with pytest.raises(ValueError):  # odd width
-        fn.fused_layernorm(x[:, :63].contiguous(), scale[:63], bias[:63])
-    with pytest.raises(ValueError):  # wider than a warp keeps
-        fn.fused_layernorm(torch.zeros(2, 1024), torch.ones(1024), torch.zeros(1024))
+    # an odd width, and one wider than the kernel's pair path keeps in a
+    # warp's registers, are taken: the plain version against the JAX op
+    for xs, s, b in ((x[:, :63].contiguous(), scale[:63], bias[:63]),
+                     (torch.randn(2, 1024), torch.ones(1024), torch.zeros(1024))):
+        ref = jfn.fused_layernorm(*(jnp.asarray(t.numpy()) for t in (xs, s, b)))
+        np.testing.assert_allclose(fn.fused_layernorm(xs, s, b).numpy(), np.asarray(ref),
+                                   atol=2e-6, rtol=1e-6)
+    with pytest.raises(ValueError):  # no width at all
+        fn.fused_layernorm(x[:, :0], scale[:0], bias[:0])
     with pytest.raises(ValueError):
         fn.fused_layernorm(x, scale[:32], bias)
     with pytest.raises(ValueError):

@@ -43,7 +43,8 @@ def test_port_sources_import_no_jax():
             "cmgan_torch/ops/fused_norm.py", "cmgan_torch/metrics/pesq_torch.py",
             "cmgan_torch/metrics/composite.py", "cmgan_torch/metrics/stoi.py",
             "cmgan_torch/metrics/pesq_ref.py", "cmgan_torch/cli/evaluate.py",
-            "cmgan_torch/streaming.py", "cmgan_torch/cli/serve.py"} <= rel
+            "cmgan_torch/streaming.py", "cmgan_torch/cli/serve.py",
+            "cmgan_torch/utils/__init__.py", "cmgan_torch/utils/profiling.py"} <= rel
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
@@ -58,7 +59,7 @@ def test_importing_the_port_loads_no_jax():
         "import cmgan_torch.models.discriminator, cmgan_torch.cli.evaluate\n"
         "import cmgan_torch.metrics.pesq_torch, cmgan_torch.metrics.composite\n"
         "import cmgan_torch.metrics.stoi, cmgan_torch.metrics.pesq_ref\n"
-        "import cmgan_torch.streaming, cmgan_torch.cli.serve\n"
+        "import cmgan_torch.streaming, cmgan_torch.cli.serve, cmgan_torch.utils\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,)
@@ -122,7 +123,7 @@ def test_kernel_sources_are_in_the_tree_and_nothing_is_built_at_import():
         "subprocess.run = subprocess.Popen = no\n"
         "import cmgan_torch.train, cmgan_torch.cli.train, cmgan_torch.ops, cmgan_torch.metrics\n"
         "import cmgan_torch.cli.evaluate, cmgan_torch.metrics.pesq_torch\n"
-        "import cmgan_torch.streaming, cmgan_torch.cli.serve\n"
+        "import cmgan_torch.streaming, cmgan_torch.cli.serve, cmgan_torch.utils\n"
         "assert 'triton' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -142,3 +143,27 @@ def test_trainer_defaults_to_cuda_and_raises_without_it():
 
         init_train_state(CMGANConfig(model=ModelConfig(num_channels=16, num_tscb_blocks=1,
                                                        dense_depth=1, ndf=4)), 0, 1)
+
+
+@pytest.mark.parametrize("name", ["enhance", "evaluate", "train", "serve"])
+def test_every_cli_pins_tf32_off_before_anything_else(monkeypatch, name):
+    """PyTorch's defaults run cuDNN's float32 convolutions in TF32; each
+    CLI's main() turns TF32 off for convolutions and matmuls first, before
+    it reads its arguments."""
+    import importlib
+
+    cli = importlib.import_module(f"cmgan_torch.cli.{name}")
+
+    class Stop(Exception):
+        pass
+
+    def stop(argv=None):
+        raise Stop
+
+    monkeypatch.setattr(cli, "parse_args", stop)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(Stop):
+        cli.main([])
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False

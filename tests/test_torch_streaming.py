@@ -2,9 +2,9 @@
 tiny width (16 channels, 1 TSCB, dense depth 2, 2 heads) with the same
 numpy-seeded weights and chunks.
 
-The long-context case needs a head of dim 16, the attention kernel's
-width: it runs 16 channels in one head, at a window of 601 frames, where
-the port's 'auto' takes the kernel's plain version and JAX runs 'xla'.
+The long-context case runs 16 channels in one head of dim 16, at a window
+of 601 frames, where the port's 'auto' takes the kernel's plain version
+and JAX runs 'xla'.
 """
 
 import dataclasses
@@ -209,13 +209,18 @@ def test_batcher_slot_exhaustion_and_shape_checks(tiny):
 
 
 def test_window_fn_raises_for_the_matmul_dft(tiny):
-    """dft_impl is threaded through to the STFT, which does not take
-    'matmul' yet."""
-    _, _, cfg, model, _ = tiny
+    """dft_impl is threaded through to the STFT, which now takes 'matmul': a
+    'matmul' stream against the JAX package's 'matmul' stream, and near the
+    port's 'fft' stream (the two DFTs differ by float32 rounding)."""
+    jax_cfg, variables, cfg, model, _ = tiny
     cfg_mm = dataclasses.replace(cfg, dsp=tcfg.DSPConfig(dft_impl="matmul"))
-    s = tstream.StreamingEnhancer(cfg_mm, model, device="cpu", **KW)
-    with pytest.raises(NotImplementedError):
-        s.push(np.zeros(2000, np.float32))
+    jax_mm = dataclasses.replace(jax_cfg, dsp=jcfg.DSPConfig(dft_impl="matmul"))
+    x = _signal(9_500, 6)
+    ours = _run(tstream.StreamingEnhancer(cfg_mm, model, device="cpu", **KW), x)
+    ref = _run(jstream.StreamingEnhancer(jax_mm, variables, **KW), x, blocks=3100)
+    assert ours.shape == x.shape and float(np.sqrt(np.mean(ours**2))) > 1e-4
+    np.testing.assert_allclose(ours, ref, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(ours, _run(_port(tiny, **KW), x), atol=ATOL, rtol=RTOL)
 
 
 def test_long_context_window_takes_the_kernel_and_matches_jax():
