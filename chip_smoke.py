@@ -20,7 +20,9 @@ failure, none falling back to the CPU or to a plain version:
      max_pos = 64 case (most tile pairs clipped) and a t_valid = 1 case;
      head dims 8 (zero-padded to 16), 32 and 64; the tile-by-tile plain
      versions against both kernels at one small shape; a tiny model of 2
-     heads of dim 8 through kernel #1 against 'xla';
+     heads of dim 8 through kernel #1 against 'xla'; the wide kernels
+     (head dims over 64) at D 80, 128 and 256 and a 1-TSCB model of 128
+     channels in 1 head, 'auto' against 'xla' on a 6 s track and one G step;
   3. a 16 s track through Enhancer.enhance(mode='bucket') in fp32: exactly
      4 kernel launches, finite output of the input's length, agreement
      with attention_impl='xla', and the realtime factor;
@@ -32,12 +34,14 @@ failure, none falling back to the CPU or to a plain version:
      at T = 2561, a t_valid < T, a q_offset and a max_pos = 64 case, a
      t_valid = 1 case (dq, dk and dE are zero) and a max_pos = 1536 case
      (a table too long for a block's shared memory); head dims 8, 32 and
-     64, fp32 and bf16; the fp32 kernels' and
+     64, fp32 and bf16; the wide backward at D 80, 128 and 256; the fp32
+     kernels' and
      plain versions' distance from float64; the backward's device time by
      kernel;
   8. the fused LayerNorm kernel against its plain version and against
      F.layer_norm at [1616*321, 64] and [5136*101, 64], and at the widths
-     63, 65, 513 and 1024, fp32 and bf16, forward and gradient;
+     63, 65, 513 and 1024, fp32 and bf16, forward and gradient, with the
+     path its plan picks;
   9. one G step at cut_len 64000, batch 4, fp32: attention_impl='auto'
      (4 forward and 4 backward launches) against 'xla' (none), loss and
      every parameter's gradient; and both against the dense path in float64
@@ -142,6 +146,11 @@ GSTEP_PARAM_REL = 5e-3
 # against float64 the kernels' path may be twice as far as dense fp32, plus this
 GSTEP_TRUTH_SLACK = 1e-4
 TRAIN_BATCH = 4
+# the wide kernels' head dims in [2] / [7], and the model that runs them: 128
+# channels in 1 head (head dim 128), one TSCB; its G step's batch
+WIDE_HEAD_DIMS = (80, 128, 256)
+WIDE_MODEL = dict(num_channels=128, attn_heads=1, num_tscb_blocks=1)
+WIDE_STEP_BATCH = 2
 FLASH_CUT, DEFAULT_CUT = 64000, 32000   # 641 and 321 frames
 EVAL_SECONDS = (2, 3, 4, 5, 6, 8, 12, 20)   # [13] the test dir's track lengths
 EVAL_EXACT = ("p3.wav", "p7.wav")           # [13] --exact on the 5 s and 20 s tracks
@@ -392,6 +401,24 @@ def device_breakdown(fn, wall_ms: float, top: int = 8, tag: str = "[3]") -> dict
     return {e.key: e.self_device_time_total / 1e3 for e in kernels}
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of fn() over reps calls, summed over every kernel it
+    launches (torch.profiler), after one warm-up call: the kernels' own time,
+    without the host's time to launch them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def rounded(values, digits: int = 6) -> list:
     return [round(float(v), digits) for v in values]
 
@@ -516,8 +543,9 @@ def check_against_float64(seed=13):
         raise AssertionError("the fp32 kernels are further from float64 than allowed")
 
 
-def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3):
-    """[7] device time of each kernel of one backward launch at the training shape."""
+def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3, d=16):
+    """[7] device time of each kernel of one backward launch (at the training
+    shape, or at head dim d)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -526,9 +554,9 @@ def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3):
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(14)
-    q, k, v, cot = ((torch.randn(g, t, 16, generator=gen, device="cuda") * s).to(dtype)
-                    for s in (0.25, 1.0, 1.0, 1.0))
-    table = torch.randn(2 * max_pos + 1, 16, generator=gen, device="cuda").to(dtype)
+    q, k, v, cot = ((torch.randn(g, t, d, generator=gen, device="cuda") * s).to(dtype)
+                    for s in (d ** -0.5, 1.0, 1.0, 1.0))
+    table = torch.randn(2 * max_pos + 1, d, generator=gen, device="cuda").to(dtype)
     out, lse = fa._launch_forward(q, k, v, table, max_pos, t, 0, True)
 
     def run():
@@ -542,8 +570,9 @@ def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3):
         torch.cuda.synchronize()
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and "flash_rel" in e.key:
-            log(f"[7] backward {dtype_name} G {g} T {t}: {e.self_device_time_total / 1e3 / reps:.3f} ms "
-                f"a launch, {e.key[e.key.index('flash_rel'):][:44]}")
+            log(f"[7] backward {dtype_name} G {g} T {t} D {d}: "
+                f"{e.self_device_time_total / 1e3 / reps:.3f} ms a launch, "
+                f"{e.key[e.key.index('flash_rel'):][:44]}")
 
 
 def check_layernorm_case(dtype_name, n, seed, c=64, eps=1e-5):
@@ -592,11 +621,16 @@ def check_layernorm_case(dtype_name, n, seed, c=64, eps=1e-5):
     # the one PyTorch call for the same function, fp32 statistics inside
     sc, bi = scale.to(dtype), bias.to(dtype)
     library_ms = cuda_ms(lambda: F.layer_norm(x, (c,), sc, bi, eps), reps=20)
+    # the kernels alone: at the narrow widths a call's host time is longer
+    kernel_device_ms = device_ms(lambda: fn.fused_layernorm(x, scale, bias, eps), reps=20)
+    library_device_ms = device_ms(lambda: F.layer_norm(x, (c,), sc, bi, eps), reps=20)
     es = torch.finfo(dtype).bits // 8
     b_ms, b_by = bound_ms(8 * n * c, 2 * n * c * es + 8 * c, dtype_name)
-    case = {"dtype": dtype_name, "N": n, "C": c, "max_abs_err": err, "max_abs_err_vs_library": err_lib,
+    case = {"dtype": dtype_name, "N": n, "C": c, "plan": fn.plan(c, es, aligned=True).__dict__,
+            "max_abs_err": err, "max_abs_err_vs_library": err_lib,
             "grad_err_of_ref_max": grad_err, "tol": [atol, rtol], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": library_ms, "device_ms": kernel_device_ms,
+            "library_device_ms": library_device_ms, "bound_ms": b_ms, "bound_by": b_by}
     log(f"[8] layernorm kernel {json.dumps(case)}")
     if not ok:
         raise AssertionError(f"layernorm kernel disagrees: {case}")
@@ -615,8 +649,8 @@ def ptxas_usage(nvcc_log: str):
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             mangled = entry.group(1)
-            base = re.search(r"\d(flash_rel_(?:fwd|bwd|delta|sum_partials)|layernorm_fwd(?:_any)?)[IE]",
-                             mangled)
+            base = re.search(r"\d(flash_rel_(?:wide_(?:fwd|bwd_q|bwd_k|delta)|fwd|bwd|delta|sum_partials)"
+                             r"|layernorm_(?:regs|span|long))[IE]", mangled)
             dtype = "bf16" if "bfloat16" in mangled else "fp32"
             ints = re.findall(r"Li(\d+)E", mangled)
             name = f"{base.group(1) if base else mangled[-48:]}<{', '.join([dtype, *ints])}>"
@@ -642,10 +676,10 @@ def build_all():
     from cmgan_torch.ops import fused_norm
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:  # one nvcc a source, all started together
+    with ThreadPoolExecutor(max_workers=5) as pool:  # one nvcc a source, all started together
         pesq_build = pool.submit(pesq_native.build)
         futures = [pool.submit(_build.build, name)
-                   for name in (fa.KERNEL, fa.BWD_KERNEL, fused_norm.KERNEL)]
+                   for name in (fa.KERNEL, fa.BWD_KERNEL, fa.WIDE_KERNEL, fused_norm.KERNEL)]
     failed = [str(f.exception()) for f in futures if f.exception() is not None]
     if failed:  # every source's errors, not only the first's
         raise RuntimeError("\n".join(failed))
@@ -663,6 +697,12 @@ def build_all():
                 f" partial rows at G 1616, T 641 (1: dE in global memory; "
                 f"{bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 0, 1536)} B at max_pos "
                 f"1536), dk/dv kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 1, 512)} B")
+    wide = fa._wide_kernel()
+    for hd in WIDE_HEAD_DIMS:
+        log(f"[1] wide kernels' dynamic shared memory a block, head dim {hd} (either type): "
+            f"forward {wide.cmgan_flash_rel_attention_fwd_smem(0, hd)} B; backward dq/dE kernel "
+            f"{wide.cmgan_flash_rel_attention_bwd_smem(0, hd, 0, 512)} B, dk/dv kernel "
+            f"{wide.cmgan_flash_rel_attention_bwd_smem(0, hd, 1, 512)} B")
     log(f"[1] built {os.path.relpath(pesq_build.result(), ROOT)} (host PESQ scorer, g++); "
         f"all builds {time.perf_counter() - t0:.2f} s")
 
@@ -681,6 +721,82 @@ def backward_head_dim_cases():
     its block-wide buffer does not fit)."""
     return [check_backward_case(dt, 404, 641, 641, 641, 0, seed=30 + d, d=d)
             for d in (8, 32, 64) for dt in ("float32", "bfloat16")]
+
+
+def wide_head_dim_cases():
+    """[2] kernel #1's wide path (head dims over 64) at D 80, 128 and 256, fp32
+    and bf16, at the 4 s bucket's shape, and at D 128 with a query offset and
+    masked keys."""
+    cases = [check_kernel_case(dt, 404, 641, 641, 641, 0, seed=40 + d, d=d)
+             for d in WIDE_HEAD_DIMS for dt in ("float32", "bfloat16")]
+    cases.append(check_kernel_case("float32", 404, 320, 641, 600, 128, seed=41, d=128))
+    return cases
+
+
+def wide_summary(cases):
+    """The kernels line's numbers of a wide kernel: its fp32 case at D 128."""
+    main = next(c for c in cases if c["D"] == 128 and c["dtype"] == "float32")
+    return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")} | {
+        "library_ms": None}
+
+
+def wide_backward_cases():
+    """[7] kernel #2's wide path at D 80, 128 and 256, fp32 and bf16, and at D
+    128 with a query offset and masked keys."""
+    cases = [check_backward_case(dt, 404, 641, 641, 641, 0, seed=50 + d, d=d)
+             for d in WIDE_HEAD_DIMS for dt in ("float32", "bfloat16")]
+    cases.append(check_backward_case("float32", 404, 320, 641, 600, 128, seed=51, d=128))
+    return cases
+
+
+def wide_head_model():
+    """[2] a 1-TSCB model of 128 channels in 1 head (head dim 128, the wide
+    kernels) on a 6 s track in bucket mode (961 frames): 'auto' against 'xla'
+    and its launches; then one G step of it at cut_len 64000 (641 frames),
+    'auto' against 'xla': loss and every gradient, one forward and one
+    backward launch. Returns the enhancement's and the step's launches."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch.config import CMGANConfig, ModelConfig
+    from cmgan_torch.inference import Enhancer
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.train import init_train_state
+
+    track = synthetic_track(6 * SR, seed=22)
+    auto = Enhancer(CMGANConfig(model=ModelConfig(**WIDE_MODEL)), device="cuda", seed=2)
+    xla = Enhancer(CMGANConfig(model=ModelConfig(**WIDE_MODEL, attention_impl="xla")),
+                   auto.model.state_dict(), device="cuda")
+    fa.launches = fa.backward_launches = 0
+    y = auto.enhance(track, mode="bucket")
+    enhance_launches = fa.launches
+    err = rel_l2(y, xla.enhance(track, mode="bucket"))
+    log(f"[2] wide model, {WIDE_MODEL}, 6 s bucket: launches {enhance_launches}, 'auto' "
+        f"against 'xla' rel L2 {err:.3e} (tol {FLASH_VS_XLA_REL})")
+    del auto, xla
+    if enhance_launches != 1 or not np.all(np.isfinite(y)) or not err <= FLASH_VS_XLA_REL:
+        raise AssertionError("the 128-channel 1-head model missed the wide kernel or disagrees")
+
+    clean, noisy = (torch.from_numpy(a[:WIDE_STEP_BATCH]).cuda()
+                    for a in train_batch(FLASH_CUT, seed=42))
+    fresh = init_train_state(train_config(FLASH_CUT, model=WIDE_MODEL), seed=0,
+                             steps_per_epoch=1, device="cuda")
+    weights = ({k: v.clone() for k, v in fresh.gen.state_dict().items()},
+               {k: v.clone() for k, v in fresh.disc.state_dict().items()})
+    del fresh
+    loss_f, g_f, _, fwd_f, bwd_f, _ = g_step_gradients("auto", clean, noisy, weights,
+                                                       model=WIDE_MODEL)
+    loss_d, g_d, _, fwd_d, bwd_d, _ = g_step_gradients("xla", clean, noisy, weights,
+                                                       model=WIDE_MODEL)
+    whole = whole_rel_l2(g_f, g_d)
+    loss_rel = abs(loss_f - loss_d) / abs(loss_d)
+    log(f"[2] wide model G step, cut_len {FLASH_CUT}, batch {WIDE_STEP_BATCH}: launches "
+        f"{fwd_f} fwd / {bwd_f} bwd ('xla' {fwd_d} / {bwd_d}); loss rel {loss_rel:.3e}, all "
+        f"gradients rel L2 {whole:.3e} (tol {GSTEP_REL})")
+    if (fwd_f, bwd_f, fwd_d, bwd_d) != (1, 1, 0, 0) or not (loss_rel <= GSTEP_REL
+                                                             and whole <= GSTEP_REL):
+        raise AssertionError("the wide model's G step missed the wide kernels or disagrees")
+    return enhance_launches, fwd_f, bwd_f
 
 
 def two_heads_of_dim_8():
@@ -715,13 +831,13 @@ def layernorm_width_cases():
             for c in (63, 65, 513, 1024) for dt in ("float32", "bfloat16")]
 
 
-def train_config(cut_len: int, attention_impl: str = "auto", mode: str = "host"):
+def train_config(cut_len: int, attention_impl: str = "auto", mode: str = "host", model=None):
     import dataclasses
 
     from cmgan_torch.config import CMGANConfig, ModelConfig, TrainConfig
 
     return CMGANConfig(
-        model=ModelConfig(attention_impl=attention_impl),
+        model=ModelConfig(attention_impl=attention_impl, **(model or {})),
         train=dataclasses.replace(TrainConfig(), batch_size=TRAIN_BATCH, cut_len=cut_len,
                                   pesq_label_mode=mode),
     )
@@ -750,9 +866,10 @@ def float_means_double():
         torch.Tensor.float = widen
 
 
-def g_step_gradients(impl, clean, noisy, weights, double=False, dropout=True):
+def g_step_gradients(impl, clean, noisy, weights, double=False, dropout=True, model=None):
     """The G step's loss and generator gradients at cut_len 64000 from the
-    given weights; returns (loss, gradients as float64, parameter names,
+    given weights (of the published model, or of ModelConfig(**model));
+    returns (loss, gradients as float64, parameter names,
     forward launches, backward launches, peak GiB)."""
     import torch
 
@@ -761,7 +878,7 @@ def g_step_gradients(impl, clean, noisy, weights, double=False, dropout=True):
     from cmgan_torch.train import steps as tsteps
     from cmgan_torch.train.state import rng_scope
 
-    cfg = train_config(FLASH_CUT, impl)
+    cfg = train_config(FLASH_CUT, impl, model=model)
     state = init_train_state(cfg, seed=0, steps_per_epoch=1, device="cuda")
     state.gen.load_state_dict(weights[0])
     state.disc.load_state_dict(weights[1])
@@ -1871,6 +1988,8 @@ def main() -> int:
     check_tiled_against_kernels()
     main_case = cases[1]  # fp32 at the 16 s segment, the main path's shape
     two_heads_of_dim_8()
+    wide_cases = wide_head_dim_cases()
+    wide_launches, wide_step_fwd, wide_step_bwd = wide_head_model()
 
     lap("2 forward kernel")
 
@@ -1964,6 +2083,9 @@ def main() -> int:
         bwd_cases.append(check_backward_case(dt, 32, 2561, 2561, 2561, 0, seed=16, chunk=16,
                                              max_pos=1536))
     bwd_main = bwd_cases[0]  # fp32 at the training shape
+    wide_bwd_cases = wide_backward_cases()
+    for dt in ("float32", "bfloat16"):
+        backward_profile(dt, g=404, d=128)
     check_against_float64()
     for dt in ("float32", "bfloat16"):
         backward_profile(dt)
@@ -2047,6 +2169,25 @@ def main() -> int:
         "bound_by": bwd_main["bound_by"],
         "library_ms": None,
         "cases": bwd_cases,
+    }, {
+        "name": "flash_rel_attention_wide",
+        "route": "cuda",
+        "source": "cmgan_torch/ops/csrc/flash_rel_attention_wide.cu",
+        "replaces": "cmgan_tpu/ops/flash_attention.py:91",
+        "path": f"head dims 65 to 256; the model {WIDE_MODEL} on a 6 s track",
+        "launches": wide_launches,
+        "launches_g_step": wide_step_fwd,
+        **wide_summary(wide_cases),
+        "cases": wide_cases,
+    }, {
+        "name": "flash_rel_attention_wide_bwd",
+        "route": "cuda",
+        "source": "cmgan_torch/ops/csrc/flash_rel_attention_wide.cu",
+        "replaces": "cmgan_tpu/ops/flash_attention.py:250",
+        "path": f"head dims 65 to 256; one G step of the model {WIDE_MODEL}",
+        "launches": wide_step_bwd,
+        **wide_summary(wide_bwd_cases),
+        "cases": wide_bwd_cases,
     }, {
         "name": "fused_layernorm",
         "route": "cuda",

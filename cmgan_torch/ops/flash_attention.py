@@ -22,11 +22,15 @@ tensors it launches the kernels, through a `torch.autograd.Function`
 when a gradient is wanted, or raises. `reference_attention_grads` is the
 backward's plain version.
 
-The kernels are built for head dims of 16, 32 and 64 (`KERNEL_HEAD_DIMS`).
-A narrower head is zero-padded on its last axis up to the next of them:
-zero columns add nothing to q.k or q.E, q carries the softmax scale of
-the true head dim, and the padded columns of the output and of every
-gradient are sliced away, so the result is exact. A head wider than 64
+The tensor-core kernels are built for head dims of 16, 32 and 64
+(`KERNEL_HEAD_DIMS`). A narrower head is zero-padded on its last axis up
+to the next of them: zero columns add nothing to q.k or q.E, q carries
+the softmax scale of the true head dim, and the padded columns of the
+output and of every gradient are sliced away, so the result is exact.
+A head of 65 to `MAX_HEAD_DIM` (256) takes the wide kernels
+(`csrc/flash_rel_attention_wide.cu`, the same C entries): they walk the
+head dim in chunks of 32 columns staged as fp32 and zero-fill the last
+chunk in shared memory, so any such width runs unpadded. A wider head
 raises on CUDA.
 """
 
@@ -40,10 +44,13 @@ import torch.nn.functional as F
 
 from cmgan_torch.ops import _build
 
-# head dims the kernels are instantiated for (csrc/flash_rel_common.cuh)
+# head dims the tensor-core kernels are instantiated for (csrc/flash_rel_common.cuh)
 KERNEL_HEAD_DIMS = (16, 32, 64)
+# the widest head the wide kernels take (csrc/flash_rel_attention_wide.cu)
+MAX_HEAD_DIM = 256
 KERNEL = "flash_rel_attention"
 BWD_KERNEL = "flash_rel_attention_bwd"
+WIDE_KERNEL = "flash_rel_attention_wide"
 
 # Kernel launches; the wrapper adds one per launch. Callers reset to 0.
 launches = 0
@@ -212,11 +219,20 @@ def tiled_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offs
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dtable.to(rel_table.dtype)
 
 
-def _bind(name: str, entry: str, argtypes):
+_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def _bind(name: str, forward: bool, backward: bool):
     lib = _build.load(name)
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    if forward:
+        lib.cmgan_flash_rel_attention_fwd.argtypes = _FWD_ARGS
+        lib.cmgan_flash_rel_attention_fwd.restype = ctypes.c_int
+    if backward:
+        lib.cmgan_flash_rel_attention_bwd.argtypes = _BWD_ARGS
+        lib.cmgan_flash_rel_attention_bwd.restype = ctypes.c_int
+        rows = lib.cmgan_flash_rel_attention_bwd_partial_rows
+        rows.argtypes, rows.restype = [ctypes.c_int] * 5, ctypes.c_int
     lib.cmgan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cmgan_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -224,17 +240,26 @@ def _bind(name: str, entry: str, argtypes):
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    return _bind(KERNEL, "cmgan_flash_rel_attention_fwd",
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    return _bind(KERNEL, forward=True, backward=False)
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    lib = _bind(BWD_KERNEL, "cmgan_flash_rel_attention_bwd",
-                [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-    rows = lib.cmgan_flash_rel_attention_bwd_partial_rows
-    rows.argtypes, rows.restype = [ctypes.c_int] * 5, ctypes.c_int
-    return lib
+    return _bind(BWD_KERNEL, forward=False, backward=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_kernel():
+    """The wide kernels' library: forward and backward, the same entries."""
+    return _bind(WIDE_KERNEL, forward=True, backward=True)
+
+
+def _fwd_lib(d: int):
+    return _wide_kernel() if wide_head_dim(d) else _kernel()
+
+
+def _bwd_lib(d: int):
+    return _wide_kernel() if wide_head_dim(d) else _bwd_kernel()
 
 
 def _raise_on(lib, rc: int, what: str):
@@ -277,8 +302,8 @@ def _check(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int):
 def _launch_forward(q, k, v, rel_table, max_pos, t_valid, q_offset, want_lse: bool):
     """One forward launch; returns (out, lse or None)."""
     global launches
-    lib = _kernel()
     g, tq, d = q.shape
+    lib = _fwd_lib(d)
     out = torch.empty_like(q)
     lse = torch.empty(g, tq, dtype=torch.float32, device=q.device) if want_lse else None
     with torch.cuda.device(q.device):
@@ -297,8 +322,8 @@ def _launch_forward(q, k, v, rel_table, max_pos, t_valid, q_offset, want_lse: bo
 def _launch_backward(q, k, v, rel_table, out, lse, grad_out, max_pos, t_valid, q_offset):
     """One backward launch (delta, then the kernels); returns (dq, dk, dv, dtable)."""
     global backward_launches
-    lib = _bwd_kernel()
     g, tq, d = q.shape
+    lib = _bwd_lib(d)
     bf16 = int(q.dtype == torch.bfloat16)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(g, tq, dtype=torch.float32, device=q.device)
@@ -306,7 +331,8 @@ def _launch_backward(q, k, v, rel_table, out, lse, grad_out, max_pos, t_valid, q
     with torch.cuda.device(q.device):
         # the table's gradient arrives as rows of partial sums, one a block of the
         # kernel that sums it (or one in all for a table too long for a block's
-        # shared memory); the library says how many, and adds them into dtable
+        # shared memory; none for the wide kernels, which add into dtable by
+        # atomics); the library says how many, and adds them into dtable
         rows = lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, d, g, tq, max_pos)
         if rows < 0:
             _raise_on(lib, -rows, "flash_rel_attention_bwd")
@@ -343,13 +369,19 @@ class _FlashRelAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def wide_head_dim(d: int) -> bool:
+    """Whether a head of dim d takes the wide kernels (64 < d <= MAX_HEAD_DIM)."""
+    return d > KERNEL_HEAD_DIMS[-1]
+
+
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run a head of dim d at: the least of
-    KERNEL_HEAD_DIMS that holds it. Raises for a head wider than all."""
-    for width in KERNEL_HEAD_DIMS:
-        if d <= width:
-            return width
-    raise ValueError(f"the CUDA kernels take a head dim of at most {KERNEL_HEAD_DIMS[-1]}; got {d}")
+    KERNEL_HEAD_DIMS that holds it (the tensor-core kernels), or d itself
+    from 65 to MAX_HEAD_DIM (the wide kernels take any width). Raises for a
+    head wider than MAX_HEAD_DIM."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take a head dim of at most {MAX_HEAD_DIM}; got {d}")
+    return next((width for width in KERNEL_HEAD_DIMS if d <= width), d)
 
 
 def flash_rel_attention_at(q, k, v, rel_table, max_pos: int,
@@ -357,7 +389,7 @@ def flash_rel_attention_at(q, k, v, rel_table, max_pos: int,
     """Fused attention with Shaw relative positions at a query offset.
 
     q: [G, Tq, D]; k, v: [G, Tk, D]; rel_table: [2*max_pos+1, D]; on CUDA
-    D <= 64 (`kernel_head_dim`).
+    D <= MAX_HEAD_DIM (`kernel_head_dim`).
     q carries the softmax scale, the table is unscaled. Query i sits at
     global position i + q_offset (q_offset + Tq <= Tk). Keys at or past
     t_valid (default Tk) are masked. Returns [G, Tq, D] in q's dtype,

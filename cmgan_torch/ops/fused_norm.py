@@ -4,9 +4,13 @@
 statistics in the E[x^2] - E[x]^2 form, eps inside the rsqrt and an
 fp32 affine, and returns x's dtype (fp32 or bf16), for any width C >= 1.
 For CUDA tensors the forward is the hand-written kernel in
-`csrc/fused_layernorm.cu` (one warp a row; x read once and y written
-once for an even C up to 512, two passes over the row otherwise) or it
-raises; for CPU tensors it is the plain version, `_ln_reference`. The
+`csrc/fused_layernorm.cu`, on the path `plan` picks: rows held in
+registers, 16 bytes a lane and load, where rows are whole 16-byte words
+of at most 4 KB at aligned addresses (C = 64: 8 lanes a row in bf16, 16
+in fp32); otherwise a block's run of rows copied through shared memory
+in 16-byte words; rows wider than 48 KB a block each, in two passes. It
+raises rather than fall back. For CPU tensors it is the plain version,
+`_ln_reference`. The
 backward is the plain closed formula on either device, as in the JAX
 package.
 
@@ -19,6 +23,7 @@ its place is decided by its measured time against `F.layer_norm`
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -31,6 +36,46 @@ KERNEL = "fused_layernorm"
 launches = 0
 # Calls the wrapper served with the plain version (CPU tensors).
 plain_calls = 0
+
+REGS_MAX_BYTES = 4096         # the widest row held in registers (32 lanes x 8 words)
+SPAN_MAX_BYTES = 48 * 1024    # a span block's shared memory (csrc/fused_layernorm.cu)
+SPAN_SLACK = 32               # ... of which the two ends' 16-byte lines may take this
+# the rows a span block owns: 8 KB of them, at least 8 rows (measured on the
+# H100 at C 63, 65 and 513: larger spans leave under one wave of blocks,
+# whose loads, sums and stores then cannot overlap; PERF.md)
+SPAN_TARGET_BYTES, SPAN_MIN_ROWS = 8 * 1024, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel reads a row. path 'regs': `lanes` lanes share a row,
+    each holding `chunks` 16-byte words of it, for `rows` rows at once;
+    'span': a block owns `rows` rows, staged in shared memory; 'long': a
+    block a row, two passes."""
+
+    path: str
+    lanes: int = 0
+    chunks: int = 0
+    rows: int = 1
+
+
+PATH_CODES = {"regs": 0, "span": 1, "long": 2}
+
+
+def plan(c: int, itemsize: int, aligned: bool) -> Plan:
+    """The kernel's path for rows of c elements of itemsize bytes; aligned:
+    x, y, scale and bias all start at 16-byte boundaries."""
+    row_bytes = c * itemsize
+    if aligned and row_bytes % 16 == 0 and row_bytes <= REGS_MAX_BYTES:
+        words = row_bytes // 16
+        if words <= 32:  # one word a lane, a power of two of lanes a row, 8 rows at once
+            return Plan("regs", lanes=1 << (words - 1).bit_length(), chunks=1, rows=8)
+        chunks = 2 if words <= 64 else 4 if words <= 128 else 8
+        return Plan("regs", lanes=32, chunks=chunks, rows=8 // chunks)
+    room = (SPAN_MAX_BYTES - SPAN_SLACK) // row_bytes  # rows a span block can hold
+    if room >= 1:
+        return Plan("span", rows=min(room, max(SPAN_MIN_ROWS, SPAN_TARGET_BYTES // row_bytes)))
+    return Plan("long")
 
 
 def _stats(x, eps: float):
@@ -50,8 +95,8 @@ def _ln_reference(x, scale, bias, eps: float):
 def _kernel():
     lib = _build.load(KERNEL)
     fn = lib.cmgan_fused_layernorm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.cmgan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cmgan_cuda_error_string.restype = ctypes.c_char_p
@@ -86,11 +131,14 @@ def _forward(x, scale, bias, eps: float):
     c = x.shape[-1]
     scale32, bias32 = scale.float().contiguous(), bias.float().contiguous()
     y = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, scale32, bias32))
+    p = plan(c, x.element_size(), aligned)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.cmgan_fused_layernorm_fwd(
             x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), y.data_ptr(),
-            x.numel() // c, c, eps, int(x.dtype == torch.bfloat16), stream,
+            x.numel() // c, c, eps, int(x.dtype == torch.bfloat16),
+            PATH_CODES[p.path], p.lanes, p.chunks, p.rows, stream,
         )
     if rc != 0:
         msg = lib.cmgan_cuda_error_string(rc).decode()
@@ -128,4 +176,6 @@ def fused_layernorm(x, scale, bias, eps: float = 1e-5):
     in x, scale and bias.
     """
     _check(x, scale, bias)
-    return _FusedLayerNorm.apply(x, scale, bias, float(eps))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return _FusedLayerNorm.apply(x, scale, bias, float(eps))
+    return _forward(x, scale, bias, float(eps))

@@ -127,3 +127,57 @@ def test_models_keep_the_plain_layernorm():
 
     assert "fused_layernorm" not in inspect.getsource(conformer)
     assert "fused_layernorm" not in inspect.getsource(layers)
+
+
+# (C, dtype, the path the kernel's plan picks for aligned rows)
+PLAN_CASES = [
+    (64, "float32", "regs"),      # 16 lanes a row, 2 rows a warp
+    (64, "bfloat16", "regs"),     # 8 lanes a row, 4 rows a warp
+    (48, "float32", "regs"),      # 12 words a row on 16 lanes
+    (4, "float32", "regs"),       # one word a row, one lane
+    (256, "float32", "regs"),     # a warp a row, 2 words a lane
+    (1024, "bfloat16", "regs"),   # a warp a row, 4 words a lane
+    (65, "bfloat16", "span"),     # odd
+    (2048, "float32", "span"),    # 8 KB rows: wider than registers keep
+    (12300, "float32", "long"),   # wider than a span block's shared memory
+]
+
+
+@pytest.mark.parametrize("c,dtype,path", PLAN_CASES, ids=[f"{c}-{d}" for c, d, _ in PLAN_CASES])
+def test_plain_version_matches_jax_on_each_path(rng, c, dtype, path):
+    """The width picks the kernel's path (`plan`); the plain version, which
+    stands in for it on the CPU, against the JAX op at that width, forward."""
+    tdt = getattr(torch, dtype)
+    p = fn.plan(c, torch.finfo(tdt).bits // 8, aligned=True)
+    assert p.path == path
+    if path == "regs":  # the words of a row fit the lanes that share it
+        assert p.lanes * p.chunks * 16 >= c * torch.finfo(tdt).bits // 8 and p.chunks * p.rows == 8
+    x, scale, bias = _inputs(rng, (3, c))
+    ours = fn.fused_layernorm(torch.from_numpy(x).to(tdt), torch.from_numpy(scale),
+                              torch.from_numpy(bias))
+    ref = jfn.fused_layernorm(jnp.asarray(x).astype(getattr(jnp, dtype)), jnp.asarray(scale),
+                              jnp.asarray(bias))
+    tol = dict(atol=2e-6, rtol=1e-6) if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32), **tol)
+
+
+def test_every_plan_is_built():
+    """Each (lanes, words a lane, rows) the plan can pick for a row of 16-byte
+    words has its instantiation in csrc/fused_layernorm.cu, and unaligned or
+    ragged rows leave the register path."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(fn.__file__), "csrc", "fused_layernorm.cu")).read()
+    built = {tuple(map(int, m)) for m in re.findall(r"launch_regs<T, (\d+), (\d+), (\d+)>", src)}
+    picked = set()
+    for itemsize in (4, 2):
+        for c in range(16 // itemsize, fn.REGS_MAX_BYTES // itemsize + 1, 16 // itemsize):
+            p = fn.plan(c, itemsize, aligned=True)
+            assert p.path == "regs"
+            picked.add((p.lanes, p.chunks, p.rows))
+    assert picked == built
+    assert fn.plan(64, 4, aligned=False).path == "span"
+    assert fn.plan(63, 4, aligned=True).path == "span"
+    assert fn.plan(fn.REGS_MAX_BYTES // 4 + 4, 4, aligned=True).path == "span"
+    assert fn.plan((fn.SPAN_MAX_BYTES - fn.SPAN_SLACK) // 4 + 1, 4, aligned=True).path == "long"

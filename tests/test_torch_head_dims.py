@@ -2,10 +2,11 @@
 against the JAX package's Pallas kernels in interpret mode (which take any
 head dim).
 
-The wrapper's plain version takes any D. On CUDA the kernels are built for
-D 16, 32 and 64, and a narrower head is zero-padded to the next of them:
-the padding is checked here to leave the function and its gradients as
-they are. Tolerances as in test_torch_attention.py and
+The wrapper's plain version takes any D. On CUDA the tensor-core kernels
+are built for D 16, 32 and 64, and a narrower head is zero-padded to the
+next of them: the padding is checked here to leave the function and its
+gradients as they are. D 65 to 256 takes the wide kernels unpadded; a
+wider head is refused. Tolerances as in test_torch_attention.py and
 test_torch_attention_grad.py: atol 2e-5 / rtol 1e-4, the table's gradient
 1e-5 of its largest entry.
 """
@@ -42,7 +43,8 @@ def _assert_grads(ours, ref):
                                err_msg="dE")
 
 
-@pytest.mark.parametrize("d,max_pos", [(8, 512), (8, 64), (32, 512), (24, 64)])
+@pytest.mark.parametrize("d,max_pos", [(8, 512), (8, 64), (32, 512), (24, 64),
+                                       (80, 48), (128, 48), (200, 32)])
 def test_wrapper_any_head_dim_matches_jax_kernel(rng, d, max_pos):
     """Forward and gradients of the wrapper (its plain version on the CPU)
     against the JAX kernel and its VJP at the same D."""
@@ -80,10 +82,13 @@ def test_zero_padding_to_the_kernels_width_is_exact(rng, d):
 
 
 def test_kernel_head_dim_and_what_the_kernels_refuse():
-    assert [fa.kernel_head_dim(d) for d in (1, 16, 17, 32, 33, 48, 64)] == [
-        16, 16, 32, 32, 64, 64, 64]
-    with pytest.raises(ValueError, match="at most 64"):
-        fa.kernel_head_dim(65)
+    dims = (1, 16, 17, 32, 33, 48, 64, 65, 80, 128, 200, 256)
+    assert [fa.kernel_head_dim(d) for d in dims] == [
+        16, 16, 32, 32, 64, 64, 64, 65, 80, 128, 200, 256]
+    # 65 to 256 go to the wide kernels, unpadded; 64 and below to the tensor-core ones
+    assert [fa.wide_head_dim(d) for d in dims] == [False] * 7 + [True] * 5
+    with pytest.raises(ValueError, match="at most 256"):
+        fa.kernel_head_dim(257)
 
 
 def _port_attention(variables, dim, heads, impl):
@@ -100,11 +105,10 @@ def _port_attention(variables, dim, heads, impl):
     return mod.train()
 
 
-def test_relpos_attention_two_heads_of_dim_8_flash_matches_jax(rng):
-    """RelPosAttention(16 channels, 2 heads of dim 8, 'flash'): output and
-    the gradients of x and of every parameter against the JAX module with
-    'flash' (its Pallas forward and backward in interpret mode)."""
-    b, n, dim, heads = 2, 150, 16, 2
+def _relpos_attention_flash_matches_jax(rng, b, n, dim, heads):
+    """RelPosAttention with 'flash': output and the gradients of x and of
+    every parameter against the JAX module with 'flash' (its Pallas forward
+    and backward in interpret mode)."""
     x = rng.standard_normal((b, n, dim)).astype(np.float32) * 0.5
     cot = rng.standard_normal((b, n, dim)).astype(np.float32)
     jmod = JaxRelPosAttention(dim, heads=heads, dim_head=dim // heads, attention_impl="flash")
@@ -135,3 +139,13 @@ def test_relpos_attention_two_heads_of_dim_8_flash_matches_jax(rng):
     for name, r in ref.items():
         np.testing.assert_allclose(got[name], r, atol=ATOL * max(1.0, np.abs(r).max()),
                                    rtol=RTOL, err_msg=name)
+
+
+def test_relpos_attention_two_heads_of_dim_8_flash_matches_jax(rng):
+    """16 channels in 2 heads of dim 8: a head the tensor-core kernels pad."""
+    _relpos_attention_flash_matches_jax(rng, 2, 150, 16, 2)
+
+
+def test_relpos_attention_one_head_of_dim_128_flash_matches_jax(rng):
+    """128 channels in 1 head: a head the wide kernels take."""
+    _relpos_attention_flash_matches_jax(rng, 1, 140, 128, 1)
