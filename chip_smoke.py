@@ -21,8 +21,10 @@ failure, none falling back to the CPU or to a plain version:
      head dims 8 (zero-padded to 16), 32 and 64; the tile-by-tile plain
      versions against both kernels at one small shape; a tiny model of 2
      heads of dim 8 through kernel #1 against 'xla'; the wide kernels
-     (head dims over 64) at D 80, 128 and 256 and a 1-TSCB model of 128
-     channels in 1 head, 'auto' against 'xla' on a 6 s track and one G step;
+     (head dims over 64) at D 80, 100, 128, 256 and 320, their walk's plain
+     versions against them, the wide forward at D 64 beside kernel #1 (for
+     the record), a 1-TSCB model of 128 channels in 1 head, 'auto' against
+     'xla' on a 6 s track and one G step, and one of 320 channels in 1 head;
   3. a 16 s track through Enhancer.enhance(mode='bucket') in fp32: exactly
      4 kernel launches, finite output of the input's length, agreement
      with attention_impl='xla', and the realtime factor;
@@ -34,7 +36,8 @@ failure, none falling back to the CPU or to a plain version:
      at T = 2561, a t_valid < T, a q_offset and a max_pos = 64 case, a
      t_valid = 1 case (dq, dk and dE are zero) and a max_pos = 1536 case
      (a table too long for a block's shared memory); head dims 8, 32 and
-     64, fp32 and bf16; the wide backward at D 80, 128 and 256; the fp32
+     64, fp32 and bf16; the wide backward at D 80, 100, 128, 256 and 320,
+     and its kernels' device time with and without the dE atomics; the fp32
      kernels' and
      plain versions' distance from float64; the backward's device time by
      kernel;
@@ -100,6 +103,7 @@ the `cmgan_torch` package beside this file.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import logging
@@ -146,11 +150,13 @@ GSTEP_PARAM_REL = 5e-3
 # against float64 the kernels' path may be twice as far as dense fp32, plus this
 GSTEP_TRUTH_SLACK = 1e-4
 TRAIN_BATCH = 4
-# the wide kernels' head dims in [2] / [7], and the model that runs them: 128
-# channels in 1 head (head dim 128), one TSCB; its G step's batch
-WIDE_HEAD_DIMS = (80, 128, 256)
+# the wide kernels' head dims in [2] / [7], and the models that run them: 128
+# channels in 1 head (head dim 128), one TSCB, with its G step's batch; 320
+# channels in 1 head (head dim 320, two slabs of the forward's output columns)
+WIDE_HEAD_DIMS = (80, 100, 128, 256, 320)
 WIDE_MODEL = dict(num_channels=128, attn_heads=1, num_tscb_blocks=1)
 WIDE_STEP_BATCH = 2
+WIDEST_MODEL = dict(num_channels=320, attn_heads=1, num_tscb_blocks=1)
 FLASH_CUT, DEFAULT_CUT = 64000, 32000   # 641 and 321 frames
 EVAL_SECONDS = (2, 3, 4, 5, 6, 8, 12, 20)   # [13] the test dir's track lengths
 EVAL_EXACT = ("p3.wav", "p7.wav")           # [13] --exact on the 5 s and 20 s tracks
@@ -545,7 +551,9 @@ def check_against_float64(seed=13):
 
 def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3, d=16):
     """[7] device time of each kernel of one backward launch (at the training
-    shape, or at head dim d)."""
+    shape, or at head dim d). For a wide head, the same again with the dq
+    kernel's dE atomics off (a wrong dE, for the atomics' share only).
+    Returns {kernel: ms} of the run with them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -562,17 +570,32 @@ def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3, d=16):
     def run():
         fa._launch_backward(q, k, v, table, out, lse, cot, max_pos, t, 0)
 
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
+    def times():
+        run()
         torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and "flash_rel" in e.key:
-            log(f"[7] backward {dtype_name} G {g} T {t} D {d}: "
-                f"{e.self_device_time_total / 1e3 / reps:.3f} ms a launch, "
-                f"{e.key[e.key.index('flash_rel'):][:44]}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        return {e.key[e.key.index("flash_rel"):][:44]: e.self_device_time_total / 1e3 / reps
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "flash_rel" in e.key}
+
+    with_atomics = times()
+    for name, ms in with_atomics.items():
+        log(f"[7] backward {dtype_name} G {g} T {t} D {d}: {ms:.3f} ms a launch, {name}")
+    if fa.wide_head_dim(d):
+        lib = fa._wide_kernel()
+        lib.cmgan_flash_rel_attention_wide_de_atomics(0)
+        try:
+            without = times()
+        finally:
+            lib.cmgan_flash_rel_attention_wide_de_atomics(1)
+        name = next(n for n in with_atomics if "bwd_q" in n)
+        share = 1 - without[name] / with_atomics[name]
+        log(f"[7] backward {dtype_name} D {d}: the dq/dE kernel {with_atomics[name]:.3f} ms with "
+            f"its dE atomics, {without[name]:.3f} ms without: the atomics' share {100 * share:.1f}%")
+    return with_atomics
 
 
 def check_layernorm_case(dtype_name, n, seed, c=64, eps=1e-5):
@@ -698,11 +721,20 @@ def build_all():
                 f"{bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 0, 1536)} B at max_pos "
                 f"1536), dk/dv kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 1, 512)} B")
     wide = fa._wide_kernel()
-    for hd in WIDE_HEAD_DIMS:
-        log(f"[1] wide kernels' dynamic shared memory a block, head dim {hd} (either type): "
-            f"forward {wide.cmgan_flash_rel_attention_fwd_smem(0, hd)} B; backward dq/dE kernel "
-            f"{wide.cmgan_flash_rel_attention_bwd_smem(0, hd, 0, 512)} B, dk/dv kernel "
-            f"{wide.cmgan_flash_rel_attention_bwd_smem(0, hd, 1, 512)} B")
+    wide.cmgan_flash_rel_attention_wide_slab.restype = ctypes.c_int
+    for bf16 in (0, 1):
+        log(f"[1] wide kernels' dynamic shared memory a block, {'bf16' if bf16 else 'fp32'}, any "
+            f"head dim: forward {wide.cmgan_flash_rel_attention_fwd_smem(bf16, 128)} B; backward "
+            f"dq/dE kernel {wide.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 0, 512)} B, dk/dv "
+            f"kernel {wide.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 1, 512)} B")
+    for hd in (80, 128, 256, 320):
+        p = fa.plan(hd)
+        lib_slabs = [wide.cmgan_flash_rel_attention_wide_slab(hd, which) for which in range(3)]
+        log(f"[1] wide plan, head dim {hd}: (slabs, width) forward {p.slabs['fwd']}, dq "
+            f"{p.slabs['bwd_q']}, dk/dv {p.slabs['bwd_k']}; library's widths {lib_slabs}; "
+            f"{p.padded_columns} padded logit columns")
+        if lib_slabs != [p.slabs[n][1] for n in ("fwd", "bwd_q", "bwd_k")]:
+            raise AssertionError("ops.flash_attention.plan and the wide library disagree on slabs")
     log(f"[1] built {os.path.relpath(pesq_build.result(), ROOT)} (host PESQ scorer, g++); "
         f"all builds {time.perf_counter() - t0:.2f} s")
 
@@ -724,13 +756,92 @@ def backward_head_dim_cases():
 
 
 def wide_head_dim_cases():
-    """[2] kernel #1's wide path (head dims over 64) at D 80, 128 and 256, fp32
-    and bf16, at the 4 s bucket's shape, and at D 128 with a query offset and
-    masked keys."""
+    """[2] kernel #1's wide path (head dims over 64) at D 80, 100, 128, 256 and
+    320, fp32 and bf16, at the 4 s bucket's shape, and at D 128 with a query
+    offset and masked keys."""
     cases = [check_kernel_case(dt, 404, 641, 641, 641, 0, seed=40 + d, d=d)
              for d in WIDE_HEAD_DIMS for dt in ("float32", "bfloat16")]
     cases.append(check_kernel_case("float32", 404, 320, 641, 600, 128, seed=41, d=128))
     return cases
+
+
+def check_wide_walk_against_kernels(seed=4):
+    """[2] the wide kernels' walk in plain PyTorch (chunks, slabs, logits
+    recomputed per slab, dE a tile pair at a time) against the wide kernels
+    at one small shape where every kind of tile pair occurs, fp32, at D 100
+    (one slab, a padded depth step) and D 320 (two to five slabs a kernel)."""
+    import torch
+
+    from cmgan_torch.ops import flash_attention as fa
+
+    g, tq, tk, t_valid, q_offset, max_pos = 8, 300, 450, 430, 100, 64
+    kinds = {}
+    for *_, kind in fa._tile_pairs(tq, t_valid, q_offset, max_pos, 64):
+        kinds[kind] = kinds.get(kind, 0) + 1
+    for d in (100, 320):
+        gen = torch.Generator(device="cuda").manual_seed(seed + d)
+        q = torch.randn(g, tq, d, generator=gen, device="cuda") * d ** -0.5
+        k, v = (torch.randn(g, tk, d, generator=gen, device="cuda") for _ in range(2))
+        table = torch.randn(2 * max_pos + 1, d, generator=gen, device="cuda")
+        cot = torch.randn(g, tq, d, generator=gen, device="cuda")
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, table)]
+        out = fa.flash_rel_attention_at(*leaves, max_pos, t_valid, q_offset)
+        grads = torch.autograd.grad(out, leaves, cot)
+        walk_out = fa.wide_attention(q, k, v, table, max_pos, t_valid, q_offset)
+        walk = fa.wide_attention_grads(q, k, v, table, max_pos, t_valid, q_offset, cot)
+        torch.cuda.synchronize()
+        atol, rtol = KERNEL_TOL["float32"]
+        ok = torch.allclose(out, walk_out, atol=atol, rtol=rtol)
+        errs = {"out": (out - walk_out).abs().max().item()}
+        for name, a, b in zip(("dq", "dk", "dv", "dE"), grads, walk):
+            errs[name] = ((a - b).abs().max() / b.abs().max()).item()
+            ok = ok and errs[name] <= BWD_TOL["float32"]
+        log(f"[2] wide walk's plain versions vs wide kernels, D {d}, G {g} Tq {tq} Tk {tk} t_valid "
+            f"{t_valid} q_offset {q_offset} max_pos {max_pos}, tile pairs {kinds}: {json.dumps(errs)}")
+        if not ok or len(kinds) != 3:
+            raise AssertionError("the wide kernels disagree with their walk's plain versions")
+
+
+def wide_kernel_at_64(smi: str):
+    """[2] for the record: the wide forward at D 64 (the wrapper sends D 64 to
+    kernel #1), G 404, T 641, fp32 and bf16, against the plain version and
+    beside kernel #1's time in the same call."""
+    import torch
+
+    from cmgan_torch.ops import flash_attention as fa
+
+    lib = fa._wide_kernel()
+    g, t, d, max_pos = 404, 641, 64, 512
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device="cuda").manual_seed(64)
+        q, k, v = ((torch.randn(g, t, d, generator=gen, device="cuda") * s).to(dtype)
+                   for s in (d ** -0.5, 1.0, 1.0))
+        table = torch.randn(2 * max_pos + 1, d, generator=gen, device="cuda").to(dtype)
+        out = torch.empty_like(q)
+
+        def wide():
+            rc = lib.cmgan_flash_rel_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), out.data_ptr(), None,
+                g, t, t, d, max_pos, t, 0, int(dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"the wide forward at D 64 failed: CUDA error {rc}")
+
+        wide()
+        band = fa.make_rel_band(table, t, max_pos)
+        ref = torch.cat([fa.reference_attention(q[s:s + PLAIN_GROUP_CHUNK], k[s:s + PLAIN_GROUP_CHUNK],
+                                                v[s:s + PLAIN_GROUP_CHUNK], band, t)
+                         for s in range(0, g, PLAIN_GROUP_CHUNK)])
+        torch.cuda.synchronize()
+        atol, rtol = KERNEL_TOL[dt]
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = cuda_ms(wide, reps=10)
+        ms_1 = cuda_ms(lambda: fa.flash_rel_attention_at(q, k, v, table, max_pos), reps=10)
+        log(f"[2] wide forward at D 64 (not the wrapper's route), {dt}, G {g} T {t}: {ms:.3f} ms; "
+            f"kernel #1 {ms_1:.3f} ms; max abs err {err:.3e} on {smi}")
+        if not torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol):
+            raise AssertionError("the wide forward at D 64 disagrees with the plain version")
 
 
 def wide_summary(cases):
@@ -741,8 +852,8 @@ def wide_summary(cases):
 
 
 def wide_backward_cases():
-    """[7] kernel #2's wide path at D 80, 128 and 256, fp32 and bf16, and at D
-    128 with a query offset and masked keys."""
+    """[7] kernel #2's wide path at D 80, 100, 128, 256 and 320, fp32 and
+    bf16, and at D 128 with a query offset and masked keys."""
     cases = [check_backward_case(dt, 404, 641, 641, 641, 0, seed=50 + d, d=d)
              for d in WIDE_HEAD_DIMS for dt in ("float32", "bfloat16")]
     cases.append(check_backward_case("float32", 404, 320, 641, 600, 128, seed=51, d=128))
@@ -797,6 +908,31 @@ def wide_head_model():
                                                              and whole <= GSTEP_REL):
         raise AssertionError("the wide model's G step missed the wide kernels or disagrees")
     return enhance_launches, fwd_f, bwd_f
+
+
+def widest_head_model():
+    """[2] a 1-TSCB model of 320 channels in 1 head (head dim 320: two
+    slabs of the wide forward) on a 6 s track in bucket mode: 'auto' against
+    'xla', one wide launch. Returns the launches."""
+    import numpy as np
+
+    from cmgan_torch.config import CMGANConfig, ModelConfig
+    from cmgan_torch.inference import Enhancer
+    from cmgan_torch.ops import flash_attention as fa
+
+    track = synthetic_track(6 * SR, seed=23)
+    auto = Enhancer(CMGANConfig(model=ModelConfig(**WIDEST_MODEL)), device="cuda", seed=3)
+    xla = Enhancer(CMGANConfig(model=ModelConfig(**WIDEST_MODEL, attention_impl="xla")),
+                   auto.model.state_dict(), device="cuda")
+    fa.launches = 0
+    y = auto.enhance(track, mode="bucket")
+    launches = fa.launches
+    err = rel_l2(y, xla.enhance(track, mode="bucket"))
+    log(f"[2] widest model, {WIDEST_MODEL}, 6 s bucket: launches {launches}, 'auto' against "
+        f"'xla' rel L2 {err:.3e} (tol {FLASH_VS_XLA_REL})")
+    if launches != 1 or not np.all(np.isfinite(y)) or not err <= FLASH_VS_XLA_REL:
+        raise AssertionError("the 320-channel 1-head model missed the wide kernel or disagrees")
+    return launches
 
 
 def two_heads_of_dim_8():
@@ -1989,7 +2125,10 @@ def main() -> int:
     main_case = cases[1]  # fp32 at the 16 s segment, the main path's shape
     two_heads_of_dim_8()
     wide_cases = wide_head_dim_cases()
+    check_wide_walk_against_kernels()
+    wide_kernel_at_64(smi)
     wide_launches, wide_step_fwd, wide_step_bwd = wide_head_model()
+    widest_launches = widest_head_model()
 
     lap("2 forward kernel")
 
@@ -2174,8 +2313,9 @@ def main() -> int:
         "route": "cuda",
         "source": "cmgan_torch/ops/csrc/flash_rel_attention_wide.cu",
         "replaces": "cmgan_tpu/ops/flash_attention.py:91",
-        "path": f"head dims 65 to 256; the model {WIDE_MODEL} on a 6 s track",
+        "path": f"head dims over 64; the model {WIDE_MODEL} on a 6 s track",
         "launches": wide_launches,
+        "launches_widest_model": widest_launches,
         "launches_g_step": wide_step_fwd,
         **wide_summary(wide_cases),
         "cases": wide_cases,
@@ -2184,7 +2324,7 @@ def main() -> int:
         "route": "cuda",
         "source": "cmgan_torch/ops/csrc/flash_rel_attention_wide.cu",
         "replaces": "cmgan_tpu/ops/flash_attention.py:250",
-        "path": f"head dims 65 to 256; one G step of the model {WIDE_MODEL}",
+        "path": f"head dims over 64; one G step of the model {WIDE_MODEL}",
         "launches": wide_step_bwd,
         **wide_summary(wide_bwd_cases),
         "cases": wide_bwd_cases,

@@ -27,16 +27,23 @@ The tensor-core kernels are built for head dims of 16, 32 and 64
 to the next of them: zero columns add nothing to q.k or q.E, q carries
 the softmax scale of the true head dim, and the padded columns of the
 output and of every gradient are sliced away, so the result is exact.
-A head of 65 to `MAX_HEAD_DIM` (256) takes the wide kernels
-(`csrc/flash_rel_attention_wide.cu`, the same C entries): they walk the
-head dim in chunks of 32 columns staged as fp32 and zero-fill the last
-chunk in shared memory, so any such width runs unpadded. A wider head
-raises on CUDA.
+A head wider than 64, of any width, takes the wide kernels
+(`csrc/flash_rel_attention_wide.cu`, the same C entries), unpadded. They
+run the same tensor-core tile products, but walk the head dim in chunks
+staged into shared memory (zero past the head dim, at most 15 padded
+columns computed) and split the output's columns into slabs of at most
+`WIDE_SLABS` columns, one block each, that recompute the logits: so
+nothing on the card grows with the head dim. `plan` says how a head of
+dim d runs; `wide_attention` and `wide_attention_grads` are the wide
+kernels' walk (chunks, slabs, logits recomputed per slab, the table's
+gradient added once a tile pair, window row and slab column) in plain
+PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -46,8 +53,11 @@ from cmgan_torch.ops import _build
 
 # head dims the tensor-core kernels are instantiated for (csrc/flash_rel_common.cuh)
 KERNEL_HEAD_DIMS = (16, 32, 64)
-# the widest head the wide kernels take (csrc/flash_rel_attention_wide.cu)
-MAX_HEAD_DIM = 256
+# the wide kernels' widest slab of output columns (csrc/flash_rel_attention_wide.cu):
+# the forward's (128 up to D 128), dq's, and dk's and dv's (two accumulators a thread)
+WIDE_SLABS = {"fwd": 256, "bwd_q": 128, "bwd_k": 64}
+# head-dim columns the wide kernels stage a chunk, by type
+WIDE_CHUNK = {torch.float32: 16, torch.bfloat16: 32}
 KERNEL = "flash_rel_attention"
 BWD_KERNEL = "flash_rel_attention_bwd"
 WIDE_KERNEL = "flash_rel_attention_wide"
@@ -90,11 +100,14 @@ def reference_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int,
     """The backward's plain version: autograd through `reference_attention`.
 
     Returns (dq, dk, dv, dtable) for the output cotangent g [G, Tq, D],
-    each in its input's dtype.
+    each in its input's dtype. The band is gathered from the table in fp32,
+    so that the table's gradient is summed in fp32 and rounded once (a
+    bf16 gather's gradient would sum rows 0 and 2*max_pos, which collect
+    every distant pair, in bf16).
     """
     leaves = [t.detach().requires_grad_() for t in (q, k, v, rel_table)]
     with torch.enable_grad():
-        band = make_rel_band(leaves[3], k.shape[1], max_pos)
+        band = make_rel_band(leaves[3].float(), k.shape[1], max_pos)
         out = reference_attention(*leaves[:3], band, t_valid, q_offset)
     return torch.autograd.grad(out, leaves, g)
 
@@ -131,17 +144,26 @@ def _skew_index(nq: int, nk: int, tile: int, device):
     return a - b + tile - 1
 
 
-def _tile_logits(qt, kt, table, max_pos, base, kind, tile):
+def _tile_logits(qt, kt, table, max_pos, base, kind, tile, chunk: int | None = None):
     """Logits [G, nq, nk] of one tile pair the kernels' way: the content
     product plus, for a mixed pair, R = Q . E_window^T read through the
-    skew, or, for a clipped pair, one scalar a query."""
-    s = qt @ kt.transpose(1, 2)
-    if kind == "mixed":
-        r = qt @ table[_window(table, base, max_pos, tile)].T  # [G, nq, 2*tile-1]
-        c = _skew_index(qt.shape[1], kt.shape[1], tile, qt.device)
-        return s + r.gather(2, c.expand(qt.shape[0], -1, -1))
-    row = 2 * max_pos if kind == "high" else 0
-    return s + (qt @ table[row])[:, :, None]
+    skew, or, for a clipped pair, one scalar a query. With `chunk`, both
+    products are summed over head-dim chunks of that many columns (R of
+    each chunk through the skew), as the wide kernels do."""
+    d = qt.shape[2]
+    chunk = chunk or d
+    s = 0
+    for d0 in range(0, d, chunk):
+        cols = slice(d0, d0 + chunk)
+        s = s + qt[..., cols] @ kt[..., cols].transpose(1, 2)
+        if kind == "mixed":
+            r = qt[..., cols] @ table[_window(table, base, max_pos, tile)][:, cols].T
+            c = _skew_index(qt.shape[1], kt.shape[1], tile, qt.device)
+            s = s + r.gather(2, c.expand(qt.shape[0], -1, -1))
+    if kind != "mixed":
+        row = 2 * max_pos if kind == "high" else 0
+        s = s + (qt @ table[row])[:, :, None]
+    return s
 
 
 def tiled_attention(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int = 0,
@@ -216,6 +238,104 @@ def tiled_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offs
     dq += c_hi[:, :, None] * table[2 * max_pos] + c_lo[:, :, None] * table[0]
     dtable[2 * max_pos] += torch.einsum("ga,gad->d", c_hi, qf)
     dtable[0] += torch.einsum("ga,gad->d", c_lo, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dtable.to(rel_table.dtype)
+
+
+def widest_slab(d: int, kernel: str) -> int:
+    """The widest slab of a wide kernel ('fwd', 'bwd_q', 'bwd_k') at head dim d."""
+    return 128 if kernel == "fwd" and d <= 128 else WIDE_SLABS[kernel]
+
+
+def _slabs(d: int, kernel: str):
+    """The column ranges of a wide kernel's slabs at head dim d."""
+    width = slab_width(d, widest_slab(d, kernel))
+    return [slice(s0, min(d, s0 + width)) for s0 in range(0, d, width)]
+
+
+def wide_attention(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int = 0,
+                   return_lse: bool = False):
+    """The wide forward kernel's walk in plain PyTorch: for each slab of
+    output columns, every tile pair's logits over the whole head dim (in
+    chunks), the online softmax, and P . V in the slab's columns. Same
+    function as `reference_attention`; for tests and checks."""
+    qf, kf, vf, table = q.float(), k.float(), v.float(), rel_table.float()
+    g, tq, d = q.shape
+    out = torch.zeros(g, tq, d, device=q.device)
+    for cols in _slabs(d, "fwd"):
+        m = torch.full((g, tq), float("-inf"), device=q.device)
+        l = torch.zeros(g, tq, device=q.device)
+        for i0, nq, j0, nk, base, kind in _tile_pairs(tq, t_valid, q_offset, max_pos, 64):
+            rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
+            s = _tile_logits(qf[:, rows], kf[:, keys], table, max_pos, base, kind, 64,
+                             WIDE_CHUNK.get(q.dtype, 16))
+            m_new = torch.maximum(m[:, rows], s.amax(dim=2))
+            corr = torch.exp(m[:, rows] - m_new)
+            p = torch.exp(s - m_new[:, :, None])
+            l[:, rows] = l[:, rows] * corr + p.sum(dim=2)
+            out[:, rows, cols] = out[:, rows, cols] * corr[:, :, None] + p @ vf[:, keys, cols]
+            m[:, rows] = m_new
+        out[:, :, cols] /= l[:, :, None]
+    out = out.to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
+
+
+def wide_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int, g):
+    """The wide backward kernels' walk in plain PyTorch: the dq kernel's
+    slabs (dq and the table's gradient in the slab's columns; per tile pair
+    the weights recomputed over the whole head dim, ds written skewed into
+    dR, dE_window = dR^T . Q added to the window's rows once, and the clipped
+    pairs by two sums a query), then the dk/dv kernel's slabs. Returns
+    (dq, dk, dv, dtable) like `reference_attention_grads`; for tests and
+    checks."""
+    out, lse = wide_attention(q, k, v, rel_table, max_pos, t_valid, q_offset, True)
+    qf, kf, vf, table, gf = q.float(), k.float(), v.float(), rel_table.float(), g.float()
+    groups, tq, d = q.shape
+    chunk = WIDE_CHUNK.get(q.dtype, 16)
+    delta = (gf * out.float()).sum(dim=2)
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    dtable = torch.zeros_like(table)
+    pairs = list(_tile_pairs(tq, t_valid, q_offset, max_pos, 64))
+
+    def weights(i0, nq, j0, nk, base, kind):
+        rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
+        s = _tile_logits(qf[:, rows], kf[:, keys], table, max_pos, base, kind, 64, chunk)
+        p = torch.exp(s - lse[:, rows, None])
+        return p, p * (gf[:, rows] @ vf[:, keys].transpose(1, 2) - delta[:, rows, None])
+
+    for cols in _slabs(d, "bwd_q"):
+        c_hi = torch.zeros(groups, tq, device=q.device)
+        c_lo = torch.zeros(groups, tq, device=q.device)
+        for i0, nq, j0, nk, base, kind in pairs:
+            rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
+            _, ds = weights(i0, nq, j0, nk, base, kind)
+            dq[:, rows, cols] += ds @ kf[:, keys, cols]
+            if kind == "mixed":
+                window = _window(table, base, max_pos, 64)
+                c = _skew_index(nq, nk, 64, q.device)
+                dist = base + c
+                c_hi[:, rows] += (ds * (dist >= max_pos)).sum(dim=2)
+                c_lo[:, rows] += (ds * (dist <= -max_pos)).sum(dim=2)
+                dr = torch.zeros(groups, nq, 127, device=q.device)
+                dr.scatter_(2, c.expand(groups, -1, -1), ds * (dist.abs() < max_pos))
+                dq[:, rows, cols] += dr @ table[window][:, cols]
+                # one add a window row and column of the slab, summed over the groups
+                de = torch.zeros(127, d, device=q.device)
+                de[:, cols] = torch.einsum("gac,gad->cd", dr, qf[:, rows, cols])
+                dtable.index_add_(0, window, de)
+            elif kind == "high":
+                c_hi[:, rows] += ds.sum(dim=2)
+            else:
+                c_lo[:, rows] += ds.sum(dim=2)
+        dq[:, :, cols] += (c_hi[:, :, None] * table[2 * max_pos, cols]
+                           + c_lo[:, :, None] * table[0, cols])
+        dtable[2 * max_pos, cols] += torch.einsum("ga,gad->d", c_hi, qf[:, :, cols])
+        dtable[0, cols] += torch.einsum("ga,gad->d", c_lo, qf[:, :, cols])
+    for cols in _slabs(d, "bwd_k"):
+        for i0, nq, j0, nk, base, kind in pairs:
+            rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
+            p, ds = weights(i0, nq, j0, nk, base, kind)
+            dv[:, keys, cols] += p.transpose(1, 2) @ gf[:, rows, cols]
+            dk[:, keys, cols] += ds.transpose(1, 2) @ qf[:, rows, cols]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dtable.to(rel_table.dtype)
 
 
@@ -331,8 +451,9 @@ def _launch_backward(q, k, v, rel_table, out, lse, grad_out, max_pos, t_valid, q
     with torch.cuda.device(q.device):
         # the table's gradient arrives as rows of partial sums, one a block of the
         # kernel that sums it (or one in all for a table too long for a block's
-        # shared memory; none for the wide kernels, which add into dtable by
-        # atomics); the library says how many, and adds them into dtable
+        # shared memory), which the library adds into dtable; the wide kernels
+        # ask for none: they add each tile pair's window gradient, a slab's
+        # columns at a time, into the zeroed dtable by atomics
         rows = lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, d, g, tq, max_pos)
         if rows < 0:
             _raise_on(lib, -rows, "flash_rel_attention_bwd")
@@ -370,26 +491,62 @@ class _FlashRelAttention(torch.autograd.Function):
 
 
 def wide_head_dim(d: int) -> bool:
-    """Whether a head of dim d takes the wide kernels (64 < d <= MAX_HEAD_DIM)."""
+    """Whether a head of dim d takes the wide kernels (d > 64)."""
     return d > KERNEL_HEAD_DIMS[-1]
+
+
+def slab_width(d: int, widest: int) -> int:
+    """The wide kernels' slab width at head dim d: the fewest slabs of at
+    most `widest` columns, of equal widths rounded up to 8
+    (`slab_width` in csrc/flash_rel_attention_wide.cu)."""
+    n = -(-d // widest)
+    return -(-(-(-d // n)) // 8) * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    d: int                 # the head dim asked for
+    path: str              # 'tensor_core' (d <= 64) or 'wide'
+    width: int             # the head dim the kernels run at (zero-padded up to it)
+    logit_columns: int     # head-dim columns a logit's products compute
+    slabs: dict            # wide: kernel -> (number of slabs, slab width); else {}
+
+    @property
+    def padded_columns(self) -> int:
+        """Columns of zeros the logits compute beyond the head dim."""
+        return self.logit_columns - self.d
+
+
+def plan(d: int) -> HeadPlan:
+    """How the CUDA kernels run a head of dim d (any d >= 1): the
+    tensor-core kernels at the least of KERNEL_HEAD_DIMS that holds it,
+    zero-padded; or the wide kernels unpadded, the logits over 16-column
+    depth steps and the output's columns in slabs (`WIDE_SLABS`)."""
+    if d < 1:
+        raise ValueError(f"a head dim is at least 1; got {d}")
+    if not wide_head_dim(d):
+        width = next(w for w in KERNEL_HEAD_DIMS if d <= w)
+        return HeadPlan(d, "tensor_core", width, width, {})
+    slabs = {}
+    for name in WIDE_SLABS:
+        width = slab_width(d, widest_slab(d, name))
+        slabs[name] = (-(-d // width), width)
+    return HeadPlan(d, "wide", d, -(-d // 16) * 16, slabs)
 
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run a head of dim d at: the least of
     KERNEL_HEAD_DIMS that holds it (the tensor-core kernels), or d itself
-    from 65 to MAX_HEAD_DIM (the wide kernels take any width). Raises for a
-    head wider than MAX_HEAD_DIM."""
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernels take a head dim of at most {MAX_HEAD_DIM}; got {d}")
-    return next((width for width in KERNEL_HEAD_DIMS if d <= width), d)
+    above 64 (the wide kernels take any width)."""
+    return plan(d).width
 
 
 def flash_rel_attention_at(q, k, v, rel_table, max_pos: int,
                            t_valid: int | None = None, q_offset: int = 0):
     """Fused attention with Shaw relative positions at a query offset.
 
-    q: [G, Tq, D]; k, v: [G, Tk, D]; rel_table: [2*max_pos+1, D]; on CUDA
-    D <= MAX_HEAD_DIM (`kernel_head_dim`).
+    q: [G, Tq, D]; k, v: [G, Tk, D]; rel_table: [2*max_pos+1, D]; any D
+    (on CUDA as `plan` says).
     q carries the softmax scale, the table is unscaled. Query i sits at
     global position i + q_offset (q_offset + Tq <= Tk). Keys at or past
     t_valid (default Tk) are masked. Returns [G, Tq, D] in q's dtype,

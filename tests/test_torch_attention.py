@@ -82,15 +82,16 @@ def test_wrapper_counts_plain_calls_not_launches(rng):
 def test_wrapper_rejects_what_the_kernel_cannot_take(rng):
     q, k, v, table = _t(*_qkv(rng, 2, 64, 64))
     # any head dim on the CPU, against the JAX kernel at the same D; q and
-    # k/v must agree on it, and the CUDA kernels take at most 256
+    # k/v must agree on it; the CUDA kernels take any positive D
     narrow = [t[..., :8].contiguous() for t in (q, k, v, table)]
     ref = jfa.flash_rel_attention(*(jnp.asarray(t.numpy()) for t in narrow), MAX_POS)
     np.testing.assert_allclose(fa.flash_rel_attention(*narrow, MAX_POS).numpy(), np.asarray(ref),
                                atol=ATOL, rtol=RTOL)
     with pytest.raises(ValueError):
         fa.flash_rel_attention(narrow[0], k, v, narrow[3], MAX_POS)
+    assert fa.kernel_head_dim(257) == 257
     with pytest.raises(ValueError):
-        fa.kernel_head_dim(257)
+        fa.kernel_head_dim(0)
     with pytest.raises(TypeError):
         fa.flash_rel_attention(q.double(), k.double(), v.double(), table.double(), MAX_POS)
     with pytest.raises(TypeError):

@@ -5,8 +5,8 @@ head dim).
 The wrapper's plain version takes any D. On CUDA the tensor-core kernels
 are built for D 16, 32 and 64, and a narrower head is zero-padded to the
 next of them: the padding is checked here to leave the function and its
-gradients as they are. D 65 to 256 takes the wide kernels unpadded; a
-wider head is refused. Tolerances as in test_torch_attention.py and
+gradients as they are. A head over 64, of any width, takes the wide
+kernels unpadded (`plan`). Tolerances as in test_torch_attention.py and
 test_torch_attention_grad.py: atol 2e-5 / rtol 1e-4, the table's gradient
 1e-5 of its largest entry.
 """
@@ -44,7 +44,7 @@ def _assert_grads(ours, ref):
 
 
 @pytest.mark.parametrize("d,max_pos", [(8, 512), (8, 64), (32, 512), (24, 64),
-                                       (80, 48), (128, 48), (200, 32)])
+                                       (80, 48), (128, 48), (200, 32), (320, 32), (100, 48)])
 def test_wrapper_any_head_dim_matches_jax_kernel(rng, d, max_pos):
     """Forward and gradients of the wrapper (its plain version on the CPU)
     against the JAX kernel and its VJP at the same D."""
@@ -85,10 +85,28 @@ def test_kernel_head_dim_and_what_the_kernels_refuse():
     dims = (1, 16, 17, 32, 33, 48, 64, 65, 80, 128, 200, 256)
     assert [fa.kernel_head_dim(d) for d in dims] == [
         16, 16, 32, 32, 64, 64, 64, 65, 80, 128, 200, 256]
-    # 65 to 256 go to the wide kernels, unpadded; 64 and below to the tensor-core ones
+    # above 64 the wide kernels, unpadded; 64 and below the tensor-core ones
     assert [fa.wide_head_dim(d) for d in dims] == [False] * 7 + [True] * 5
-    with pytest.raises(ValueError, match="at most 256"):
-        fa.kernel_head_dim(257)
+    # the wide plan: (slabs, width) of the forward, dq and dk/dv kernels, and the
+    # zero columns the logits compute past D; no head dim is refused
+    expect = {
+        65: ((1, 72), (1, 72), (2, 40), 15),
+        80: ((1, 80), (1, 80), (2, 40), 0),
+        100: ((1, 104), (1, 104), (2, 56), 12),
+        128: ((1, 128), (1, 128), (2, 64), 0),
+        256: ((1, 256), (2, 128), (4, 64), 0),
+        257: ((2, 136), (3, 88), (5, 56), 15),
+        320: ((2, 160), (3, 112), (5, 64), 0),
+        512: ((2, 256), (4, 128), (8, 64), 0),
+    }
+    for d, (fwd, bwd_q, bwd_k, padded) in expect.items():
+        p = fa.plan(d)
+        assert (p.path, p.width, fa.kernel_head_dim(d)) == ("wide", d, d)
+        assert (p.slabs["fwd"], p.slabs["bwd_q"], p.slabs["bwd_k"], p.padded_columns) == (
+            fwd, bwd_q, bwd_k, padded)
+    assert fa.plan(48).path == "tensor_core" and fa.plan(48).padded_columns == 16
+    with pytest.raises(ValueError, match="at least 1"):
+        fa.plan(0)
 
 
 def _port_attention(variables, dim, heads, impl):
