@@ -93,7 +93,19 @@ failure, none falling back to the CPU or to a plain version:
      one call checked for the kernel; kernel #1 at that shape against its
      plain version; 'auto' against 'xla' on a 10 s track; the matmul DFT
      against torch.fft at n_fft 400 and 1200; the preset's train_step at
-     its cut_len 96000.
+     its cut_len 96000;
+ 19. data and sequence parallelism (cmgan_torch.parallel): a NCCL process
+     group of one rank; a device-label train_step at cut_len 64000 with
+     mesh=make_mesh(...) against the same step without a mesh (bitwise or
+     within 1e-6), its second step under set_sync_debug_mode("error");
+     seq_rel_attention's per-rank function for ranks 0 to 3 in one process
+     at G 1204, T 4801 (t_loc 1280, keys padded to 5120), fp32 and bf16,
+     forward against the unsharded kernel #1 and backward (kernel #2 at
+     each offset, dk, dv, dE summed) against the unsharded kernel #2, each
+     rank's launches timed beside the unsharded one; long_form_48k() with
+     attention_impl='seq' at world 1 on a 30 s track against 'auto', and
+     the preset's G step through 'seq' (kernels at T 384, t_valid 321)
+     against 'xla', then one Trainer.train_step through 'seq'.
 
 Then the card's line, a JSON line with each kernel's numbers, and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, or without
@@ -194,6 +206,19 @@ MATMUL_DFT_REL = 1e-5
 # batch 4 of the 2 s window does not fit the 80 GB card without remat (phase
 # 12's batch; measured: out of memory)
 PRESET_TRAIN_BATCH, PRESET_TRAIN_REMAT = 4, True
+# [19] a data-parallel step over a one-rank mesh against the step without one,
+# deterministic algorithms on both: the mesh's collectives over one rank copy
+# and divide by 1, so the two are bitwise equal but for kernel #2's table rows
+# 0 and 2*max_pos, which sum by shared atomics in an order that varies from run
+# to run (~1e-7); every state tensor within this of its largest entry. (A
+# second step turns those bits into other signs of the noise gradients of
+# AdamW's first steps: compared after one.)
+MESH_STEP_REL = 1e-6
+# the 48 kHz preset's 4801 frames split over 4 seq ranks (t_loc 1280) at its
+# G of 1204; 'seq' at world 1 against 'auto': kernel #1 both, over 4864 keys
+# (63 masked) against 4801, sums in another order (~1e-7)
+SEQ_G, SEQ_T, SEQ_RANKS = 1204, 4801, 4
+SEQ_VS_AUTO_REL = 1e-4
 
 
 def log(msg: str):
@@ -1002,11 +1027,13 @@ def float_means_double():
         torch.Tensor.float = widen
 
 
-def g_step_gradients(impl, clean, noisy, weights, double=False, dropout=True, model=None):
+def g_step_gradients(impl, clean, noisy, weights, double=False, dropout=True, model=None,
+                     cfg=None, mesh=None):
     """The G step's loss and generator gradients at cut_len 64000 from the
-    given weights (of the published model, or of ModelConfig(**model));
-    returns (loss, gradients as float64, parameter names,
-    forward launches, backward launches, peak GiB)."""
+    given weights (of the published model, or of ModelConfig(**model); or
+    of `cfg` at its own window, over `mesh`); returns (loss, gradients as
+    float64, parameter names, forward launches, backward launches, peak
+    GiB)."""
     import torch
 
     from cmgan_torch.ops import flash_attention as fa
@@ -1014,8 +1041,8 @@ def g_step_gradients(impl, clean, noisy, weights, double=False, dropout=True, mo
     from cmgan_torch.train import steps as tsteps
     from cmgan_torch.train.state import rng_scope
 
-    cfg = train_config(FLASH_CUT, impl, model=model)
-    state = init_train_state(cfg, seed=0, steps_per_epoch=1, device="cuda")
+    cfg = cfg or train_config(FLASH_CUT, impl, model=model)
+    state = init_train_state(cfg, seed=0, steps_per_epoch=1, device="cuda", mesh=mesh)
     state.gen.load_state_dict(weights[0])
     state.disc.load_state_dict(weights[1])
     state.gen.train(), state.disc.train()
@@ -2069,6 +2096,326 @@ def long_form_on_card(smi: str):
     return launches_fp32, cases
 
 
+def state_tensors(trainer) -> dict:
+    """Every tensor a train step changes, by name, cloned: both models'
+    state_dicts and both AdamW states."""
+    state, out = trainer.state, {}
+    for tag, model, opt in (("G", state.gen, state.gen_opt), ("D", state.disc, state.disc_opt)):
+        out.update({f"{tag} {k}": v.clone() for k, v in model.state_dict().items()})
+        for name, p in model.named_parameters():
+            out.update({f"{tag} {name} {k}": v.clone() for k, v in opt.state[p].items()})
+    return out
+
+
+def worst_rel(a: dict, b: dict):
+    """(name, largest |a - b| over the largest |b|) of the tensor where that
+    is largest, and how many tensors differ at all."""
+    worst, differ = ("", 0.0), 0
+    for name, y in b.items():
+        x, y = a[name].double(), y.double()
+        diff = (x - y).abs().max().item()
+        if diff:
+            differ += 1
+            rel = diff / max(y.abs().max().item(), 1e-30)
+            worst = max(worst, (name, rel), key=lambda w: w[1])
+    return worst, differ
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms (cuDNN's, index_put_'s) within the block, so
+    two runs of one step differ only where their code does."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def mesh_step_on_card(store: str, smi: str):
+    """[19a] a device-label Trainer.train_step at cut_len 64000 over a NCCL
+    process group of one rank (mesh=make_mesh(...): every collective call
+    site of a data-parallel step) against the same step with no mesh, both
+    under deterministic algorithms; then a second step of the mesh's, the
+    batch on the card, under set_sync_debug_mode("error"). Joins the
+    process group (world 1, a FileStore at `store`) and leaves it up;
+    returns the mesh and the mesh step's (forward, backward) launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cmgan_torch.config import MeshConfig
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.parallel import make_mesh
+    from cmgan_torch.train import Trainer
+
+    cfg = train_config(FLASH_CUT, mode="device")
+    batches = [train_batch(FLASH_CUT, seed=s) for s in (190, 191)]
+    with deterministic():
+        ref = Trainer(cfg, [None] * 10, None, device="cuda")   # before the group: no mesh
+        ref_losses = [float(x) for x in ref.train_step(*batches[0])]
+        ref_state = state_tensors(ref)
+        del ref
+        dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+        mesh = make_mesh(MeshConfig(), "cuda")
+        par = Trainer(cfg, [None] * 10, None, device="cuda", mesh=mesh)
+        fa.launches = fa.backward_launches = 0
+        losses = [float(x) for x in par.train_step(*batches[0])]
+        torch.cuda.synchronize()
+        launches = (fa.launches, fa.backward_launches)
+        got = state_tensors(par)
+    on_card = [torch.from_numpy(a).cuda() for a in batches[1]]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        par.train_step(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    (worst_name, worst), differ = worst_rel(got, ref_state)
+    blocks = cfg.model.num_tscb_blocks
+    log(f"[19a] NCCL world 1, mesh {mesh.shape} on {mesh.device}: device-label train_step "
+        f"cut_len {FLASH_CUT} batch {TRAIN_BATCH}, launches {launches[0]} fwd / {launches[1]} "
+        f"bwd; losses mesh {losses}, no mesh {ref_losses}; of {len(got)} state tensors "
+        + ("all bitwise equal" if not differ else
+           f"{differ} differ, the most {worst:.3e} of its largest entry ({worst_name}; tol "
+           f"{MESH_STEP_REL})")
+        + f"; a second step ran under set_sync_debug_mode('error'), on {smi}")
+    if launches != (blocks, blocks) or set(got) != set(ref_state) or worst > MESH_STEP_REL \
+            or not np.allclose(losses, ref_losses, rtol=MESH_STEP_REL, atol=0):
+        raise AssertionError("the step over a one-rank mesh disagrees with the step without one")
+    del par
+    torch.cuda.empty_cache()
+    return mesh, launches
+
+
+def seq_rank_cases(smi, dtype_name, g, t, n, seed, max_pos=512, d=16):
+    """[19b] the per-rank function of seq_rel_attention for ranks 0 .. n-1
+    in one process: each rank's forward (kernel #1 at q_offset r * t_loc,
+    keys padded to n * t_loc, t_valid t) against the unsharded kernel #1,
+    and its backward (kernel #2 at each offset; dq concatenated, dk, dv and
+    the table's gradient summed) against the unsharded kernel #2. Returns
+    (forward cases, backward cases), one a rank, timed beside the
+    unsharded launch."""
+    import torch
+    import torch.nn.functional as F
+
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.ops import seq_attention as sa
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    q = randn(g, t, d, scale=d ** -0.5)
+    k, v, cot = randn(g, t, d), randn(g, t, d), randn(g, t, d)
+    table = randn(2 * max_pos + 1, d)
+    t_loc = sa.local_block(t, n)
+    tk = n * t_loc
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, table)]
+    full = fa.flash_rel_attention_at(*leaves, max_pos)
+    full_grads = torch.autograd.grad(full, leaves, cot)
+    cot_pad = F.pad(cot, (0, 0, 0, tk - t))
+    fa.launches = fa.backward_launches = 0
+    blocks, sums = [], [torch.zeros_like(x, dtype=torch.float32) for x in (q, k, v, table)]
+    for r in range(n):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, table)]
+        out = sa.local_attention(*leaves, max_pos, r, n)
+        grads = torch.autograd.grad(out, leaves, cot_pad[:, r * t_loc:(r + 1) * t_loc])
+        blocks.append(out.detach())
+        for acc, x in zip(sums, grads):
+            acc += x.float()
+    torch.cuda.synchronize()
+    launches = (fa.launches, fa.backward_launches)
+    if launches != (n, n):
+        raise AssertionError(f"{n} ranks launched {launches} kernels, not {n} and {n}")
+    out = torch.cat(blocks, dim=1)[:, :t].float()
+    fwd_err = (out - full.detach().float()).abs().max().item()
+    atol, rtol = KERNEL_TOL[dtype_name]
+    fwd_ok = torch.allclose(out, full.detach().float(), atol=atol, rtol=rtol)
+    tol = BWD_TOL[dtype_name]
+    bwd_errs, bwd_ok = {}, True
+    for name, a, b in zip(("dq", "dk", "dv", "dE"), sums, full_grads):
+        err, top = (a - b.float()).abs().max().item(), b.float().abs().max().item()
+        bwd_errs[name] = {"max_abs_err": err, "ref_max": top}
+        bwd_ok = bwd_ok and bool(torch.isfinite(a).all()) and err <= tol * top
+
+    # each rank's launches, timed, beside the unsharded one
+    kp, vp, qp = (F.pad(x, (0, 0, 0, tk - t)) for x in (k, v, q))
+    full_fwd_ms = cuda_ms(lambda: fa.flash_rel_attention_at(q, k, v, table, max_pos), reps=5)
+    out_f, lse_f = fa._launch_forward(q, k, v, table, max_pos, t, 0, True)
+    full_bwd_ms = cuda_ms(lambda: fa._launch_backward(q, k, v, table, out_f, lse_f, cot,
+                                                      max_pos, t, 0), reps=3)
+    fwd_cases, bwd_cases = [], []
+    for r in range(n):
+        off = r * t_loc
+        q_r, c_r = qp[:, off:off + t_loc].contiguous(), cot_pad[:, off:off + t_loc].contiguous()
+        ms = cuda_ms(lambda: fa.flash_rel_attention_at(q_r, kp, vp, table, max_pos, t, off), reps=5)
+        out_r, lse_r = fa._launch_forward(q_r, kp, vp, table, max_pos, t, off, True)
+        bwd_ms = cuda_ms(lambda: fa._launch_backward(q_r, kp, vp, table, out_r, lse_r, c_r,
+                                                     max_pos, t, off), reps=3)
+        shape = {"dtype": dtype_name, "rank": r, "ranks": n, "G": g, "Tq": t_loc, "Tk": tk,
+                 "D": d, "t_valid": t, "q_offset": off, "max_pos": max_pos}
+        fwd_cases.append({**shape, "ms": ms, "unsharded_ms": full_fwd_ms,
+                          "max_abs_err": fwd_err, "tol": [atol, rtol],
+                          **attention_bound(dtype_name, g, t_loc, tk, t, off, max_pos,
+                                            backward=False, d=d)})
+        bwd_cases.append({**shape, "ms": bwd_ms, "unsharded_ms": full_bwd_ms,
+                          "errors": bwd_errs, "tol_of_ref_max": tol,
+                          "max_abs_err": max(e["max_abs_err"] for m, e in bwd_errs.items()
+                                             if m != "dE"),
+                          **attention_bound(dtype_name, g, t_loc, tk, t, off, max_pos,
+                                            backward=True, d=d)})
+        log(f"[19b] {dtype_name} rank {r}/{n}: kernel #1 at Tq {t_loc}, Tk {tk}, t_valid {t}, "
+            f"q_offset {off}: {ms:.3f} ms (bound {fwd_cases[-1]['bound_ms']:.3f}, "
+            f"{fwd_cases[-1]['bound_by']}); kernel #2 {bwd_ms:.3f} ms (bound "
+            f"{bwd_cases[-1]['bound_ms']:.3f}, {bwd_cases[-1]['bound_by']})")
+    full_fwd_bound = attention_bound(dtype_name, g, t, t, t, 0, max_pos, backward=False, d=d)
+    full_bwd_bound = attention_bound(dtype_name, g, t, t, t, 0, max_pos, backward=True, d=d)
+    log(f"[19b] {dtype_name} G {g}, T {t} unsharded: kernel #1 {full_fwd_ms:.3f} ms (bound "
+        f"{full_fwd_bound['bound_ms']:.3f}, {full_fwd_bound['bound_by']}), kernel #2 "
+        f"{full_bwd_ms:.3f} ms (bound {full_bwd_bound['bound_ms']:.3f}, "
+        f"{full_bwd_bound['bound_by']}); {n} ranks in all {sum(c['ms'] for c in fwd_cases):.3f} / "
+        f"{sum(c['ms'] for c in bwd_cases):.3f} ms; forward max abs err {fwd_err:.3e} (tol "
+        f"{atol}, {rtol}), backward {json.dumps(bwd_errs)} (tol {tol} of ref max) on {smi}")
+    if not (fwd_ok and bwd_ok):
+        raise AssertionError(f"the {n} ranks' kernels disagree with the unsharded ones")
+    del q, k, v, cot, kp, vp, qp, full, full_grads, sums, blocks
+    torch.cuda.empty_cache()
+    return fwd_cases, bwd_cases
+
+
+def long_form_seq_on_card(mesh, smi: str):
+    """[19c] long_form_48k() with attention_impl='seq' over the one-rank
+    mesh: a 30 s track against 'auto' (both through kernel #1: at Tq = Tk
+    4864, t_valid 4801, and at T 4801), and the preset's G step at its
+    cut_len 96000 through 'seq' (kernels #1 and #2 at T 384, t_valid 321)
+    against 'xla', then one Trainer.train_step through each (the same
+    dropout masks: both draw them from the seed in one order). Returns the
+    launches of the 30 s call and of the train_step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cmgan_torch.config import long_form_48k
+    from cmgan_torch.inference import Enhancer
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.ops import seq_attention as sa
+    from cmgan_torch.train import Trainer, init_train_state
+
+    base = long_form_48k()
+
+    def impl(name, **model):
+        return dataclasses.replace(base, model=dataclasses.replace(
+            base.model, attention_impl=name, **model))
+
+    sr, seconds = base.dsp.sample_rate, base.eval.cut_len // base.dsp.sample_rate
+    frames, blocks = base.dsp.num_frames(base.eval.cut_len), base.model.num_tscb_blocks
+    track = synthetic_track(seconds * sr, seed=148, sr=sr)
+    auto = Enhancer(base, None, device="cuda", seed=0)
+    state = auto.model.state_dict()
+    fa.launches = 0
+    y_auto = auto.enhance(track, mode="bucket")
+    auto_launches = fa.launches
+    rtf_auto = realtime_factor(lambda: auto.enhance(track, mode="bucket"), seconds, reps=2)
+    del auto
+    seq = Enhancer(impl("seq"), state, mesh=mesh)
+    fa.launches = 0
+    y_seq = seq.enhance(track, mode="bucket")
+    seq_launches = fa.launches
+    rtf = realtime_factor(lambda: seq.enhance(track, mode="bucket"), seconds, reps=2)
+    del seq
+    torch.cuda.empty_cache()
+    err = rel_l2(y_seq, y_auto)
+    t_loc = sa.local_block(frames, mesh.seq_size)
+    log(f"[19c] long_form_48k 'seq' over {mesh.shape}, {seconds} s ({frames} frames): launches "
+        f"{seq_launches} (kernel #1 at Tq = Tk {t_loc}, t_valid {frames}), 'auto' {auto_launches};"
+        f" rel L2 against 'auto' {err:.3e} (tol {SEQ_VS_AUTO_REL}); realtime factor {rtf:.2f}x, "
+        f"'auto' {rtf_auto:.2f}x, on {smi}")
+    if (seq_launches, auto_launches) != (blocks, blocks) or y_seq.shape != track.shape \
+            or not np.all(np.isfinite(y_seq)) or not err <= SEQ_VS_AUTO_REL:
+        raise AssertionError("the 48 kHz 'seq' call disagrees with 'auto'")
+
+    # the preset's G step through 'seq' against 'xla', from the same weights
+    train = dataclasses.replace(base.train, batch_size=PRESET_TRAIN_BATCH)
+    cut = base.train.cut_len
+    clean = np.stack([synthetic_track(cut, 150 + i, sr=sr) for i in range(PRESET_TRAIN_BATCH)])
+    noisy = clean + (0.05 * np.random.default_rng(150).standard_normal(clean.shape)).astype(
+        np.float32)
+    clean_d, noisy_d = torch.from_numpy(clean).cuda(), torch.from_numpy(noisy).cuda()
+    seq_cfg = dataclasses.replace(impl("seq", remat=PRESET_TRAIN_REMAT), train=train)
+    xla_cfg = dataclasses.replace(impl("xla", remat=PRESET_TRAIN_REMAT), train=train)
+    fresh = init_train_state(xla_cfg, seed=0, steps_per_epoch=1, device="cuda")
+    weights = ({k: v.clone() for k, v in fresh.gen.state_dict().items()},
+               {k: v.clone() for k, v in fresh.disc.state_dict().items()})
+    del fresh
+    # dropout off: its masks differ between the two paths
+    loss_s, g_s, names, fwd, bwd, _ = g_step_gradients("seq", clean_d, noisy_d, weights,
+                                                       dropout=False, cfg=seq_cfg, mesh=mesh)
+    loss_x, g_x, _, fwd_x, bwd_x, _ = g_step_gradients("xla", clean_d, noisy_d, weights,
+                                                       dropout=False, cfg=xla_cfg)
+    top = max(g.norm().item() for g in g_x)
+    worst = max(((a - b).norm() / max(b.norm().item(), 1e-2 * top)).item()
+                for a, b in zip(g_s, g_x))
+    whole = whole_rel_l2(g_s, g_x)
+    loss_rel = abs(loss_s - loss_x) / abs(loss_x)
+    t_train = sa.local_block(base.dsp.num_frames(cut), mesh.seq_size)
+    log(f"[19c] preset G step cut_len {cut} batch {PRESET_TRAIN_BATCH} remat "
+        f"{PRESET_TRAIN_REMAT}, 'seq' (kernels at T {t_train}, t_valid "
+        f"{base.dsp.num_frames(cut)}: {fwd} fwd / {bwd} bwd launches) against 'xla' "
+        f"({fwd_x} / {bwd_x}): loss rel {loss_rel:.3e}, all gradients rel L2 {whole:.3e} (tol "
+        f"{GSTEP_REL}), worst parameter {worst:.3e} (tol {GSTEP_PARAM_REL})")
+    if bwd != blocks or fwd < blocks or (fwd_x, bwd_x) != (0, 0) or not (
+            loss_rel <= GSTEP_REL and whole <= GSTEP_REL and worst <= GSTEP_PARAM_REL):
+        raise AssertionError("the preset's G step through 'seq' disagrees with 'xla'")
+
+    xla = Trainer(xla_cfg, [None], None, device="cuda")
+    xla_losses = np.array([float(x) for x in xla.train_step(clean, noisy)])
+    del xla
+    trainer = Trainer(seq_cfg, [None], None, device="cuda", mesh=mesh)
+    fa.launches = fa.backward_launches = 0
+    losses = np.array([float(x) for x in trainer.train_step(clean, noisy)])
+    train_launches = (fa.launches, fa.backward_launches)
+    rel = np.abs(losses - xla_losses) / np.abs(xla_losses)
+    log(f"[19c] preset Trainer.train_step through 'seq': gen, disc loss {rounded(losses, 7)}, "
+        f"'xla' {rounded(xla_losses, 7)} (rel {rounded(rel, 9)}, tol {GSTEP_REL}), launches "
+        f"{train_launches[0]} fwd / {train_launches[1]} bwd")
+    if train_launches[1] != blocks or trainer.state.step != 1 or not np.all(rel <= GSTEP_REL):
+        raise AssertionError("the preset's train_step through 'seq' disagrees with 'xla'")
+    del trainer
+    torch.cuda.empty_cache()
+    return seq_launches, train_launches
+
+
+def parallel_on_card(smi: str):
+    """[19] data and sequence parallelism: (a) a step over a NCCL mesh of
+    one rank, (b) a 4-rank sequence split's kernels in one process at the
+    48 kHz preset's shape, (c) the preset through 'seq'. Returns the launch
+    counts and the per-rank kernel cases; ends the process group."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        try:
+            mesh, step_launches = mesh_step_on_card(os.path.join(tmp, "store"), smi)
+            fwd_cases, bwd_cases = [], []
+            for dt in ("float32", "bfloat16"):
+                f, b = seq_rank_cases(smi, dt, SEQ_G, SEQ_T, SEQ_RANKS, seed=190)
+                fwd_cases += f
+                bwd_cases += b
+            seq_launches, train_launches = long_form_seq_on_card(mesh, smi)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    return step_launches, seq_launches, train_launches, fwd_cases, bwd_cases
+
+
 def main() -> int:
     import torch
 
@@ -2271,6 +2618,8 @@ def main() -> int:
     lap("17 serving")
     long_launches, long_cases = long_form_on_card(smi)
     lap("18 48 kHz preset")
+    mesh_launches, seq_launches, seq_train, seq_fwd_cases, seq_bwd_cases = parallel_on_card(smi)
+    lap("19 parallel")
     log(f"seconds by phase: {json.dumps(laps)}, in all {sum(laps.values()):.1f} "
         f"(imports and the card's start not counted)")
 
@@ -2291,9 +2640,13 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": None,
         "launches_48k": long_launches,
+        "launches_mesh_step": mesh_launches[0],
+        "launches_seq_48k": seq_launches,
+        "launches_seq_train_step": seq_train[0],
         "cases": cases,
         "cases_streaming": stream_cases,
         "cases_48k": long_cases,
+        "cases_seq_ranks": seq_fwd_cases,
     }, {
         "name": "flash_rel_attention_bwd",
         "route": "cuda",
@@ -2301,6 +2654,9 @@ def main() -> int:
         "replaces": "cmgan_tpu/ops/flash_attention.py:250",
         "launches": train_bwd,
         "launches_fused_step": fused_bwd,
+        "launches_mesh_step": mesh_launches[1],
+        "launches_seq_train_step": seq_train[1],
+        "cases_seq_ranks": seq_bwd_cases,
         "max_abs_err": bwd_main["max_abs_err"],
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],

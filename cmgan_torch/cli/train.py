@@ -1,7 +1,15 @@
-"""Training CLI on one GPU, with the JAX package's flags.
+"""Training CLI, with the JAX package's flags.
 
     python -m cmgan_torch.cli.train --data_dir <VCTK-DEMAND root> \
         --save_model_dir ./saved_model [--cut_len 64000] [--device cuda]
+
+Data parallel over N GPUs of one host, one process each:
+
+    torchrun --nproc_per_node N -m cmgan_torch.cli.train --data_dir ...
+
+Under torchrun (WORLD_SIZE set) every rank joins the process group, reads
+the same global batches (batch_size rows a data rank) and steps on its own
+rows; rank 0 writes the checkpoints.
 
 The default 2 s window (--cut_len 32000, 321 frames) runs dense
 attention; from 512 frames (--cut_len 64000 is 641) the time conformer
@@ -13,6 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 
 from cmgan_torch.cli import pin_fp32
 from cmgan_torch.config import CMGANConfig, MeshConfig, ModelConfig, TrainConfig
@@ -60,16 +69,26 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     pin_fp32()
     import torch
+    import torch.distributed as dist
+
+    from cmgan_torch import parallel
 
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
+    mesh_cfg = MeshConfig()
+    device, data_ranks = args.device, 1
+    launched = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if launched:
+        device = parallel.init_from_env(args.device)
+    if dist.is_initialized():
+        data_ranks, _ = mesh_cfg.layout(dist.get_world_size())
     cfg = CMGANConfig(
         model=ModelConfig(remat=args.remat),
         train=dataclasses.replace(
             TrainConfig(),
             epochs=args.epochs,
-            batch_size=args.batch_size,
+            batch_size=args.batch_size * data_ranks,
             log_interval=args.log_interval,
             decay_epochs=args.decay_epoch,
             init_lr=args.init_lr,
@@ -82,7 +101,7 @@ def main(argv=None):
             time_loss_domain=args.time_loss_domain,
             gen_ema_decay=args.ema_decay,
         ),
-        mesh=MeshConfig(),
+        mesh=mesh_cfg,
     )
 
     from cmgan_torch.data.dataset import load_data
@@ -96,11 +115,15 @@ def main(argv=None):
         train_loader,
         test_loader,
         dtype=torch.bfloat16 if args.bf16 else None,
-        device=args.device,
+        device=device,
     )
-    if args.resume:
-        trainer.restore_checkpoint(args.resume)
-    trainer.train()
+    try:
+        if args.resume:
+            trainer.restore_checkpoint(args.resume)
+        trainer.train()
+    finally:
+        if launched:
+            dist.destroy_process_group()
     return trainer
 
 

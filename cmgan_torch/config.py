@@ -127,14 +127,29 @@ class EvalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout for data / sequence parallelism. Multi-GPU is not
-    ported yet: the trainer takes the defaults (one device) and raises
-    `NotImplementedError` for anything else."""
+    """A (data, seq) grid of ranks, one process a GPU (`cmgan_torch.parallel`).
+
+    Batches are split over `data`; `seq` shards the time conformer's
+    attention (attention_impl='seq'). data_parallel -1 takes every rank
+    the seq axis leaves: world size // seq_parallel.
+    """
 
     data_axis: str = "data"
     seq_axis: str = "seq"
     data_parallel: int = -1
     seq_parallel: int = 1
+
+    def layout(self, world_size: int) -> Tuple[int, int]:
+        """(data, seq) sizes over `world_size` ranks; raises ValueError
+        unless their product is the world size."""
+        sp = max(self.seq_parallel, 1)
+        dp = self.data_parallel if self.data_parallel > 0 else world_size // sp
+        if dp < 1 or dp * sp != world_size:
+            raise ValueError(
+                f"mesh data_parallel={self.data_parallel} x seq_parallel={self.seq_parallel} "
+                f"does not fill {world_size} rank(s)"
+            )
+        return dp, sp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +176,7 @@ def long_form_48k(
     segment (the encoder halves 601 bins to 301). The training window,
     two seconds, is 321 frames and dense. seq_parallel > 1 picks the
     'matmul' DFT and the 'seq' attention of a time axis sharded over
-    devices; such a config is built, but its model raises until
-    multi-GPU is ported.
+    that many ranks of a `cmgan_torch.parallel` mesh.
     """
     dsp = DSPConfig(
         sample_rate=48_000, n_fft=1200, hop=300,

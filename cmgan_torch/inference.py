@@ -25,6 +25,7 @@ from cmgan_torch.config import CMGANConfig
 from cmgan_torch.dsp import istft, power_compress, power_uncompress, stft
 from cmgan_torch.models import TSCNet
 from cmgan_torch.models.layers import torch_default_init_
+from cmgan_torch.parallel import attach, collectives, shard_batch
 
 
 # rows per enhance_batch call fall inversely with the bucket length: about
@@ -93,29 +94,46 @@ def load_generator(cfg: CMGANConfig, weights, dtype=None, device="cuda",
 
 
 class Enhancer:
-    """Offline enhancement with one TSCNet on one device.
+    """Offline enhancement with one TSCNet.
 
     state_dict: a reference-layout generator state_dict (for example from
     `convert.state_dict_from_flax` or a `.pt`); None draws torch-default
     weights from `seed`. The default device is the GPU; without CUDA,
     pass device="cpu" explicitly (the CPU runs the kernels' plain versions).
+
+    mesh: a `parallel.make_mesh` grid (its device is the Enhancer's).
+    Every rank makes the same calls with the same tracks and gets the
+    same results: the rows of each batch are split over `data` (padded
+    with copies of row 0 to a multiple of the data ranks, exact in eval
+    mode) and gathered back; a 'seq' config shards the time conformer's
+    attention over `seq`. Required when cfg.model.attention_impl == 'seq'.
     """
 
     def __init__(self, cfg: CMGANConfig, state_dict=None, dtype=torch.float32,
-                 device="cuda", seed: int = 0):
-        self.device = torch.device(device)
+                 device="cuda", seed: int = 0, mesh=None):
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.cfg = cfg
+        self.mesh = mesh
         self.model = load_generator(cfg, state_dict, dtype, self.device, seed)
+        if mesh is not None:
+            attach(self.model, mesh)
 
     def _enhance_batch(self, segments: np.ndarray) -> np.ndarray:
         """segments [B, L], already RMS-normalized -> enhanced [B, L]."""
         dsp = self.cfg.dsp
+        rows = segments.shape[0]
+        if self.mesh is not None:
+            pad = np.repeat(segments[:1], -rows % self.mesh.data_size, axis=0)
+            segments = shard_batch(self.mesh, np.concatenate([segments, pad]))
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(segments, np.float32)).to(self.device)
             packed = power_compress(stft(x, dsp.n_fft, dsp.hop), dsp.compress_exponent)
             est_real, est_imag = self.model(packed)
             est_spec = power_uncompress(est_real, est_imag, dsp.compress_exponent)
-            return istft(est_spec, dsp.n_fft, dsp.hop).cpu().numpy()
+            out = istft(est_spec, dsp.n_fft, dsp.hop)
+            if self.mesh is not None:
+                out = collectives.gather_rows(out, self.mesh.data_group)[:rows]
+            return out.cpu().numpy()
 
     def enhance_batch(self, tracks: list[np.ndarray], batch_cap: int = 16) -> list[np.ndarray]:
         """Enhance many tracks, batching same-bucket tracks together.

@@ -16,7 +16,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cmgan_torch.models.layers import Conv1d, LayerNorm, Linear, swish
-from cmgan_torch.ops import flash_attention
+from cmgan_torch.ops import flash_attention, seq_attention
+from cmgan_torch.parallel import collectives
 
 FLASH_MIN_FRAMES = 512  # 'auto' takes the kernel from this sequence length
 
@@ -67,16 +68,29 @@ class BatchNorm(nn.BatchNorm1d):
     does so, where `nn.BatchNorm1d` would use the unbiased one.
     `track_running_stats_now` is cleared while a rematerialised block is
     recomputed, so one step moves the stats once.
+
+    Under a mesh (`parallel.attach`) the batch statistics are the global
+    batch's, as under the JAX package's GSPMD: E[x] and E[x^2] are
+    averaged over the `data` group (every data rank holds as many rows;
+    the seq ranks hold copies of them and take no part), through a
+    differentiable all-reduce, so the backward sums the statistics'
+    gradients over the group as SyncBatchNorm's does.
     """
 
     track_running_stats_now = True
+    mesh = None
 
     def forward(self, x):
         x = x.float()
         if not self.training:
             return super().forward(x)
         mean = x.mean(dim=(0, 2))
-        var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+        sq_mean = (x * x).mean(dim=(0, 2))
+        if self.mesh is not None:
+            moments = collectives.all_reduce_sum(torch.cat([mean, sq_mean]),
+                                                 self.mesh.data_group)
+            mean, sq_mean = (moments / self.mesh.data_size).chunk(2)
+        var = (sq_mean - mean * mean).clamp_min(0.0)
         if BatchNorm.track_running_stats_now:
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
@@ -129,20 +143,20 @@ class RelPosAttention(nn.Module):
     pos[i, j] = q_i . E[clip(i - j, +-max_pos) + max_pos] * scale is added
     to the content logits. attention_impl: 'xla' computes dense logits;
     'flash' calls the fused kernel (ops/flash_attention.py); 'auto' takes
-    flash from FLASH_MIN_FRAMES frames. Dropout acts on the output after
-    to_out, never on the attention weights, so every impl computes the
-    same function.
+    flash from FLASH_MIN_FRAMES frames; 'seq' shards the queries over the
+    `seq` group of the mesh handed in by `parallel.attach`
+    (ops/seq_attention.py) and raises without one. Dropout acts on the
+    output after to_out, never on the attention weights, so every impl
+    computes the same function.
     """
+
+    mesh = None
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 16,
                  dropout: float = 0.0, max_pos_emb: int = 512,
                  attention_impl: str = "auto", compute_dtype=None):
         super().__init__()
-        if attention_impl == "seq":
-            raise NotImplementedError(
-                "attention_impl='seq' (sequence-parallel attention) is not ported yet"
-            )
-        if attention_impl not in ("xla", "flash", "auto"):
+        if attention_impl not in ("xla", "flash", "auto", "seq"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         inner = heads * dim_head
         self.heads = heads
@@ -165,10 +179,11 @@ class RelPosAttention(nn.Module):
         q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in (q, k, v))
         table = self.rel_pos_emb.weight
 
+        use_seq = self.attention_impl == "seq"
         use_flash = self.attention_impl == "flash" or (
             self.attention_impl == "auto" and n >= FLASH_MIN_FRAMES
         )
-        if use_flash:
+        if use_seq or use_flash:
             compute = self.compute_dtype or torch.float32
             # the kernel adds q.k and q.E with no scale of its own: the
             # pre-scaled q carries the one softmax scale for both terms,
@@ -176,9 +191,13 @@ class RelPosAttention(nn.Module):
             qs = (q * scale).to(compute).reshape(b * h, n, d).contiguous()
             ks = k.to(compute).reshape(b * h, n, d).contiguous()
             vs = v.to(compute).reshape(b * h, n, d).contiguous()
-            out = flash_attention.flash_rel_attention(
-                qs, ks, vs, table.to(compute).contiguous(), self.max_pos_emb
-            ).reshape(b, h, n, d)
+            table = table.to(compute).contiguous()
+            if use_seq:
+                out = seq_attention.seq_rel_attention(qs, ks, vs, table, self.max_pos_emb,
+                                                      self.mesh)
+            else:
+                out = flash_attention.flash_rel_attention(qs, ks, vs, table, self.max_pos_emb)
+            out = out.reshape(b, h, n, d)
         else:
             logits = torch.einsum("bhid,bhjd->bhij", q, k) * scale
             pos = torch.arange(n, device=x.device)

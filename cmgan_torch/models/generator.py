@@ -94,7 +94,9 @@ class TSCB(nn.Module):
             )
 
         self.time_conformer = block(cfg.attention_impl)
-        self.freq_conformer = block(cfg.attention_impl)
+        # 'seq' shards the time axis only; the frequency conformer's
+        # 101-201 tokens never need it, as in the JAX package
+        self.freq_conformer = block("auto" if cfg.attention_impl == "seq" else cfg.attention_impl)
 
     def forward(self, x):
         b, c, t, f = x.shape

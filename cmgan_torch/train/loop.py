@@ -1,10 +1,11 @@
-"""Training orchestration: the GAN epoch loop on one device.
+"""Training orchestration: the GAN epoch loop.
 
 Same loop structure as the JAX package's Trainer (and the CMGAN
 reference's): loss weights, LR schedule, per-epoch test pass and
 checkpointing, with full-state checkpoints that resume, and the JAX
-package's JSONL metrics stream (`metrics_path`). More than one device is
-not ported yet.
+package's JSONL metrics stream (`metrics_path`). With a mesh
+(`cmgan_torch.parallel`) every rank runs this loop on the same global
+batches and steps on its data rank's rows of each.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cmgan_torch.checkpoint import (
     restore_train_state,
@@ -26,6 +28,9 @@ from cmgan_torch.checkpoint import (
 )
 from cmgan_torch.config import CMGANConfig
 from cmgan_torch.data.dataset import BatchLoader
+from cmgan_torch.parallel import (
+    attach, collectives, is_writer, make_mesh, replicate_state, shard_batch,
+)
 from cmgan_torch.train.state import TrainState, check_supported, init_train_state
 from cmgan_torch.train.steps import make_train_steps, pesq_labels_host
 from cmgan_torch.utils import MetricsLogger
@@ -40,7 +45,11 @@ class Trainer:
     metrics_path: a JSONL file that gets one record a completed step
     (`step`, `time`, `epoch`, `gen_loss`, `disc_loss`, `step_seconds`),
     written where the loop reads the losses back (every log_interval
-    steps and at the epoch's end), as in the JAX package."""
+    steps and at the epoch's end), as in the JAX package.
+
+    mesh: a `parallel.make_mesh` grid; the device is then the mesh's. With
+    no mesh and a process group up, one is made from cfg.mesh. Rank 0
+    alone writes checkpoints and metrics."""
 
     def __init__(
         self,
@@ -51,18 +60,26 @@ class Trainer:
         device="cuda",
         state: Optional[TrainState] = None,
         metrics_path: Optional[str] = None,
+        mesh=None,
     ):
         check_supported(cfg)
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(cfg.mesh, device)
         self.cfg = cfg
-        self.metrics_logger = MetricsLogger(metrics_path) if metrics_path else None
+        self.mesh = mesh
+        self.metrics_logger = (MetricsLogger(metrics_path)
+                               if metrics_path and is_writer() else None)
         self.train_loader = train_loader
         self.test_loader = test_loader
         steps_per_epoch = max(len(train_loader), 1)
         (self.g_step, self.d_step, self.test_fwd, self.test_disc_loss,
-         self.fused_step) = make_train_steps(cfg, steps_per_epoch)
+         self.fused_step) = make_train_steps(cfg, steps_per_epoch, mesh)
         if state is None:
             state = init_train_state(cfg, cfg.train.seed, steps_per_epoch, dtype=dtype,
-                                     device=device)
+                                     device=device, mesh=mesh)
+        elif mesh is not None:
+            attach(state.gen, mesh)
+            replicate_state(mesh, state)
         self.state = state
         self.ema_params = None
         if cfg.train.gen_ema_decay > 0.0:
@@ -76,8 +93,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train_step(self, clean: np.ndarray, noisy: np.ndarray):
-        """One GAN step; returns (gen_loss, disc_loss) as 0-d DEVICE
-        tensors (not fetched: callers decide when to sync).
+        """One GAN step on a global batch; returns (gen_loss, disc_loss) as
+        0-d DEVICE tensors (not fetched: callers decide when to sync), the
+        global batch's means under a mesh, where each rank steps on (and
+        labels) its data rank's rows.
 
         pesq_label_mode='host': the G phase, the native CPU scorer, the D
         phase, in that order. 'device': one fused step with the labels
@@ -92,6 +111,8 @@ class Trainer:
         the PREVIOUS batch's disc loss, or None on the first step of an
         epoch; `drain_pending_d()` applies the final deferred update.
         """
+        if self.mesh is not None:
+            clean, noisy = shard_batch(self.mesh, clean, noisy)
         if self.cfg.train.pesq_label_mode == "device":
             metrics, disc_loss = self.fused_step(self.state, clean, noisy)
             self._maybe_ema()
@@ -228,25 +249,35 @@ class Trainer:
         come from the host scorer in every label mode, as in the JAX package.
 
         A batch of fewer rows than batch_size (the last one) is
-        wrap-padded to the full size, and the averages are weighted by
-        REAL rows only: padded duplicate rows never reach the reported
-        loss.
+        wrap-padded to the full size (and on to a multiple of the data
+        ranks), and the averages are weighted by REAL rows only: padded
+        duplicate rows never reach the reported loss. Under a mesh each
+        rank scores its rows and the per-row losses are gathered, so every
+        rank returns the global mean.
         """
         if self.test_loader is None:
             return float("nan")
         size = self.test_loader.batch_size
+        if self.mesh is not None:
+            size = -(-size // self.mesh.data_size) * self.mesh.data_size
         gen_total, disc_total, n = 0.0, 0.0, 0
         for clean, noisy in self.test_loader:
             real = clean.shape[0]
             if real < size:
                 clean = np.resize(clean, (size, clean.shape[1]))
                 noisy = np.resize(noisy, (size, noisy.shape[1]))
+            if self.mesh is not None:
+                clean, noisy = shard_batch(self.mesh, clean, noisy)
             metrics, handoff = self.test_fwd(self.state, clean, noisy)
             scores = pesq_labels_host(clean, handoff["est_audio"].cpu().numpy())
             disc_per_ex = self.test_disc_loss(
                 self.state, handoff["clean_mag"], handoff["est_mag"], scores
             )
-            gen_total += float(metrics["gen_loss_per_ex"][:real].sum())
+            gen_per_ex = metrics["gen_loss_per_ex"]
+            if self.mesh is not None:
+                gen_per_ex = collectives.gather_rows(gen_per_ex, self.mesh.data_group)
+                disc_per_ex = collectives.gather_rows(disc_per_ex, self.mesh.data_group)
+            gen_total += float(gen_per_ex[:real].sum())
             disc_total += float(disc_per_ex[:real].sum())
             n += real
         gen_avg = gen_total / max(n, 1)
@@ -254,7 +285,11 @@ class Trainer:
         return gen_avg
 
     def save_checkpoint(self, directory: str, epoch: int, test_loss: float) -> str:
+        """Write the state (rank 0 only; the ranks hold the same state);
+        returns the path on every rank."""
         path = os.path.join(directory, f"CMGAN_epoch_{epoch}_{str(test_loss)[:5]}")
+        if not is_writer():
+            return path
         save_train_state(path, self.state)
         log.info("saved checkpoint %s", path)
         if self.ema_params is not None:

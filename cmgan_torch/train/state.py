@@ -12,10 +12,15 @@ import contextlib
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from cmgan_torch.config import CMGANConfig
 from cmgan_torch.models import MetricDiscriminator, TSCNet
 from cmgan_torch.models.layers import torch_default_init_
+from cmgan_torch.parallel import attach, replicate_state
+
+# data rank r draws its dropout masks from the stream seeded seed + r * this
+DROPOUT_STREAM_STRIDE = 1_000_003
 
 
 @dataclasses.dataclass
@@ -103,24 +108,35 @@ def init_adam_state(opt: torch.optim.AdamW):
 
 
 def check_supported(cfg: CMGANConfig):
-    """Raise for what the trainer cannot do yet."""
+    """Raise for a label mode the trainer does not have, for a mesh that
+    does not fill the process group, and for a mesh of more than one rank
+    with no process group to run it on."""
     mode = cfg.train.pesq_label_mode
     if mode not in ("host", "host_async", "device"):
         raise ValueError(
             f"pesq_label_mode must be 'host', 'host_async' or 'device', got {mode!r}"
         )
-    if cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.seq_parallel != 1:
-        raise NotImplementedError(
-            "training on more than one device waits for the multi-GPU slice; "
-            f"got data_parallel={cfg.mesh.data_parallel}, seq_parallel={cfg.mesh.seq_parallel}"
+    if dist.is_initialized():
+        cfg.mesh.layout(dist.get_world_size())
+    elif cfg.mesh.data_parallel > 1 or cfg.mesh.seq_parallel > 1:
+        raise RuntimeError(
+            f"the mesh data_parallel={cfg.mesh.data_parallel} x "
+            f"seq_parallel={cfg.mesh.seq_parallel} needs a torch.distributed process "
+            "group of that many ranks: start under torchrun and call "
+            "cmgan_torch.parallel.init_from_env()"
         )
 
 
 def init_train_state(cfg: CMGANConfig, seed: int, steps_per_epoch: int,
-                     dtype: torch.dtype | None = None, device="cuda") -> TrainState:
+                     dtype: torch.dtype | None = None, device="cuda", mesh=None) -> TrainState:
     """Both models with torch-default weights drawn from `seed`, their
-    optimizers, step 0, and a dropout stream seeded from `seed`."""
-    device = torch.device(device)
+    optimizers, step 0, and a dropout stream seeded from `seed`.
+
+    mesh: the models are attached to it and their weights broadcast from
+    rank 0; each data rank draws its own dropout stream (data rank 0 the
+    single-process one), the ranks of a seq group the same one, since
+    they compute the same activations."""
+    device = torch.device(device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "init_train_state: CUDA is not available; pass device='cpu' to run on the CPU"
@@ -129,6 +145,10 @@ def init_train_state(cfg: CMGANConfig, seed: int, steps_per_epoch: int,
     init = torch.Generator().manual_seed(seed)
     gen = torch_default_init_(TSCNet(cfg.model, dtype=dtype), init).to(device)
     disc = torch_default_init_(MetricDiscriminator(cfg.model, dtype=dtype), init).to(device)
+    if mesh is not None:
+        replicate_state(mesh, attach(gen, mesh))
+        replicate_state(mesh, disc)
+    stream = seed + DROPOUT_STREAM_STRIDE * (0 if mesh is None else mesh.data_rank)
     return TrainState(
         gen=gen,
         disc=disc,
@@ -137,5 +157,5 @@ def init_train_state(cfg: CMGANConfig, seed: int, steps_per_epoch: int,
                                 capturable=cfg.train.pesq_label_mode == "device"
                                 and device.type == "cuda"),
         step=0,
-        rng_state=torch.Generator(device=device).manual_seed(seed).get_state(),
+        rng_state=torch.Generator(device=device).manual_seed(stream).get_state(),
     )

@@ -21,6 +21,13 @@ is undone by a device-side select instead of being skipped on the host.
 
 The steps update the `TrainState` they are given in place.
 
+Under a mesh (`cmgan_torch.parallel`) each data rank steps on its own rows
+of the global batch: the parameter gradients of G and of D are averaged
+over `data` (one flat buffer a model; over `seq` they are equal already),
+BatchNorm's statistics are the global batch's, the returned losses are
+global means, and a batch is skipped when a label failed on any rank (the
+JAX package tests the global batch's minimum label).
+
 Reference quirks kept on purpose, as in the JAX package: the time-domain
 L1 loss and the PESQ labels compare the *normalized-domain* est_audio
 with the *unnormalized* clean waveform. The time-loss side suppresses
@@ -36,6 +43,7 @@ import torch
 from cmgan_torch.config import CMGANConfig
 from cmgan_torch.dsp import istft, power_compress, power_uncompress, stft
 from cmgan_torch.metrics.pesq_torch import pesq_labels_torch
+from cmgan_torch.parallel import collectives
 from cmgan_torch.train.state import (
     TrainState,
     check_supported,
@@ -181,8 +189,9 @@ def _disc_state_tensors(state: TrainState):
     return params + list(state.disc.buffers()) + opt_state
 
 
-def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
-    """Returns (g_step, d_step, test_fwd, test_disc_loss, fused_step)."""
+def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int, mesh=None):
+    """Returns (g_step, d_step, test_fwd, test_disc_loss, fused_step); with
+    a mesh, steps of this rank's share of a data-parallel step."""
     check_supported(cfg)
     gen_lr = make_lr_schedule(cfg, steps_per_epoch, cfg.train.init_lr)
     disc_lr = make_disc_lr_schedule(cfg, steps_per_epoch)
@@ -199,6 +208,19 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
     def _on_device(state, *arrays):
         return [torch.as_tensor(a, dtype=torch.float32, device=state.device) for a in arrays]
 
+    def _global_mean(values):
+        if mesh is not None:
+            collectives.average_(values, mesh.data_group)
+        return values
+
+    def _any_label_failed(state, pesq_scores) -> bool:
+        """Whether a label of the batch failed, on any data rank."""
+        low = float(np.min(pesq_scores))
+        if mesh is not None:
+            low = collectives.minimum(torch.tensor(low, device=state.device),
+                                      mesh.data_group).item()
+        return low < 0.0
+
     def g_step(state: TrainState, clean, noisy):
         """One generator update. Returns (metrics, handoff): loss parts as
         0-d device tensors, and the detached tensors the host labeler and
@@ -214,15 +236,16 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
             )
             # only the generator's parameters get gradients; the
             # discriminator's spectral-norm state has advanced and stays
-            grads = torch.autograd.grad(loss, params)
+            grads = _global_mean(list(torch.autograd.grad(loss, params)))
         for p, g in zip(params, grads):
             p.grad = g
         _set_lr(state.gen_opt, gen_lr(state.step))
         state.gen_opt.step()
         state.gen_opt.zero_grad(set_to_none=True)
         state.step += 1
-        metrics = {k: v.detach() for k, v in parts.items()}
-        metrics["gen_loss"] = loss.detach()
+        metrics = {k: v.detach().clone() for k, v in parts.items()}
+        metrics["gen_loss"] = loss.detach().clone()
+        _global_mean(list(metrics.values()))
         handoff = {
             "clean_mag": out["clean_mag"].detach(),
             "est_mag": out["est_mag"].detach(),
@@ -239,12 +262,13 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
             loss = ((pred_max - 1.0) ** 2).mean() + ((pred_enh - labels) ** 2).mean()
             state.disc_opt.zero_grad(set_to_none=True)
             loss.backward()
+        _global_mean([p.grad for p in state.disc.parameters()])
         # step_now is the post-G value, so this batch's step is step_now - 1:
         # the decay follows the shared global step, not D's own update count
         _set_lr(state.disc_opt, disc_lr(step_now - 1))
         state.disc_opt.step()
         state.disc_opt.zero_grad(set_to_none=True)
-        return loss.detach()
+        return _global_mean([loss.detach().clone()])[0]
 
     def d_step(state: TrainState, clean_mag, est_mag, pesq_scores, at_step=None):
         """One discriminator update; returns its loss (0 when skipped).
@@ -261,7 +285,7 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
         """
         step_now = state.step if at_step is None else at_step
         pesq_scores = np.asarray(pesq_scores, np.float32)
-        if pesq_scores.min() < 0.0:
+        if _any_label_failed(state, pesq_scores):
             return torch.zeros((), device=state.device)
         (labels,) = _on_device(state, (pesq_scores - offset) / scale)
         return _d_update(state, clean_mag, est_mag, labels, step_now)
@@ -288,7 +312,10 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
         metrics, handoff = g_step(state, clean, noisy)
         with torch.no_grad():
             scores = pesq_labels_torch(clean, handoff["est_audio"])
-            valid = scores.min() >= 0.0
+            low = scores.min()
+            if mesh is not None:
+                low = collectives.minimum(low, mesh.data_group)
+            valid = low >= 0.0
             init_adam_state(state.disc_opt)
             kept = _disc_state_tensors(state)
             before = [t.clone() for t in kept]
@@ -321,7 +348,7 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int):
     def test_disc_loss(state: TrainState, clean_mag, est_mag, pesq_scores):
         """Per-example D losses [B] (0 when any PESQ label failed)."""
         pesq_scores = np.asarray(pesq_scores, np.float32)
-        if pesq_scores.min() < 0.0:
+        if _any_label_failed(state, pesq_scores):
             return torch.zeros(clean_mag.shape[0], device=state.device)
         (labels,) = _on_device(state, (pesq_scores - offset) / scale)
         state.disc.eval()

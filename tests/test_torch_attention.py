@@ -156,5 +156,8 @@ def test_relpos_attention_flash_matches_xla_and_jax(rng):
 
 
 def test_seq_attention_not_ported():
-    with pytest.raises(NotImplementedError):
-        RelPosAttention(64, attention_impl="seq")
+    """'seq' is ported (ops/seq_attention.py): the module builds, and without
+    a mesh it raises a clear error, as the JAX package's does."""
+    module = RelPosAttention(64, attention_impl="seq")
+    with pytest.raises(ValueError, match="mesh"):
+        module(torch.zeros(1, 40, 64))

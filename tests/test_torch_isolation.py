@@ -44,7 +44,9 @@ def test_port_sources_import_no_jax():
             "cmgan_torch/metrics/composite.py", "cmgan_torch/metrics/stoi.py",
             "cmgan_torch/metrics/pesq_ref.py", "cmgan_torch/cli/evaluate.py",
             "cmgan_torch/streaming.py", "cmgan_torch/cli/serve.py",
-            "cmgan_torch/utils/__init__.py", "cmgan_torch/utils/profiling.py"} <= rel
+            "cmgan_torch/utils/__init__.py", "cmgan_torch/utils/profiling.py",
+            "cmgan_torch/parallel/__init__.py", "cmgan_torch/parallel/mesh.py",
+            "cmgan_torch/parallel/collectives.py", "cmgan_torch/ops/seq_attention.py"} <= rel
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
@@ -60,6 +62,7 @@ def test_importing_the_port_loads_no_jax():
         "import cmgan_torch.metrics.pesq_torch, cmgan_torch.metrics.composite\n"
         "import cmgan_torch.metrics.stoi, cmgan_torch.metrics.pesq_ref\n"
         "import cmgan_torch.streaming, cmgan_torch.cli.serve, cmgan_torch.utils\n"
+        "import cmgan_torch.parallel, cmgan_torch.ops.seq_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,)
@@ -124,6 +127,7 @@ def test_kernel_sources_are_in_the_tree_and_nothing_is_built_at_import():
         "import cmgan_torch.train, cmgan_torch.cli.train, cmgan_torch.ops, cmgan_torch.metrics\n"
         "import cmgan_torch.cli.evaluate, cmgan_torch.metrics.pesq_torch\n"
         "import cmgan_torch.streaming, cmgan_torch.cli.serve, cmgan_torch.utils\n"
+        "import cmgan_torch.parallel, cmgan_torch.ops.seq_attention\n"
         "assert 'triton' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

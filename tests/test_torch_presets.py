@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from cmgan_tpu import config as jcfg
 from cmgan_tpu import inference as jinf
@@ -28,6 +29,7 @@ from cmgan_torch import inference as tinf
 from cmgan_torch.convert import state_dict_from_flax
 from cmgan_torch.models.conformer import RelPosAttention
 from cmgan_torch.ops import flash_attention as fa
+from cmgan_torch.train.state import check_supported
 
 SR = 48_000
 TINY = dict(num_channels=16, num_tscb_blocks=1, dense_depth=2, attn_heads=2)
@@ -53,10 +55,14 @@ def test_preset_equals_jax_field_by_field(kw):
 
 
 def test_seq_preset_is_built_but_its_model_raises():
-    """Multi-GPU is not ported: the 'seq' attention raises in the conformer."""
+    """The 'seq' preset's model builds ('seq' in the time conformer), runs
+    only over a mesh, and its trainer needs a process group of 4 ranks."""
     cfg = tcfg.long_form_48k(seq_parallel=4)
-    with pytest.raises(NotImplementedError):
-        RelPosAttention(cfg.model.num_channels, attention_impl=cfg.model.attention_impl)
+    attn = RelPosAttention(cfg.model.num_channels, attention_impl=cfg.model.attention_impl)
+    with pytest.raises(ValueError, match="mesh"):
+        attn(torch.zeros(1, 40, cfg.model.num_channels))
+    with pytest.raises(RuntimeError, match="process group"):
+        check_supported(cfg)
 
 
 def _track(n, seed):

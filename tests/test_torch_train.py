@@ -369,11 +369,12 @@ def test_unported_modes_raise():
     assert not state.disc_opt.param_groups[0]["capturable"]   # capturable only on the GPU
     with pytest.raises(ValueError):
         make_train_steps(_cfgs(pesq_label_mode="bogus")[1], SPE)
+    # a mesh of more than one rank needs a process group (tests/test_torch_parallel.py runs one)
     two = dataclasses.replace(_cfgs()[1], mesh=MeshConfig(data_parallel=2))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(RuntimeError, match="process group"):
         init_train_state(two, 0, SPE, device="cpu")
     seq = dataclasses.replace(_cfgs()[1], mesh=MeshConfig(seq_parallel=2))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_train_steps(seq, SPE)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
