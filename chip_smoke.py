@@ -30,7 +30,9 @@ failure, none falling back to the CPU or to a plain version:
      with attention_impl='xla', and the realtime factor;
   4. the same track in bf16 against fp32, and its realtime factor;
   5. enhance_batch on 16 two-second tracks (dense attention, no launches);
-  6. the enhance CLI on a written 5 s wav;
+  6. the enhance CLI on a written 5 s wav, with --torch_ckpt and with
+     --model_path on the same weights (two runs of one path, both rounded
+     to 16 bits: within EVAL_TRACK_REL);
   7. the attention backward kernel against autograd through the plain
      version: fp32 and bf16 at the training shape (G = 1616, T = 641) and
      at T = 2561, a t_valid < T, a q_offset and a max_pos = 64 case, a
@@ -102,10 +104,21 @@ failure, none falling back to the CPU or to a plain version:
      at G 1204, T 4801 (t_loc 1280, keys padded to 5120), fp32 and bf16,
      forward against the unsharded kernel #1 and backward (kernel #2 at
      each offset, dk, dv, dE summed) against the unsharded kernel #2, each
-     rank's launches timed beside the unsharded one; long_form_48k() with
+     rank's launches timed beside the unsharded one and the rank's plain
+     versions; long_form_48k() with
      attention_impl='seq' at world 1 on a 30 s track against 'auto', and
      the preset's G step through 'seq' (kernels at T 384, t_valid 321)
-     against 'xla', then one Trainer.train_step through 'seq'.
+     against 'xla', then one Trainer.train_step through 'seq'; over the same
+     one-rank mesh, a Trainer whose train loader is sharded by data rank
+     (load_data at the mesh's data size and rank) on a written dataset at
+     cut_len 64000, batch 4: one epoch (one step) through train_epoch in the
+     device and in the host label mode, each against the global-loader step
+     on the same rows (bitwise but for kernel #2's atomics-summed tables, at
+     its own limit for them), with
+     its launches; then host seconds a batch (prefetch 0) over one epoch of
+     128 files for a global loader of 4 x 8 rows (what each of 8 data ranks
+     read before loaders were sharded) and a local one of 4 rows at process 0
+     of 8, beside [12]'s G step.
 
 Then the card's line, a JSON line with each kernel's numbers, and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, or without
@@ -174,7 +187,8 @@ EVAL_SECONDS = (2, 3, 4, 5, 6, 8, 12, 20)   # [13] the test dir's track lengths
 EVAL_EXACT = ("p3.wav", "p7.wav")           # [13] --exact on the 5 s and 20 s tracks
 EVAL_ALONE, EVAL_BATCHED = "p7.wav", "p2.wav"  # [13] the 20 s track; the 4 s one, in a batch
 # [13] a saved track against Enhancer.enhance on the same weights, both rounded
-# to 16-bit PCM as the CLI saves: the 20 s track takes the same path in both
+# to 16-bit PCM as the CLI saves: the 20 s track takes the same path in both;
+# [6] holds the enhance CLI's --model_path against its --torch_ckpt so too
 EVAL_TRACK_REL = 1e-5
 # [14] the torch PESQ on the card against the same function on the CPU, MOS:
 # float32 FFTs of two libraries (1.2e-6 seen on the CPU against JAX)
@@ -219,6 +233,16 @@ MESH_STEP_REL = 1e-6
 # (63 masked) against 4801, sums in another order (~1e-7)
 SEQ_G, SEQ_T, SEQ_RANKS = 1204, 4801, 4
 SEQ_VS_AUTO_REL = 1e-4
+# [19d] a loader sharded by data rank at world 1 against the global loader:
+# the same rows through the same step, every state tensor bitwise equal but
+# the relative-position tables (and their AdamW moments), whose gradient
+# kernel #2 sums by atomics in an order that varies from run to run. Those
+# are held in the gradient's units (exp_avg_sq through its square root) at
+# kernel #2's own limit for that gradient, a share of the largest entry
+# (seen: up to 9.6e-7 on exp_avg_sq itself, before its square root). (b) times loaders over LOADER_FILES written files for
+# LOADER_RANKS data ranks
+LOCAL_LOADER_TABLE_REL = BWD_TOL["float32"]
+LOADER_FILES, LOADER_RANKS = 128, 8
 
 
 def log(msg: str):
@@ -1284,7 +1308,8 @@ def train_through_cli(tmp: str):
 
 def training_rates(smi: str):
     """[12] utterances per second of train_step in the three label modes,
-    PESQ's share, a G-step profile."""
+    PESQ's share, a G-step profile; returns one G step's ms at cut_len
+    64000, batch 4, fp32."""
     import torch
 
     from cmgan_torch.train import Trainer
@@ -1331,6 +1356,7 @@ def training_rates(smi: str):
                     device_breakdown(g_only, g_ms, top=12, tag="[12]")
                 del trainer
                 torch.cuda.empty_cache()
+    return g_ms
 
 
 def expected_eval_launches(cfg, seconds, exact: bool, batch_cap: int = 8) -> int:
@@ -2199,7 +2225,8 @@ def seq_rank_cases(smi, dtype_name, g, t, n, seed, max_pos=512, d=16):
     and its backward (kernel #2 at each offset; dq concatenated, dk, dv and
     the table's gradient summed) against the unsharded kernel #2. Returns
     (forward cases, backward cases), one a rank, timed beside the
-    unsharded launch."""
+    unsharded launch and the rank's plain versions (forward; autograd
+    through it)."""
     import torch
     import torch.nn.functional as F
 
@@ -2246,8 +2273,9 @@ def seq_rank_cases(smi, dtype_name, g, t, n, seed, max_pos=512, d=16):
         bwd_errs[name] = {"max_abs_err": err, "ref_max": top}
         bwd_ok = bwd_ok and bool(torch.isfinite(a).all()) and err <= tol * top
 
-    # each rank's launches, timed, beside the unsharded one
+    # each rank's launches, timed, beside the unsharded one and its plain versions
     kp, vp, qp = (F.pad(x, (0, 0, 0, tk - t)) for x in (k, v, q))
+    band = fa.make_rel_band(table, tk, max_pos)
     full_fwd_ms = cuda_ms(lambda: fa.flash_rel_attention_at(q, k, v, table, max_pos), reps=5)
     out_f, lse_f = fa._launch_forward(q, k, v, table, max_pos, t, 0, True)
     full_bwd_ms = cuda_ms(lambda: fa._launch_backward(q, k, v, table, out_f, lse_f, cot,
@@ -2260,13 +2288,27 @@ def seq_rank_cases(smi, dtype_name, g, t, n, seed, max_pos=512, d=16):
         out_r, lse_r = fa._launch_forward(q_r, kp, vp, table, max_pos, t, off, True)
         bwd_ms = cuda_ms(lambda: fa._launch_backward(q_r, kp, vp, table, out_r, lse_r, c_r,
                                                      max_pos, t, off), reps=3)
+
+        def plain_fwd():
+            for s in range(0, g, PLAIN_GROUP_CHUNK):
+                sl = slice(s, s + PLAIN_GROUP_CHUNK)
+                fa.reference_attention(q_r[sl], kp[sl], vp[sl], band, t, off)
+
+        def plain_bwd(chunk=16):
+            for s in range(0, g, chunk):
+                sl = slice(s, s + chunk)
+                fa.reference_attention_grads(q_r[sl], kp[sl], vp[sl], table, max_pos, t, off,
+                                             c_r[sl])
+
+        plain_ms, plain_bwd_ms = cuda_ms(plain_fwd, reps=1), cuda_ms(plain_bwd, reps=1)
         shape = {"dtype": dtype_name, "rank": r, "ranks": n, "G": g, "Tq": t_loc, "Tk": tk,
                  "D": d, "t_valid": t, "q_offset": off, "max_pos": max_pos}
-        fwd_cases.append({**shape, "ms": ms, "unsharded_ms": full_fwd_ms,
+        fwd_cases.append({**shape, "ms": ms, "unsharded_ms": full_fwd_ms, "plain_ms": plain_ms,
                           "max_abs_err": fwd_err, "tol": [atol, rtol],
                           **attention_bound(dtype_name, g, t_loc, tk, t, off, max_pos,
                                             backward=False, d=d)})
         bwd_cases.append({**shape, "ms": bwd_ms, "unsharded_ms": full_bwd_ms,
+                          "plain_ms": plain_bwd_ms,
                           "errors": bwd_errs, "tol_of_ref_max": tol,
                           "max_abs_err": max(e["max_abs_err"] for m, e in bwd_errs.items()
                                              if m != "dE"),
@@ -2274,8 +2316,9 @@ def seq_rank_cases(smi, dtype_name, g, t, n, seed, max_pos=512, d=16):
                                             backward=True, d=d)})
         log(f"[19b] {dtype_name} rank {r}/{n}: kernel #1 at Tq {t_loc}, Tk {tk}, t_valid {t}, "
             f"q_offset {off}: {ms:.3f} ms (bound {fwd_cases[-1]['bound_ms']:.3f}, "
-            f"{fwd_cases[-1]['bound_by']}); kernel #2 {bwd_ms:.3f} ms (bound "
-            f"{bwd_cases[-1]['bound_ms']:.3f}, {bwd_cases[-1]['bound_by']})")
+            f"{fwd_cases[-1]['bound_by']}; plain {plain_ms:.2f}); kernel #2 {bwd_ms:.3f} ms "
+            f"(bound {bwd_cases[-1]['bound_ms']:.3f}, {bwd_cases[-1]['bound_by']}; plain "
+            f"{plain_bwd_ms:.2f})")
     full_fwd_bound = attention_bound(dtype_name, g, t, t, t, 0, max_pos, backward=False, d=d)
     full_bwd_bound = attention_bound(dtype_name, g, t, t, t, 0, max_pos, backward=True, d=d)
     log(f"[19b] {dtype_name} G {g}, T {t} unsharded: kernel #1 {full_fwd_ms:.3f} ms (bound "
@@ -2286,7 +2329,7 @@ def seq_rank_cases(smi, dtype_name, g, t, n, seed, max_pos=512, d=16):
         f"{atol}, {rtol}), backward {json.dumps(bwd_errs)} (tol {tol} of ref max) on {smi}")
     if not (fwd_ok and bwd_ok):
         raise AssertionError(f"the {n} ranks' kernels disagree with the unsharded ones")
-    del q, k, v, cot, kp, vp, qp, full, full_grads, sums, blocks
+    del q, k, v, cot, kp, vp, qp, band, full, full_grads, sums, blocks
     torch.cuda.empty_cache()
     return fwd_cases, bwd_cases
 
@@ -2394,16 +2437,115 @@ def long_form_seq_on_card(mesh, smi: str):
     return seq_launches, train_launches
 
 
-def parallel_on_card(smi: str):
+def local_loader_on_card(mesh, tmp: str, smi: str, g_ms: float):
+    """[19d] (a) a Trainer over the one-rank mesh whose train loader is
+    sharded by data rank (load_data at the mesh's data size and rank) over a
+    written dataset at cut_len 64000, batch 4: one epoch (one step) through
+    train_epoch, which feeds the loader's rows to the step as local rows, in
+    the device and in the host label mode; each against a Trainer on the
+    same mesh fed the same rows as a global batch through train_step, both
+    under deterministic algorithms: every state tensor bitwise equal but
+    kernel #2's relative-position tables and their AdamW moments, held
+    within LOCAL_LOADER_TABLE_REL. (b) host seconds a batch, prefetch 0, over one
+    epoch of LOADER_FILES written files: a global loader of batch x
+    LOADER_RANKS rows and a local one of batch rows at process 0 of
+    LOADER_RANKS, beside [12]'s G step. Returns (a)'s (forward, backward)
+    launches by mode."""
+    import torch
+
+    from cmgan_torch.data.dataset import BatchLoader, DemandDataset, load_data
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.train import Trainer
+
+    data_dir = os.path.join(tmp, "data19d")
+    write_dataset(data_dir, n_train=TRAIN_BATCH, n_test=1)
+    blocks, launches = train_config(FLASH_CUT).model.num_tscb_blocks, {}
+    for mode in ("device", "host"):
+        cfg = train_config(FLASH_CUT, mode=mode)
+        with deterministic():
+            train, _ = load_data(data_dir, TRAIN_BATCH, FLASH_CUT, cfg.train.seed,
+                                 num_processes=mesh.data_size, process_index=mesh.data_rank)
+            local = Trainer(cfg, train, None, device="cuda", mesh=mesh)
+            if not local.local_rows or local.steps_per_epoch != 1:
+                raise AssertionError("the sharded loader is not taken as this data rank's rows")
+            fa.launches = fa.backward_launches = 0
+            local.train_epoch(0)
+            torch.cuda.synchronize()
+            launches[mode] = (fa.launches, fa.backward_launches)
+            got = state_tensors(local)
+            del local
+            rows, _ = load_data(data_dir, TRAIN_BATCH, FLASH_CUT, cfg.train.seed)
+            rows.prefetch = 0
+            (batch,) = list(rows)
+            ref = Trainer(cfg, [None], None, device="cuda", mesh=mesh)
+            ref.train_step(*batch)
+            torch.cuda.synchronize()
+            want = state_tensors(ref)
+            del ref
+        differ = sorted(k for k in want if not torch.equal(got[k], want[k]))
+        tables = [k for k in differ if "rel_pos_emb" in k]
+
+        def grad_units(k, t):
+            return t.sqrt() if k.endswith("exp_avg_sq") else t
+
+        (worst_name, worst), _ = worst_rel({k: grad_units(k, got[k]) for k in tables},
+                                           {k: grad_units(k, want[k]) for k in tables})
+        log(f"[19d] local loader (process {train.process_index} of {train.num_processes}), "
+            f"{mode} labels, one epoch of {TRAIN_BATCH} rows: launches {launches[mode][0]} fwd / "
+            f"{launches[mode][1]} bwd; of {len(want)} state tensors against the global-loader "
+            "step " + ("all bitwise equal" if not differ else
+                       f"{len(differ)} differ, of which kernel #2 tables {len(tables)}, the most "
+                       f"{worst:.3e} of its largest entry in the gradient's units ({worst_name}; "
+                       f"tol {LOCAL_LOADER_TABLE_REL})")
+            + f", on {smi}")
+        if launches[mode] != (blocks, blocks) or set(got) != set(want) or differ != tables \
+                or worst > LOCAL_LOADER_TABLE_REL:
+            raise AssertionError("the local-loader step disagrees with the global-loader step")
+        torch.cuda.empty_cache()
+
+    # (b) what a rank's loader reads: every rank the global batch, or its shard
+    times_dir = os.path.join(tmp, "data19d_times")
+    write_dataset(times_dir, n_train=LOADER_FILES, n_test=1)
+    ds = DemandDataset(os.path.join(times_dir, "train"), FLASH_CUT)
+    loaders = {
+        "global": lambda: BatchLoader(ds, TRAIN_BATCH * LOADER_RANKS, prefetch=0),
+        "local": lambda: BatchLoader(ds, TRAIN_BATCH, num_processes=LOADER_RANKS,
+                                     process_index=0, prefetch=0),
+    }
+    list(loaders["global"]())   # every file read once: both timings from the page cache
+    per_batch = {name: [] for name in loaders}
+    for _ in range(2):
+        for name, make in loaders.items():
+            loader = make()
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader)
+            per_batch[name].append((time.perf_counter() - t0) / n)
+    glob, loc = min(per_batch["global"]), min(per_batch["local"])
+    log(f"[19d] host seconds a batch, prefetch 0, one epoch of {LOADER_FILES} files at cut_len "
+        f"{FLASH_CUT}: global loader {TRAIN_BATCH * LOADER_RANKS} rows {per_batch['global']}, "
+        f"local loader {TRAIN_BATCH} rows at process 0 of {LOADER_RANKS} {per_batch['local']}; "
+        f"best {glob:.6f} s against {loc:.6f} s ({glob / loc:.2f}x), beside a G step of "
+        f"{g_ms:.1f} ms ([12], cut_len {FLASH_CUT}, batch {TRAIN_BATCH}): {100e3 * glob / g_ms:.2f}% "
+        f"and {100e3 * loc / g_ms:.2f}% of it; a local batch's reads reach a G step at "
+        f"{g_ms / (1e3 * loc):.0f} data ranks' worth of rows, on {smi}")
+    if not (glob > 0 and loc > 0):
+        raise AssertionError("the loader timings are not positive")
+    return launches
+
+
+def parallel_on_card(smi: str, g_ms: float):
     """[19] data and sequence parallelism: (a) a step over a NCCL mesh of
     one rank, (b) a 4-rank sequence split's kernels in one process at the
-    48 kHz preset's shape, (c) the preset through 'seq'. Returns the launch
-    counts and the per-rank kernel cases; ends the process group."""
+    48 kHz preset's shape, (c) the preset through 'seq', (d) a loader
+    sharded by data rank over the mesh and the loaders' host time. Returns
+    the launch counts and the per-rank kernel cases; ends the process
+    group."""
     import torch.distributed as dist
 
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         try:
             mesh, step_launches = mesh_step_on_card(os.path.join(tmp, "store"), smi)
+            local_launches = local_loader_on_card(mesh, tmp, smi, g_ms)
             fwd_cases, bwd_cases = [], []
             for dt in ("float32", "bfloat16"):
                 f, b = seq_rank_cases(smi, dt, SEQ_G, SEQ_T, SEQ_RANKS, seed=190)
@@ -2413,7 +2555,7 @@ def parallel_on_card(smi: str):
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
-    return step_launches, seq_launches, train_launches, fwd_cases, bwd_cases
+    return step_launches, local_launches, seq_launches, train_launches, fwd_cases, bwd_cases
 
 
 def main() -> int:
@@ -2544,9 +2686,22 @@ def main() -> int:
         cli.main(["--input", os.path.join(tmp, "noisy.wav"),
                   "--output", os.path.join(tmp, "enhanced.wav"), "--torch_ckpt", ckpt])
         out, sr = read_wav(os.path.join(tmp, "enhanced.wav"))
-    log(f"[6] cli: wrote {out.shape[1]} samples at {sr} Hz from {noisy.shape[0]}")
+        # the same weights as the port's own generator file, through --model_path
+        from cmgan_torch.checkpoint import save_variables
+
+        save_variables(os.path.join(tmp, "generator_vars"), state)
+        cli.main(["--input", os.path.join(tmp, "noisy.wav"),
+                  "--output", os.path.join(tmp, "enhanced_vars.wav"),
+                  "--model_path", os.path.join(tmp, "generator_vars")])
+        out_vars, _ = read_wav(os.path.join(tmp, "enhanced_vars.wav"))
+    vars_err = rel_l2(out_vars, out)
+    log(f"[6] cli: wrote {out.shape[1]} samples at {sr} Hz from {noisy.shape[0]}; "
+        f"--model_path on the same weights: bitwise equal {np.array_equal(out, out_vars)}, "
+        f"rel L2 {vars_err:.3e} (tol {EVAL_TRACK_REL})")
     if out.shape != (1, noisy.shape[0]) or sr != SR:
         raise AssertionError("CLI output has the wrong length or rate")
+    if out_vars.shape != out.shape or not vars_err <= EVAL_TRACK_REL:
+        raise AssertionError("--model_path and --torch_ckpt on the same weights disagree")
 
     del enh32, enh16
     torch.cuda.empty_cache()
@@ -2602,7 +2757,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         train_fwd, train_bwd = train_through_cli(tmp)
     lap("10-11 train CLI")
-    training_rates(smi)
+    g_ms = training_rates(smi)
     lap("12 training rates")
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         eval_launches = evaluate_cli(tmp, smi)
@@ -2618,7 +2773,8 @@ def main() -> int:
     lap("17 serving")
     long_launches, long_cases = long_form_on_card(smi)
     lap("18 48 kHz preset")
-    mesh_launches, seq_launches, seq_train, seq_fwd_cases, seq_bwd_cases = parallel_on_card(smi)
+    (mesh_launches, local_launches, seq_launches, seq_train, seq_fwd_cases,
+     seq_bwd_cases) = parallel_on_card(smi, g_ms)
     lap("19 parallel")
     log(f"seconds by phase: {json.dumps(laps)}, in all {sum(laps.values()):.1f} "
         f"(imports and the card's start not counted)")
@@ -2641,6 +2797,7 @@ def main() -> int:
         "library_ms": None,
         "launches_48k": long_launches,
         "launches_mesh_step": mesh_launches[0],
+        "launches_local_loader_epoch": {m: n[0] for m, n in local_launches.items()},
         "launches_seq_48k": seq_launches,
         "launches_seq_train_step": seq_train[0],
         "cases": cases,
@@ -2655,6 +2812,7 @@ def main() -> int:
         "launches": train_bwd,
         "launches_fused_step": fused_bwd,
         "launches_mesh_step": mesh_launches[1],
+        "launches_local_loader_epoch": {m: n[1] for m, n in local_launches.items()},
         "launches_seq_train_step": seq_train[1],
         "cases_seq_ranks": seq_bwd_cases,
         "max_abs_err": bwd_main["max_abs_err"],

@@ -7,9 +7,14 @@ Data parallel over N GPUs of one host, one process each:
 
     torchrun --nproc_per_node N -m cmgan_torch.cli.train --data_dir ...
 
-Under torchrun (WORLD_SIZE set) every rank joins the process group, reads
-the same global batches (batch_size rows a data rank) and steps on its own
-rows; rank 0 writes the checkpoints.
+Under torchrun (WORLD_SIZE set) every rank joins the process group and
+lays out the mesh, then reads only its data rank's shard of each epoch,
+--batch_size rows a batch, as the JAX package's loader shards by process
+(the seq ranks of one data index read the same rows and crops). A step
+takes --batch_size x data ranks rows over the world, and
+cfg.train.batch_size holds that global batch, as in the JAX CLI; every
+rank reads the test set whole in batches of that size. Rank 0 writes the
+checkpoints.
 
 The default 2 s window (--cut_len 32000, 321 frames) runs dense
 attention; from 512 frames (--cut_len 64000 is 641) the time conformer
@@ -32,7 +37,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     d = TrainConfig()
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--batch_size", type=int, default=d.batch_size,
-                   help="per-device batch size (reference: per-GPU batch)")
+                   help="per-device batch size (reference: per-GPU batch); "
+                   "under torchrun the rows each data rank reads of its shard")
     p.add_argument("--log_interval", type=int, default=d.log_interval)
     p.add_argument("--decay_epoch", type=int, default=d.decay_epochs)
     p.add_argument("--init_lr", type=float, default=d.init_lr)
@@ -77,12 +83,13 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
 
     mesh_cfg = MeshConfig()
-    device, data_ranks = args.device, 1
+    device, mesh = args.device, None
     launched = "WORLD_SIZE" in os.environ and not dist.is_initialized()
     if launched:
         device = parallel.init_from_env(args.device)
     if dist.is_initialized():
-        data_ranks, _ = mesh_cfg.layout(dist.get_world_size())
+        mesh = parallel.make_mesh(mesh_cfg, device)
+    data_ranks, data_rank = (mesh.data_size, mesh.data_rank) if mesh else (1, 0)
     cfg = CMGANConfig(
         model=ModelConfig(remat=args.remat),
         train=dataclasses.replace(
@@ -108,7 +115,8 @@ def main(argv=None):
     from cmgan_torch.train import Trainer
 
     train_loader, test_loader = load_data(
-        cfg.train.data_dir, cfg.train.batch_size, cfg.train.cut_len, cfg.train.seed
+        cfg.train.data_dir, args.batch_size, cfg.train.cut_len, cfg.train.seed,
+        num_processes=data_ranks, process_index=data_rank,
     )
     trainer = Trainer(
         cfg,
@@ -116,6 +124,7 @@ def main(argv=None):
         test_loader,
         dtype=torch.bfloat16 if args.bf16 else None,
         device=device,
+        mesh=mesh,
     )
     try:
         if args.resume:

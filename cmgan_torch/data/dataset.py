@@ -6,7 +6,8 @@ short clips tile-repeated to cut_len, long clips randomly cropped (same
 offset for both sides), batches stacked by a background prefetch
 thread. The same seed gives the same batches as the JAX package's
 loader. `num_processes` / `process_index` shard the indices for
-data-parallel runs; one process is the default.
+data-parallel runs (under a mesh: its data size and this rank's data
+rank); one process is the default.
 """
 
 from __future__ import annotations
@@ -156,20 +157,31 @@ def load_data(
     batch_size: int,
     cut_len: int = 32000,
     seed: int = 0,
+    num_processes: int = 1,
+    process_index: int = 0,
 ) -> Tuple[BatchLoader, BatchLoader]:
     """(train_loader, test_loader) over <data_dir>/{train,test}: the train
     loader shuffles and drops the last partial batch, the test loader
-    does neither."""
+    does neither.
+
+    num_processes / process_index shard the train loader as the JAX
+    package's loader shards by process: this process reads only its
+    stride of each epoch's order, `batch_size` rows a batch. The test
+    loader is not sharded: every process reads the test set whole, in
+    batches of batch_size * num_processes rows (one global batch), so a
+    test pass counts each item once."""
     train = BatchLoader(
         DemandDataset(os.path.join(data_dir, "train"), cut_len),
         batch_size,
         shuffle=True,
         drop_last=True,
         seed=seed,
+        num_processes=num_processes,
+        process_index=process_index,
     )
     test = BatchLoader(
         DemandDataset(os.path.join(data_dir, "test"), cut_len),
-        batch_size,
+        batch_size * num_processes,
         shuffle=False,
         drop_last=False,
         seed=seed,

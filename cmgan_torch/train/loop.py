@@ -4,8 +4,10 @@ Same loop structure as the JAX package's Trainer (and the CMGAN
 reference's): loss weights, LR schedule, per-epoch test pass and
 checkpointing, with full-state checkpoints that resume, and the JAX
 package's JSONL metrics stream (`metrics_path`). With a mesh
-(`cmgan_torch.parallel`) every rank runs this loop on the same global
-batches and steps on its data rank's rows of each.
+(`cmgan_torch.parallel`) every rank runs this loop and steps on its data
+rank's rows: its train loader yields either those rows alone (sharded by
+data rank, as the JAX package's loader shards by process) or global
+batches, of which the step takes them.
 """
 
 from __future__ import annotations
@@ -38,6 +40,27 @@ from cmgan_torch.utils import MetricsLogger
 log = logging.getLogger("cmgan_torch.train")
 
 
+def yields_local_rows(loader, mesh) -> bool:
+    """Whether `loader` yields this data rank's rows alone: it is sharded
+    as `load_data(num_processes=mesh.data_size, process_index=mesh.data_rank)`
+    shards it. False for a loader of global batches (num_processes 1;
+    a list of batches counts as one). A loader sharded any other way
+    raises, since it would train on another data rank's rows: under a
+    mesh the shard index is the DATA rank, which the seq ranks of one
+    data index share, never the global rank. Over a mesh of one data
+    rank the two are the same rows and the loader counts as local."""
+    procs = getattr(loader, "num_processes", 1)
+    index = getattr(loader, "process_index", 0)
+    if mesh is not None and (procs, index) == (mesh.data_size, mesh.data_rank):
+        return True
+    if (procs, index) == (1, 0):
+        return False
+    where = ("no mesh" if mesh is None else
+             f"data rank {mesh.data_rank} of {mesh.data_size} (mesh {mesh.shape})")
+    raise ValueError(f"the train loader is sharded as process {index} of {procs}, which fits "
+                     f"neither global batches nor {where}")
+
+
 class Trainer:
     """dtype: compute type of the models' convs and linears (None:
     float32). The default device is the GPU; without CUDA pass
@@ -49,7 +72,17 @@ class Trainer:
 
     mesh: a `parallel.make_mesh` grid; the device is then the mesh's. With
     no mesh and a process group up, one is made from cfg.mesh. Rank 0
-    alone writes checkpoints and metrics."""
+    alone writes checkpoints and metrics.
+
+    The train loader yields global batches (num_processes 1: every rank
+    reads them, train_epoch steps on its data rank's rows) or this data
+    rank's rows alone (num_processes = the mesh's data size, process_index
+    its data rank, as `load_data` shards); decided here once
+    (`yields_local_rows`, in `local_rows`), and a loader sharded for
+    another mesh raises. Its length is the epoch's steps, which drive the
+    LR schedule: n // (B * P) for a global loader of B * P rows, ceil(n / P)
+    // B for P shards of B rows (the JAX package's), equal on every rank.
+    The test loader stays global on every mesh (see `test`)."""
 
     def __init__(
         self,
@@ -65,13 +98,14 @@ class Trainer:
         check_supported(cfg)
         if mesh is None and dist.is_initialized():
             mesh = make_mesh(cfg.mesh, device)
+        self.local_rows = yields_local_rows(train_loader, mesh)
         self.cfg = cfg
         self.mesh = mesh
         self.metrics_logger = (MetricsLogger(metrics_path)
                                if metrics_path and is_writer() else None)
         self.train_loader = train_loader
         self.test_loader = test_loader
-        steps_per_epoch = max(len(train_loader), 1)
+        self.steps_per_epoch = steps_per_epoch = max(len(train_loader), 1)
         (self.g_step, self.d_step, self.test_fwd, self.test_disc_loss,
          self.fused_step) = make_train_steps(cfg, steps_per_epoch, mesh)
         if state is None:
@@ -92,11 +126,13 @@ class Trainer:
             self._label_pool = ThreadPoolExecutor(max_workers=1)
 
     # ------------------------------------------------------------------
-    def train_step(self, clean: np.ndarray, noisy: np.ndarray):
-        """One GAN step on a global batch; returns (gen_loss, disc_loss) as
-        0-d DEVICE tensors (not fetched: callers decide when to sync), the
-        global batch's means under a mesh, where each rank steps on (and
-        labels) its data rank's rows.
+    def train_step(self, clean: np.ndarray, noisy: np.ndarray, local: bool = False):
+        """One GAN step on a global batch, or with local=True on this data
+        rank's rows of one (what a loader sharded by data rank yields);
+        returns (gen_loss, disc_loss) as 0-d DEVICE tensors (not fetched:
+        callers decide when to sync), the global batch's means under a
+        mesh, where each rank steps on (and labels) its data rank's rows.
+        Without a mesh, or over one data rank, the two forms are one.
 
         pesq_label_mode='host': the G phase, the native CPU scorer, the D
         phase, in that order. 'device': one fused step with the labels
@@ -111,7 +147,7 @@ class Trainer:
         the PREVIOUS batch's disc loss, or None on the first step of an
         epoch; `drain_pending_d()` applies the final deferred update.
         """
-        if self.mesh is not None:
+        if self.mesh is not None and not local:
             clean, noisy = shard_batch(self.mesh, clean, noisy)
         if self.cfg.train.pesq_label_mode == "device":
             metrics, disc_loss = self.fused_step(self.state, clean, noisy)
@@ -181,9 +217,16 @@ class Trainer:
         When an EMA tree is tracked (gen_ema_decay > 0), it is restored
         from the sibling ``<path>_ema`` variables if present (written by
         save_checkpoint), else re-seeded from the restored raw weights,
-        never left tracking the pre-restore init.
+        never left tracking the pre-restore init. The loaders go on at the
+        epoch that follows the restored step (the JAX package restarts
+        them at epoch 0), so the shuffle, each rank's shard and the crops
+        are those of the run without the restart.
         """
         restore_train_state(path, self.state)
+        # checkpoints fall on epoch ends, so the step counts whole epochs
+        for loader in (self.train_loader, self.test_loader):
+            if hasattr(loader, "epoch"):
+                loader.epoch = self.state.step // self.steps_per_epoch
         if self.ema_params is not None:
             seed = self.state.gen.state_dict()
             ema_path = path + "_ema"
@@ -227,11 +270,13 @@ class Trainer:
             for s in done:
                 del pending[s]
 
+        # the rows a step takes over all ranks: a local batch is one data rank's
+        ranks = self.mesh.data_size if self.local_rows else 1
         step = 0
         for idx, (clean, noisy) in enumerate(self.train_loader):
             step = idx + 1
-            gen_dev, disc_dev = self.train_step(clean, noisy)
-            pending[step] = {"rows": clean.shape[0], "gen": gen_dev}
+            gen_dev, disc_dev = self.train_step(clean, noisy, local=self.local_rows)
+            pending[step] = {"rows": clean.shape[0] * ranks, "gen": gen_dev}
             if async_mode:
                 if disc_dev is not None:  # belongs to the previous step
                     pending[step - 1]["disc"] = disc_dev
@@ -253,7 +298,11 @@ class Trainer:
         ranks), and the averages are weighted by REAL rows only: padded
         duplicate rows never reach the reported loss. Under a mesh each
         rank scores its rows and the per-row losses are gathered, so every
-        rank returns the global mean.
+        rank returns the global mean. The test loader is global on every
+        mesh (`load_data` shards the train loader only): each rank reads
+        the test set whole and each item counts once. (The JAX package's
+        loader would shard it too, wrap-padding duplicates into the last
+        shards; over one process the two are the same.)
         """
         if self.test_loader is None:
             return float("nan")

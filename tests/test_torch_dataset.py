@@ -76,3 +76,23 @@ def test_process_sharding_matches(data_dir):
         np.testing.assert_array_equal(a._epoch_indices(), b._epoch_indices())
         assert len(a) == len(b) == 2
     assert tds.BatchLoader(ds, 2).num_processes == 1
+
+
+def test_load_data_shards_the_train_loader_only(data_dir):
+    """load_data's process shard reaches the train loader, whose batches are
+    the JAX loader's at that process; the test loader stays whole, in
+    batches of the global batch (batch_size rows a process)."""
+    train, test = tds.load_data(data_dir, 2, 4000, seed=3, num_processes=2, process_index=1)
+    assert (train.num_processes, train.process_index, train.batch_size) == (2, 1, 2)
+    assert (test.num_processes, test.batch_size) == (1, 4)
+    want = jds.BatchLoader(jds.DemandDataset(os.path.join(data_dir, "train"), 4000), 2, seed=3,
+                           num_processes=2, process_index=1, prefetch=0)
+    assert len(train) == len(want) == 2   # ceil(7 / 2) // 2
+    for (c1, n1), (c2, n2) in zip(list(train), list(want)):
+        np.testing.assert_array_equal(c1, c2)
+        np.testing.assert_array_equal(n1, n2)
+    _, whole = tds.load_data(data_dir, 4, 4000, seed=3)
+    got, ref = list(test), list(whole)
+    assert [c.shape[0] for c, _ in got] == [c.shape[0] for c, _ in ref] == [3]
+    for (c1, _), (c2, _) in zip(got, ref):
+        np.testing.assert_array_equal(c1, c2)

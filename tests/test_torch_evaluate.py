@@ -1,11 +1,14 @@
 """The port's evaluate CLI on the CPU: the JAX package's flags plus
 --device, the metric suite over a generated two-pair test directory at
-the full published width, and the checkpoints --model_path takes.
+the full published width, and the checkpoints --model_path takes; the
+enhance CLI on the same checkpoints.
 
 Tolerances: the CLI scores the enhanced tracks in float; it saves them as
 16-bit PCM, so its aggregates equal the metrics of the saved tracks to
 within the rounding to 16 bits: 1e-3 absolute (measured at most 1.5e-5,
-on STOI). Loading a checkpoint is exact.
+on STOI). Loading a checkpoint is exact, and so is the enhance CLI's wav against
+Enhancer's on the same weights (the same float32 path on the CPU, then the
+same rounding to 16 bits): compared byte for byte.
 """
 
 import json
@@ -17,6 +20,7 @@ import torch
 
 from cmgan_tpu.cli import evaluate as jax_cli
 from cmgan_torch.checkpoint import save_train_state, save_variables
+from cmgan_torch.cli import enhance as enhance_cli
 from cmgan_torch.cli import evaluate as cli
 from cmgan_torch.config import CMGANConfig
 from cmgan_torch.data import read_wav, write_wav
@@ -110,3 +114,28 @@ def test_exact_mode_and_the_model_path_reach_the_enhancer(test_dir, tmp_path, mo
     assert seen["dtype"] == torch.bfloat16 and seen["device"] == "cpu"
     assert seen["cut_len"] == 2 * SR
     assert all(torch.equal(seen["state_dict"][k], v) for k, v in state.gen.state_dict().items())
+
+
+@pytest.mark.parametrize("kind", ["train_state", "variables", "none"])
+def test_enhance_cli_reads_the_ports_checkpoints(test_dir, tmp_path, kind):
+    """cli.enhance --model_path on a file of save_train_state and on one of
+    save_variables (the _ema kind) writes what Enhancer writes on the
+    generator's state_dict; with no checkpoint, the seeded random init."""
+    state = init_train_state(CMGANConfig(), seed=5, steps_per_epoch=1, device="cpu")
+    weights = state.gen.state_dict()
+    flags = []
+    if kind == "train_state":
+        save_train_state(str(tmp_path / "ckpt"), state)
+        flags = ["--model_path", str(tmp_path / "ckpt")]
+    elif kind == "variables":
+        save_variables(str(tmp_path / "ckpt_ema"), weights)
+        flags = ["--model_path", str(tmp_path / "ckpt_ema")]
+    else:
+        weights = None
+    noisy_path = os.path.join(test_dir, "noisy", "p0.wav")
+    enhance_cli.main(["--input", noisy_path, "--output", str(tmp_path / "cli.wav"),
+                      "--device", "cpu", *flags])
+    noisy, sr = read_wav(noisy_path)
+    want = Enhancer(CMGANConfig(), weights, device="cpu").enhance(noisy[0], mode="bucket")
+    write_wav(str(tmp_path / "enhancer.wav"), want, sr)
+    assert (tmp_path / "cli.wav").read_bytes() == (tmp_path / "enhancer.wav").read_bytes()

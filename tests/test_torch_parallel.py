@@ -9,7 +9,12 @@ global batch, or against the JAX package's `Enhancer(mesh=...)`.
 - JAX's sharded long-form enhancement case (tests/test_seq_parallel.py)
   at 4 seq ranks.
 - A 'seq' Trainer at 2 x 2 data x seq: it constructs, steps and tests.
-- The train CLI as torchrun starts it, over 2 ranks.
+- The train CLI as torchrun starts it, over 2 ranks, each reading its
+  data rank's shard.
+- One epoch of 2 data ranks on train loaders sharded by data rank, in the
+  host and device label modes, against one process fed both ranks' rows.
+- The loaders of a 2 x 2 grid: the seq ranks of a data rank get its shard
+  (the JAX loader's) bit for bit; a loader sharded for another mesh raises.
 
 Dropout is off wherever two runs are compared (its streams differ).
 
@@ -20,7 +25,8 @@ Parameters: 1e-5 relative (to the entry, or to the tensor's largest
 entry: p0 - lr lands near 0 for some) wherever the gradient is real
 (|g| > 1e-6); an entry whose gradient is rounding noise around 0 (a conv bias in front
 of an InstanceNorm) may step the other way, by up to 2 x lr. BatchNorm
-running statistics: 1e-6. Losses: 1e-5 relative. Enhanced audio: the
+running statistics: 1e-6. Losses: 1e-5 relative. The batches a loader yields: bit for bit (the same
+files, crops and float32 casts). Enhanced audio: the
 single-process rows to 1e-5 relative (eval mode: rows do not interact),
 JAX's sharded pipeline to its own test's 5e-5 / 1e-4.
 """
@@ -43,7 +49,9 @@ from cmgan_torch import parallel
 from cmgan_torch.config import CMGANConfig, DSPConfig, EvalConfig, MeshConfig, ModelConfig
 from cmgan_torch.config import TrainConfig
 from cmgan_torch.convert import state_dict_from_flax
+from cmgan_tpu.data import dataset as jds
 from cmgan_torch.data import write_wav
+from cmgan_torch.data import dataset as tds
 from cmgan_torch.inference import Enhancer, load_generator
 from cmgan_torch.models import TSCNet
 from cmgan_torch.train import Trainer, init_train_state
@@ -146,11 +154,18 @@ def ranked(data_dir, tmp_path_factory):
                dict(cfg=_cfg(m, dp), clean=_batch(1, silent=3)[0],
                     noisy=_batch(1, silent=3)[1], steps_per_epoch=SPE))
               for m in ("host", "device")]
+    pairs += [(f"local_{m}", "local_epoch", dict(cfg=_cfg(m, dp), data_dir=data_dir,
+                                                batch_size=2))
+              for m in ("host", "device")]
     pairs += [("enhance_batch", "enhance_batch",
                dict(cfg=small, state_dict=load_generator(small, None, device="cpu").state_dict(),
                     tracks=_tracks(), batch_cap=3, data_parallel=2)),
               ("cli", "train_cli", dict(argv=_cli_args(data_dir, cli_dir)))]
     cases += [(name, side[i % 2], fn, kw) for i, (name, fn, kw) in enumerate(pairs)]
+    cases.append(("grid", QUAD, "grid_loaders",
+                  dict(cfg=_cfg("host", MeshConfig(seq_parallel=2),
+                                SEQ_TRAIN_MODEL | {"attention_impl": "seq"}, SEQ_CUT),
+                       data_dir=data_dir, batch_size=1)))
     results = workers.run(cases)
     results["cli_dir"] = cli_dir
     return results
@@ -273,15 +288,94 @@ def test_seq_trainer_constructs_steps_and_tests_on_a_2x2_grid(ranked):
     assert not np.array_equal(results[0]["rng"], results[2]["rng"])
 
 
-def test_train_cli_under_torchrun(ranked):
+def _shard_batches(data_dir, cut, rows, procs, index, package=tds):
+    """One epoch of `package`'s train loader at process `index` of `procs`."""
+    ds = package.DemandDataset(os.path.join(data_dir, "train"), cut)
+    return list(package.BatchLoader(ds, rows, seed=TrainConfig().seed, num_processes=procs,
+                                    process_index=index, prefetch=0))
+
+
+def test_train_cli_under_torchrun(ranked, data_dir):
+    """Each rank reads its data rank's shard (4 files over 2 ranks, a batch
+    of 1: ceil(4 / 2) // 1 = 2 steps), the loader's rows go to the step as
+    local rows, the two ranks' rows are disjoint, the generators equal."""
     results = ranked["cli"]
-    for res in results:   # 4 files, a batch of 1 a data rank: 2 steps
-        assert res["step"] == 2 and res["batch_size"] == 2
+    for rank, res in enumerate(results):
+        assert res["step"] == res["steps_per_epoch"] == 2 and res["batch_size"] == 2
         assert res["shape"] == {"data": 2, "seq": 1}
+        assert res["loader"] == (2, rank, 1) and res["test_batch_size"] == 2
+        assert res["local"] == [True, True]
+        want = _shard_batches(data_dir, 1600, 1, 2, rank)
+        assert len(res["batches"]) == len(want) == 2
+        for got, (clean, _) in zip(res["batches"], want):
+            np.testing.assert_array_equal(got, clean)
+    for a, b in zip(results[0]["batches"], results[1]["batches"]):
+        assert not any(np.array_equal(x, y) for x in a for y in b)
+    shards = [set(tds.BatchLoader(tds.DemandDataset(os.path.join(data_dir, "train"), 1600), 1,
+                                  num_processes=2, process_index=r)._epoch_indices())
+              for r in (0, 1)]
+    assert not shards[0] & shards[1] and len(shards[0] | shards[1]) == 4
     for name, a in results[0]["gen"].items():
         np.testing.assert_array_equal(a, results[1]["gen"][name], err_msg=name)
     names = os.listdir(ranked["cli_dir"])
     assert len(names) == 1 and names[0].startswith("CMGAN_epoch_0_")   # rank 0 wrote it
+
+
+@pytest.mark.parametrize("mode", ("host", "device"))
+def test_local_loader_epoch_matches_one_process(ranked, data_dir, mode):
+    """Two data ranks, each on its data rank's shard of the 4 files (a batch
+    of 2: one step), against one process fed rank 0's batch followed by
+    rank 1's: the limits of _assert_same_step. (They hold for one step: a
+    second compares states that the first step's noise entries have already
+    split, and its BatchNorm statistics differ by ~4e-5.) The logged
+    utterance count is the global batch's, 4."""
+    results = ranked[f"local_{mode}"]
+    for rank, res in enumerate(results):
+        assert res["shape"] == {"data": 2, "seq": 1} and res["local_rows"]
+        assert res["steps_per_epoch"] == 1 and res["local"] == [True]
+        want = _shard_batches(data_dir, CUT, 2, 2, rank)
+        assert len(res["batches"]) == len(want) == 1
+        for (c1, n1), (c2, n2) in zip(res["batches"], want):
+            np.testing.assert_array_equal(c1, c2)
+            np.testing.assert_array_equal(n1, n2)
+        assert res["rates"] == [4.0]
+    trainer = Trainer(_cfg(mode), [None], None, device="cpu")
+    for (c0, n0), (c1, n1) in zip(results[0]["batches"], results[1]["batches"]):
+        gen_loss, disc_loss = trainer.train_step(np.concatenate([c0, c1]), np.concatenate([n0, n1]))
+    ref = {"gen_loss": float(gen_loss), "disc_loss": float(disc_loss),
+           **workers.step_state(trainer.state)}
+    for res in results:
+        _assert_same_step(res, ref)
+
+
+def test_seq_ranks_of_a_data_rank_get_its_shard(ranked, data_dir):
+    """On a 2 x 2 grid, ranks 2d and 2d + 1 (data rank d) get the same
+    batches, crops included, and they are the JAX BatchLoader's at
+    process d of 2."""
+    results = ranked["grid"]
+    assert [(r["data_rank"], r["seq_rank"]) for r in results] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for d in (0, 1):
+        want = _shard_batches(data_dir, SEQ_CUT, 1, 2, d, package=jds)
+        for res in results[2 * d:2 * d + 2]:
+            assert res["local_rows"] and len(res["batches"]) == len(want) == 2
+            for (c1, n1), (c2, n2) in zip(res["batches"], want):
+                np.testing.assert_array_equal(c1, c2)
+                np.testing.assert_array_equal(n1, n2)
+    assert not np.array_equal(results[0]["batches"][0][0], results[2]["batches"][0][0])
+
+
+def test_a_loader_sharded_for_another_mesh_raises(ranked, data_dir):
+    """On the 2 x 2 grid, a loader sharded by global rank over the world (4
+    shards) and one of the other data rank both raise at construction on
+    every rank; so does one sharded over 2 when the mesh has 2 data ranks
+    but the shard is not this rank's, without any process group."""
+    for res in ranked["grid"]:
+        assert [e is not None and "fits neither" in e for e in res["errors"]] == [True, True]
+    fake = parallel.Mesh(("data", "seq"), 2, 1, 1, 0, None, None, torch.device("cpu"))
+    wrong = tds.BatchLoader(tds.DemandDataset(os.path.join(data_dir, "train"), CUT), 1,
+                            num_processes=2, process_index=0)
+    with pytest.raises(ValueError, match="process 0 of 2.*data rank 1 of 2"):
+        Trainer(_cfg(), wrong, None, device="cpu", mesh=fake)
 
 
 def test_freq_conformer_takes_auto_under_a_seq_config():

@@ -552,6 +552,35 @@ def test_checkpoint_round_trip_resumes_the_run(data_dir, tmp_path):
                                first.state.gen.state_dict()["dense_encoder.conv_1.0.weight"])
 
 
+def test_restore_resumes_the_loaders_at_the_next_epoch(data_dir, tmp_path):
+    """A checkpoint after two epochs restores into a trainer whose loaders
+    go on at epoch 2: the shuffle and the crops of the run without the
+    restart."""
+    first = _trainer(data_dir, cut_len=1600)   # 5 files, batch 2: 2 steps an epoch
+    assert first.steps_per_epoch == 2 and not first.local_rows
+    first.state.step = 2 * first.steps_per_epoch
+    path = first.save_checkpoint(str(tmp_path), 1, 1.0)
+    second = _trainer(data_dir, cut_len=1600)
+    second.restore_checkpoint(path)
+    assert second.train_loader.epoch == second.test_loader.epoch == 2
+    ref_train, ref_test = load_data(data_dir, BATCH, 1600, TrainConfig().seed)
+    for loader in (ref_train, ref_test):
+        list(loader), list(loader)   # epochs 0 and 1
+    for got, want in ((second.train_loader, ref_train), (second.test_loader, ref_test)):
+        got, want = list(got), list(want)
+        assert len(got) == len(want) > 0
+        for (c1, n1), (c2, n2) in zip(got, want):
+            np.testing.assert_array_equal(c1, c2)
+            np.testing.assert_array_equal(n1, n2)
+
+
+def test_a_sharded_loader_without_a_mesh_raises(data_dir):
+    _, cfg = _cfgs()
+    train, test = load_data(data_dir, BATCH, CUT, num_processes=2, process_index=0)
+    with pytest.raises(ValueError, match="process 0 of 2.*no mesh"):
+        Trainer(cfg, train, test, device="cpu")
+
+
 def test_test_pass_weights_a_partial_last_batch_by_real_rows(data_dir):
     t = _trainer(data_dir)  # 3 test files, batch 2: the last batch has one row
     got = t.test()

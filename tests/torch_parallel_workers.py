@@ -15,10 +15,12 @@ Imports torch, numpy and the port only: JAX stays in the test process.
 from __future__ import annotations
 
 import datetime
+import logging
 import os
 import pickle
 import socket
 import tempfile
+import types
 
 import numpy as np
 import torch
@@ -148,6 +150,96 @@ def train_step(cfg, clean, noisy, steps_per_epoch, test=False):
     return out
 
 
+def record_steps(trainer):
+    """Wrap trainer.train_step so each call keeps what it got (the batch,
+    copied, and its `local` flag) and what it returned; returns the list
+    the calls append to."""
+    seen, step = [], trainer.train_step
+
+    def recording(clean, noisy, local=False):
+        out = step(clean, noisy, local=local)
+        seen.append({"clean": np.array(clean), "noisy": np.array(noisy), "local": local,
+                     "out": out})
+        return out
+
+    trainer.train_step = recording
+    return seen
+
+
+class _LoggedRates(logging.Handler):
+    """The utterances/s of the train loop's log lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.rates = []
+
+    def emit(self, record):
+        if "utt/s" in record.msg:
+            self.rates.append(record.args[-1])
+
+
+def local_epoch(cfg, data_dir, batch_size):
+    """Every rank a data rank, each with a train loader sharded by its data
+    rank (load_data), one epoch of Trainer.train_epoch. The loop's clock
+    ticks one second a reading, so each logged rate is the count of
+    utterances its window stepped on. Returns each step's batch and the
+    last step's losses, the logged rates and the state."""
+    from cmgan_torch.data.dataset import load_data
+    from cmgan_torch.train import Trainer, loop
+
+    mesh = _mesh()
+    train, _ = load_data(data_dir, batch_size, cfg.train.cut_len, cfg.train.seed,
+                         num_processes=mesh.data_size, process_index=mesh.data_rank)
+    trainer = Trainer(cfg, train, None, device="cpu", mesh=mesh)
+    seen = record_steps(trainer)
+    ticks = iter(range(10 ** 6))
+    clock, loop.time = loop.time, types.SimpleNamespace(perf_counter=lambda: float(next(ticks)))
+    rates = _LoggedRates()
+    loop.log.addHandler(rates)
+    loop.log.setLevel(logging.INFO)
+    try:
+        trainer.train_epoch(0)
+    finally:
+        loop.time = clock
+        loop.log.removeHandler(rates)
+    gen_loss, disc_loss = seen[-1]["out"]
+    return {"gen_loss": float(gen_loss), "disc_loss": float(disc_loss), "shape": mesh.shape,
+            "local_rows": trainer.local_rows, "steps_per_epoch": trainer.steps_per_epoch,
+            "batches": [(b["clean"], b["noisy"]) for b in seen],
+            "local": [b["local"] for b in seen], "rates": rates.rates,
+            **step_state(trainer.state)}
+
+
+def grid_loaders(cfg, data_dir, batch_size):
+    """A Trainer on a 2-rank seq axis (data x seq over the world) with a
+    train loader sharded by data rank: the batches of its first epoch as
+    the Trainer iterates them. Then the errors (None if none) of Trainers
+    given loaders sharded for another mesh: by global rank over the world,
+    and by the other data rank."""
+    from cmgan_torch.data.dataset import load_data
+    from cmgan_torch.train import Trainer
+
+    mesh = _mesh(seq_parallel=2)
+
+    def loader(procs, index):
+        return load_data(data_dir, batch_size, cfg.train.cut_len, cfg.train.seed,
+                         num_processes=procs, process_index=index)[0]
+
+    trainer = Trainer(cfg, loader(mesh.data_size, mesh.data_rank), None, device="cpu",
+                      mesh=mesh)
+    errors = []
+    for procs, index in ((dist.get_world_size(), dist.get_rank()),
+                         (mesh.data_size, 1 - mesh.data_rank)):
+        try:
+            Trainer(cfg, loader(procs, index), None, device="cpu", mesh=mesh)
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    return {"data_rank": mesh.data_rank, "seq_rank": mesh.seq_rank,
+            "local_rows": trainer.local_rows, "batches": list(trainer.train_loader),
+            "errors": errors}
+
+
 def enhance_batch(cfg, state_dict, tracks, batch_cap, data_parallel):
     """Enhancer.enhance_batch with the rows split over the data ranks."""
     from cmgan_torch.inference import Enhancer
@@ -175,6 +267,7 @@ def train_cli(argv):
     world in the environment, no process group yet (the CLI joins one at
     a port rank 0 found free just before)."""
     from cmgan_torch.cli import train as cli_train
+    from cmgan_torch.train import Trainer
 
     rank, world = dist.get_rank(), dist.get_world_size()
     port = [None]
@@ -186,6 +279,21 @@ def train_cli(argv):
     dist.destroy_process_group()
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port[0]))
-    trainer = cli_train.main(argv)
+    seen, step = [], Trainer.train_step
+
+    def recording(self, clean, noisy, local=False):
+        seen.append((np.array(clean), local))
+        return step(self, clean, noisy, local=local)
+
+    Trainer.train_step = recording
+    try:
+        trainer = cli_train.main(argv)
+    finally:
+        Trainer.train_step = step
+    loader = trainer.train_loader
     return {"step": trainer.state.step, "batch_size": trainer.cfg.train.batch_size,
-            "shape": trainer.mesh.shape, **step_state(trainer.state)}
+            "shape": trainer.mesh.shape, "steps_per_epoch": trainer.steps_per_epoch,
+            "loader": (loader.num_processes, loader.process_index, loader.batch_size),
+            "test_batch_size": trainer.test_loader.batch_size,
+            "batches": [c for c, _ in seen], "local": [flag for _, flag in seen],
+            **step_state(trainer.state)}
