@@ -2,12 +2,19 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --backward-times [ROOT]
+
+The second form runs only the builds and phase 7 with the chip_smoke.py
+and the package of the checkout at ROOT (default: this one), then prints
+one JSON line of every backward case's times: run it on two checkouts in
+one call to compare their kernels on one card.
 
 CMGAN at its full published width (64 channels, 4 TSCBs, 4 heads of dim
 16, 201 bins, discriminator ndf 16) with seeded random weights, through
 the hand-written CUDA kernels: offline enhancement, GAN training,
 evaluation, streaming and the TCP server; then the 48 kHz long-form
-preset (6 TSCBs, 601 bins) at its full width.
+preset (6 TSCBs, 601 bins) at its full width, and the published width
+again with the JAX package's trained weights (phase 20).
 Phases, each printing lines, none catching its own
 failure, none falling back to the CPU or to a plain version:
 
@@ -39,10 +46,10 @@ failure, none falling back to the CPU or to a plain version:
      t_valid = 1 case (dq, dk and dE are zero) and a max_pos = 1536 case
      (a table too long for a block's shared memory); head dims 8, 32 and
      64, fp32 and bf16; the wide backward at D 80, 100, 128, 256 and 320,
-     and its kernels' device time with and without the dE atomics; the fp32
-     kernels' and
-     plain versions' distance from float64; the backward's device time by
-     kernel;
+     and its kernels' device time with and without the dq kernel's dE
+     writes; every case run twice, its dq, dk, dv and dE bitwise equal;
+     the fp32 kernels' and plain versions' distance from float64; the
+     backward's device time by kernel;
   8. the fused LayerNorm kernel against its plain version and against
      F.layer_norm at [1616*321, 64] and [5136*101, 64], and at the widths
      63, 65, 513 and 1024, fp32 and bf16, forward and gradient, with the
@@ -98,12 +105,14 @@ failure, none falling back to the CPU or to a plain version:
      its cut_len 96000;
  19. data and sequence parallelism (cmgan_torch.parallel): a NCCL process
      group of one rank; a device-label train_step at cut_len 64000 with
-     mesh=make_mesh(...) against the same step without a mesh (bitwise or
-     within 1e-6), its second step under set_sync_debug_mode("error");
+     mesh=make_mesh(...) against the same step without a mesh (losses and
+     every state tensor bitwise), its second step under
+     set_sync_debug_mode("error");
      seq_rel_attention's per-rank function for ranks 0 to 3 in one process
      at G 1204, T 4801 (t_loc 1280, keys padded to 5120), fp32 and bf16,
      forward against the unsharded kernel #1 and backward (kernel #2 at
      each offset, dk, dv, dE summed) against the unsharded kernel #2, each
+     rank's backward run twice and bitwise equal, each
      rank's launches timed beside the unsharded one and the rank's plain
      versions; long_form_48k() with
      attention_impl='seq' at world 1 on a 30 s track against 'auto', and
@@ -113,12 +122,19 @@ failure, none falling back to the CPU or to a plain version:
      (load_data at the mesh's data size and rank) on a written dataset at
      cut_len 64000, batch 4: one epoch (one step) through train_epoch in the
      device and in the host label mode, each against the global-loader step
-     on the same rows (bitwise but for kernel #2's atomics-summed tables, at
-     its own limit for them), with
+     on the same rows (every state tensor bitwise equal), with
      its launches; then host seconds a batch (prefetch 0) over one epoch of
      128 files for a global loader of 4 x 8 rows (what each of 8 data ranks
      read before loaders were sharded) and a local one of 4 rows at process 0
-     of 8, beside [12]'s G step.
+     of 8, beside [12]'s G step;
+ 20. trained weights: the JAX package's fold-1 EMA generator as
+     tests/torch_data/r05_fold1_ema/generator.pt, loaded through
+     inference.load_generator, on the 4 s track of golden_4s.npz in bucket
+     mode: fp32 through kernel #1 (4 launches) against the JAX package's
+     own output and against 'xla', bf16 against fp32; a 16 s track 'auto'
+     against 'xla' and bf16 against fp32; one device-label train_step at
+     cut_len 64000 from the trained generator, run twice from one state:
+     every state tensor bitwise equal.
 
 Then the card's line, a JSON line with each kernel's numbers, and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, or without
@@ -155,10 +171,11 @@ FLASH_VS_XLA_REL = 1e-4   # fp32: attention sums in another order (~1e-6), 100x 
 BF16_VS_FP32_REL = 5e-2   # bf16 keeps 8 significant bits; 1.6e-2 measured on a CPU run
 PLAIN_GROUP_CHUNK = 32    # groups per plain-version call, so its [g, T, T] logits fit
 # backward kernel against autograd through the plain version, as a share of
-# the reference's largest entry: fp32 sums in another order (2e-6 seen), the
-# table's gradient through fp32 atomics in an order that varies (4e-6 seen);
+# the reference's largest entry: fp32 sums in another order (2e-6 seen; the
+# table's gradient, whose rows 0 and 2*max_pos sum every distant pair, 4e-6);
 # bf16 rounds each output once (2^-8 of its binade) and takes delta from the
-# bf16-rounded forward output (5e-3 seen)
+# bf16-rounded forward output (5e-3 seen). Two runs of one case are bitwise
+# equal: every backward path sums in a fixed order.
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # fp32 kernels against float64, relative L2, over the plain fp32 versions' own
 # distance: the kernels sum in another order and take exp by the fast unit
@@ -222,27 +239,26 @@ MATMUL_DFT_REL = 1e-5
 PRESET_TRAIN_BATCH, PRESET_TRAIN_REMAT = 4, True
 # [19] a data-parallel step over a one-rank mesh against the step without one,
 # deterministic algorithms on both: the mesh's collectives over one rank copy
-# and divide by 1, so the two are bitwise equal but for kernel #2's table rows
-# 0 and 2*max_pos, which sum by shared atomics in an order that varies from run
-# to run (~1e-7); every state tensor within this of its largest entry. (A
-# second step turns those bits into other signs of the noise gradients of
-# AdamW's first steps: compared after one.)
-MESH_STEP_REL = 1e-6
+# and divide by 1, and kernel #2 sums in a fixed order, so the losses and
+# every state tensor are bitwise equal. (Compared after one step.)
 # the 48 kHz preset's 4801 frames split over 4 seq ranks (t_loc 1280) at its
 # G of 1204; 'seq' at world 1 against 'auto': kernel #1 both, over 4864 keys
 # (63 masked) against 4801, sums in another order (~1e-7)
 SEQ_G, SEQ_T, SEQ_RANKS = 1204, 4801, 4
 SEQ_VS_AUTO_REL = 1e-4
 # [19d] a loader sharded by data rank at world 1 against the global loader:
-# the same rows through the same step, every state tensor bitwise equal but
-# the relative-position tables (and their AdamW moments), whose gradient
-# kernel #2 sums by atomics in an order that varies from run to run. Those
-# are held in the gradient's units (exp_avg_sq through its square root) at
-# kernel #2's own limit for that gradient, a share of the largest entry
-# (seen: up to 9.6e-7 on exp_avg_sq itself, before its square root). (b) times loaders over LOADER_FILES written files for
-# LOADER_RANKS data ranks
-LOCAL_LOADER_TABLE_REL = BWD_TOL["float32"]
+# the same rows through the same step, every state tensor bitwise equal. (b)
+# times loaders over LOADER_FILES written files for LOADER_RANKS data ranks
 LOADER_FILES, LOADER_RANKS = 128, 8
+# [20] the trained generator and the JAX package's output on its 4 s track
+# (tests/test_torch_trained.py writes both): the port's fp32 against it, and
+# 'auto' against 'xla', within FLASH_VS_XLA_REL; bf16 against fp32 within
+# TRAINED_BF16_REL, the bound the CPU tests set for this checkpoint
+# (test_torch_models.py; the JAX package's own bf16 stands 6.8e-3 from its
+# fp32 on this track); the long track's length
+TRAINED_DIR = os.path.join(ROOT, "tests", "torch_data", "r05_fold1_ema")
+TRAINED_BF16_REL = 2e-2
+TRAINED_LONG_SECONDS = 16
 
 
 def log(msg: str):
@@ -516,6 +532,11 @@ def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PL
     torch.cuda.synchronize()
     if (fa.launches - fwd0, fa.backward_launches - bwd0) != (1, 1):
         raise AssertionError("the wrapper did not launch one forward and one backward")
+    # once more on the same inputs: every sum in a fixed order, the same bits
+    again = torch.autograd.grad(fa.flash_rel_attention_at(*leaves, max_pos, t_valid, q_offset),
+                                leaves, cot)
+    bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
 
     def plain():
         ref = [torch.zeros_like(t, dtype=torch.float32) for t in (q, k, v, table)]
@@ -530,7 +551,7 @@ def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PL
     ref = plain()
     torch.cuda.synchronize()
     tol = BWD_TOL[dtype_name]
-    errs, ok = {}, True
+    errs, ok = {}, bitwise
     # with one valid key the weights are the constant 1: dq, dk and dE are zero
     # and their references hold rounding noise, so the cotangent's largest entry is the scale
     floor = cot.float().abs().max().item() if t_valid == 1 else 0.0
@@ -551,11 +572,13 @@ def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PL
     case = {
         "dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "D": d, "t_valid": t_valid,
         "q_offset": q_offset, "max_pos": max_pos, "errors": errs, "tol_of_ref_max": tol,
+        "bitwise": bitwise,
         "max_abs_err": max(e["max_abs_err"] for n, e in errs.items() if n != "dE"),
         "ms": ms, "plain_ms": plain_ms,
         **attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward=True, d=d),
     }
-    log(f"[7] backward kernel {json.dumps(case)}")
+    log(f"[7] backward kernel {json.dumps(case)}; two runs "
+        + ("bitwise equal" if bitwise else "DIFFER"))
     if not ok:
         raise AssertionError(f"backward kernel disagrees with the plain version: {case}")
     return case
@@ -601,7 +624,7 @@ def check_against_float64(seed=13):
 def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3, d=16):
     """[7] device time of each kernel of one backward launch (at the training
     shape, or at head dim d). For a wide head, the same again with the dq
-    kernel's dE atomics off (a wrong dE, for the atomics' share only).
+    kernel's dE writes off (a wrong dE, for those writes' share only).
     Returns {kernel: ms} of the run with them."""
     import torch
     from torch.autograd import DeviceType
@@ -630,21 +653,21 @@ def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3, d=16):
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and "flash_rel" in e.key}
 
-    with_atomics = times()
-    for name, ms in with_atomics.items():
+    with_writes = times()
+    for name, ms in with_writes.items():
         log(f"[7] backward {dtype_name} G {g} T {t} D {d}: {ms:.3f} ms a launch, {name}")
     if fa.wide_head_dim(d):
         lib = fa._wide_kernel()
-        lib.cmgan_flash_rel_attention_wide_de_atomics(0)
+        lib.cmgan_flash_rel_attention_wide_de_writes(0)
         try:
             without = times()
         finally:
-            lib.cmgan_flash_rel_attention_wide_de_atomics(1)
-        name = next(n for n in with_atomics if "bwd_q" in n)
-        share = 1 - without[name] / with_atomics[name]
-        log(f"[7] backward {dtype_name} D {d}: the dq/dE kernel {with_atomics[name]:.3f} ms with "
-            f"its dE atomics, {without[name]:.3f} ms without: the atomics' share {100 * share:.1f}%")
-    return with_atomics
+            lib.cmgan_flash_rel_attention_wide_de_writes(1)
+        name = next(n for n in with_writes if "bwd_q" in n)
+        share = 1 - without[name] / with_writes[name]
+        log(f"[7] backward {dtype_name} D {d}: the dq/dE kernel {with_writes[name]:.3f} ms with "
+            f"its dE writes, {without[name]:.3f} ms without: their share {100 * share:.1f}%")
+    return with_writes
 
 
 def check_layernorm_case(dtype_name, n, seed, c=64, eps=1e-5):
@@ -721,7 +744,8 @@ def ptxas_usage(nvcc_log: str):
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             mangled = entry.group(1)
-            base = re.search(r"\d(flash_rel_(?:wide_(?:fwd|bwd_q|bwd_k|delta)|fwd|bwd|delta|sum_partials)"
+            base = re.search(r"\d(flash_rel_(?:wide_(?:fwd|bwd_q|bwd_k|delta|sum_partials)|fwd|bwd|delta"
+                             r"|sum_partials)"
                              r"|layernorm_(?:regs|span|long))[IE]", mangled)
             dtype = "bf16" if "bfloat16" in mangled else "fp32"
             ints = re.findall(r"Li(\d+)E", mangled)
@@ -766,7 +790,7 @@ def build_all():
                 f"max_pos 512: forward {fwd_lib.cmgan_flash_rel_attention_fwd_smem(bf16, hd)} B; "
                 f"backward dq/dE kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 0, 512)}"
                 f" B in {bwd_lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, hd, 1616, 641, 512)}"
-                f" partial rows at G 1616, T 641 (1: dE in global memory; "
+                f" persistent blocks at G 1616, T 641, a row of dE partial sums each ("
                 f"{bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 0, 1536)} B at max_pos "
                 f"1536), dk/dv kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 1, 512)} B")
     wide = fa._wide_kernel()
@@ -775,7 +799,10 @@ def build_all():
         log(f"[1] wide kernels' dynamic shared memory a block, {'bf16' if bf16 else 'fp32'}, any "
             f"head dim: forward {wide.cmgan_flash_rel_attention_fwd_smem(bf16, 128)} B; backward "
             f"dq/dE kernel {wide.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 0, 512)} B, dk/dv "
-            f"kernel {wide.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 1, 512)} B")
+            f"kernel {wide.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 1, 512)} B; rows of dE "
+            f"partial sums at G 404, T 641, max_pos 512, D 128 / 320: "
+            f"{wide.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 128, 404, 641, 512)} / "
+            f"{wide.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 320, 404, 641, 512)}")
     for hd in (80, 128, 256, 320):
         p = fa.plan(hd)
         lib_slabs = [wide.cmgan_flash_rel_attention_wide_slab(hd, which) for which in range(3)]
@@ -2207,12 +2234,11 @@ def mesh_step_on_card(store: str, smi: str):
         f"cut_len {FLASH_CUT} batch {TRAIN_BATCH}, launches {launches[0]} fwd / {launches[1]} "
         f"bwd; losses mesh {losses}, no mesh {ref_losses}; of {len(got)} state tensors "
         + ("all bitwise equal" if not differ else
-           f"{differ} differ, the most {worst:.3e} of its largest entry ({worst_name}; tol "
-           f"{MESH_STEP_REL})")
+           f"{differ} differ, the most {worst:.3e} of its largest entry ({worst_name})")
         + f"; a second step ran under set_sync_debug_mode('error'), on {smi}")
-    if launches != (blocks, blocks) or set(got) != set(ref_state) or worst > MESH_STEP_REL \
-            or not np.allclose(losses, ref_losses, rtol=MESH_STEP_REL, atol=0):
-        raise AssertionError("the step over a one-rank mesh disagrees with the step without one")
+    if launches != (blocks, blocks) or set(got) != set(ref_state) or differ \
+            or losses != ref_losses:
+        raise AssertionError("the step over a one-rank mesh is not bitwise the step without one")
     del par
     torch.cuda.empty_cache()
     return mesh, launches
@@ -2251,23 +2277,33 @@ def seq_rank_cases(smi, dtype_name, g, t, n, seed, max_pos=512, d=16):
     cot_pad = F.pad(cot, (0, 0, 0, tk - t))
     fa.launches = fa.backward_launches = 0
     blocks, sums = [], [torch.zeros_like(x, dtype=torch.float32) for x in (q, k, v, table)]
-    for r in range(n):
+
+    def rank_grads(r):
         leaves = [x.clone().requires_grad_() for x in (q, k, v, table)]
         out = sa.local_attention(*leaves, max_pos, r, n)
-        grads = torch.autograd.grad(out, leaves, cot_pad[:, r * t_loc:(r + 1) * t_loc])
+        return out, torch.autograd.grad(out, leaves, cot_pad[:, r * t_loc:(r + 1) * t_loc])
+
+    per_rank = []
+    for r in range(n):
+        out, grads = rank_grads(r)
         blocks.append(out.detach())
+        per_rank.append(grads)
         for acc, x in zip(sums, grads):
             acc += x.float()
     torch.cuda.synchronize()
     launches = (fa.launches, fa.backward_launches)
     if launches != (n, n):
         raise AssertionError(f"{n} ranks launched {launches} kernels, not {n} and {n}")
+    # each rank's backward once more on the same inputs: the same bits
+    bitwise = [all(torch.equal(a, b) for a, b in zip(rank_grads(r)[1], per_rank[r]))
+               for r in range(n)]
+    del per_rank
     out = torch.cat(blocks, dim=1)[:, :t].float()
     fwd_err = (out - full.detach().float()).abs().max().item()
     atol, rtol = KERNEL_TOL[dtype_name]
     fwd_ok = torch.allclose(out, full.detach().float(), atol=atol, rtol=rtol)
     tol = BWD_TOL[dtype_name]
-    bwd_errs, bwd_ok = {}, True
+    bwd_errs, bwd_ok = {}, all(bitwise)
     for name, a, b in zip(("dq", "dk", "dv", "dE"), sums, full_grads):
         err, top = (a - b.float()).abs().max().item(), b.float().abs().max().item()
         bwd_errs[name] = {"max_abs_err": err, "ref_max": top}
@@ -2308,7 +2344,7 @@ def seq_rank_cases(smi, dtype_name, g, t, n, seed, max_pos=512, d=16):
                           **attention_bound(dtype_name, g, t_loc, tk, t, off, max_pos,
                                             backward=False, d=d)})
         bwd_cases.append({**shape, "ms": bwd_ms, "unsharded_ms": full_bwd_ms,
-                          "plain_ms": plain_bwd_ms,
+                          "plain_ms": plain_bwd_ms, "bitwise": bitwise[r],
                           "errors": bwd_errs, "tol_of_ref_max": tol,
                           "max_abs_err": max(e["max_abs_err"] for m, e in bwd_errs.items()
                                              if m != "dE"),
@@ -2318,7 +2354,8 @@ def seq_rank_cases(smi, dtype_name, g, t, n, seed, max_pos=512, d=16):
             f"q_offset {off}: {ms:.3f} ms (bound {fwd_cases[-1]['bound_ms']:.3f}, "
             f"{fwd_cases[-1]['bound_by']}; plain {plain_ms:.2f}); kernel #2 {bwd_ms:.3f} ms "
             f"(bound {bwd_cases[-1]['bound_ms']:.3f}, {bwd_cases[-1]['bound_by']}; plain "
-            f"{plain_bwd_ms:.2f})")
+            f"{plain_bwd_ms:.2f}); its backward twice: "
+            + ("bitwise equal" if bitwise[r] else "DIFFER"))
     full_fwd_bound = attention_bound(dtype_name, g, t, t, t, 0, max_pos, backward=False, d=d)
     full_bwd_bound = attention_bound(dtype_name, g, t, t, t, 0, max_pos, backward=True, d=d)
     log(f"[19b] {dtype_name} G {g}, T {t} unsharded: kernel #1 {full_fwd_ms:.3f} ms (bound "
@@ -2444,9 +2481,8 @@ def local_loader_on_card(mesh, tmp: str, smi: str, g_ms: float):
     train_epoch, which feeds the loader's rows to the step as local rows, in
     the device and in the host label mode; each against a Trainer on the
     same mesh fed the same rows as a global batch through train_step, both
-    under deterministic algorithms: every state tensor bitwise equal but
-    kernel #2's relative-position tables and their AdamW moments, held
-    within LOCAL_LOADER_TABLE_REL. (b) host seconds a batch, prefetch 0, over one
+    under deterministic algorithms: every state tensor bitwise equal. (b)
+    host seconds a batch, prefetch 0, over one
     epoch of LOADER_FILES written files: a global loader of batch x
     LOADER_RANKS rows and a local one of batch rows at process 0 of
     LOADER_RANKS, beside [12]'s G step. Returns (a)'s (forward, backward)
@@ -2482,25 +2518,15 @@ def local_loader_on_card(mesh, tmp: str, smi: str, g_ms: float):
             torch.cuda.synchronize()
             want = state_tensors(ref)
             del ref
-        differ = sorted(k for k in want if not torch.equal(got[k], want[k]))
-        tables = [k for k in differ if "rel_pos_emb" in k]
-
-        def grad_units(k, t):
-            return t.sqrt() if k.endswith("exp_avg_sq") else t
-
-        (worst_name, worst), _ = worst_rel({k: grad_units(k, got[k]) for k in tables},
-                                           {k: grad_units(k, want[k]) for k in tables})
+        (worst_name, worst), differ = worst_rel(got, want)
         log(f"[19d] local loader (process {train.process_index} of {train.num_processes}), "
             f"{mode} labels, one epoch of {TRAIN_BATCH} rows: launches {launches[mode][0]} fwd / "
             f"{launches[mode][1]} bwd; of {len(want)} state tensors against the global-loader "
             "step " + ("all bitwise equal" if not differ else
-                       f"{len(differ)} differ, of which kernel #2 tables {len(tables)}, the most "
-                       f"{worst:.3e} of its largest entry in the gradient's units ({worst_name}; "
-                       f"tol {LOCAL_LOADER_TABLE_REL})")
+                       f"{differ} differ, the most {worst:.3e} of its largest entry ({worst_name})")
             + f", on {smi}")
-        if launches[mode] != (blocks, blocks) or set(got) != set(want) or differ != tables \
-                or worst > LOCAL_LOADER_TABLE_REL:
-            raise AssertionError("the local-loader step disagrees with the global-loader step")
+        if launches[mode] != (blocks, blocks) or set(got) != set(want) or differ:
+            raise AssertionError("the local-loader step is not bitwise the global-loader step")
         torch.cuda.empty_cache()
 
     # (b) what a rank's loader reads: every rank the global batch, or its shard
@@ -2558,6 +2584,153 @@ def parallel_on_card(smi: str, g_ms: float):
     return step_launches, local_launches, seq_launches, train_launches, fwd_cases, bwd_cases
 
 
+def trained_weights_on_card(smi: str):
+    """[20] the JAX package's trained fold-1 EMA generator (generator.pt in
+    TRAINED_DIR, loaded through inference.load_generator) and its own output
+    on the 4 s track of golden_4s.npz: (a) the port's Enhancer in bucket
+    mode, fp32, 'auto' (4 launches of kernel #1) against that output; (b)
+    'xla' against 'auto'; (c) bf16 against the card's fp32, beside the JAX
+    package's bf16 against its fp32; (d) a 16 s track of the same recipe,
+    'auto' against 'xla' and bf16 against fp32; (e) one device-label
+    train_step at cut_len 64000 from the trained generator and a seeded
+    discriminator, run twice from one state under deterministic algorithms:
+    every state tensor bitwise equal. Returns (a)'s launches and (e)'s
+    (forward, backward) launches."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch.config import CMGANConfig, ModelConfig
+    from cmgan_torch.inference import Enhancer, load_generator
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.train import Trainer, init_train_state
+
+    sd = torch.load(os.path.join(TRAINED_DIR, "generator.pt"), map_location="cpu",
+                    weights_only=True)
+    with np.load(os.path.join(TRAINED_DIR, "golden_4s.npz")) as f:
+        golden = {k: f[k] for k in f.files}
+    blocks = CMGANConfig().model.num_tscb_blocks
+
+    def enhance(track, impl, dtype):
+        cfg = CMGANConfig(model=ModelConfig(attention_impl=impl))
+        enh = Enhancer(cfg, load_generator(cfg, sd, dtype, "cuda"), dtype=dtype, device="cuda")
+        fa.launches = 0
+        y = enh.enhance(track, mode="bucket")
+        torch.cuda.synchronize()
+        if y.shape != track.shape or not np.all(np.isfinite(y)):
+            raise AssertionError(f"[20] {impl} {dtype}: not finite or not the input's length")
+        return y, fa.launches
+
+    errs, launches = {}, {}
+    tracks = {"4 s": golden["noisy"],
+              f"{TRAINED_LONG_SECONDS} s": synthetic_track(TRAINED_LONG_SECONDS * SR, seed=20)}
+    for name, track in tracks.items():
+        y32, launches[name] = enhance(track, "auto", torch.float32)
+        y_xla, _ = enhance(track, "xla", torch.float32)
+        y16, launches[name + " bf16"] = enhance(track, "auto", torch.bfloat16)
+        errs[name] = {"auto_vs_xla": rel_l2(y32, y_xla), "bf16_vs_fp32": rel_l2(y16, y32)}
+        if name == "4 s":
+            errs[name]["fp32_vs_jax"] = rel_l2(y32, golden["enhanced_fp32"])
+            errs[name]["jax_bf16_vs_jax_fp32"] = rel_l2(golden["enhanced_bf16"],
+                                                        golden["enhanced_fp32"])
+            errs[name]["bf16_vs_jax_bf16"] = rel_l2(y16, golden["enhanced_bf16"])
+        torch.cuda.empty_cache()
+    log(f"[20] trained generator (fold-1 EMA), bucket mode, kernel #1 launches {launches}; rel L2 "
+        f"{json.dumps(errs)} (tol: fp32 against the JAX package and 'auto' against 'xla' "
+        f"{FLASH_VS_XLA_REL}, bf16 against fp32 {TRAINED_BF16_REL}), on {smi}")
+    ok = all(n == blocks for n in launches.values())
+    for e in errs.values():
+        ok = ok and e["auto_vs_xla"] <= FLASH_VS_XLA_REL and e["bf16_vs_fp32"] <= TRAINED_BF16_REL
+    if not (ok and errs["4 s"]["fp32_vs_jax"] <= FLASH_VS_XLA_REL):
+        raise AssertionError("[20] the trained generator's outputs disagree")
+
+    # (e) one training step from the trained generator, twice from one state
+    cfg = train_config(FLASH_CUT, mode="device")
+    batch = train_batch(FLASH_CUT, seed=200)
+    runs = []
+    with deterministic():
+        for _ in range(2):
+            state = init_train_state(cfg, cfg.train.seed, steps_per_epoch=10, device="cuda")
+            state.gen.load_state_dict(sd, strict=True)
+            trainer = Trainer(cfg, [None] * 10, None, device="cuda", state=state)
+            fa.launches = fa.backward_launches = 0
+            losses = [float(x) for x in trainer.train_step(*batch)]
+            torch.cuda.synchronize()
+            runs.append((losses, (fa.launches, fa.backward_launches), state_tensors(trainer)))
+            del trainer, state
+    (worst_name, worst), differ = worst_rel(runs[1][2], runs[0][2])
+    log(f"[20] device-label train_step from the trained generator, cut_len {FLASH_CUT} batch "
+        f"{TRAIN_BATCH}, twice from one state: losses {runs[0][0]} / {runs[1][0]}, launches "
+        f"{runs[0][1]} / {runs[1][1]}; of {len(runs[0][2])} state tensors "
+        + ("all bitwise equal" if not differ else
+           f"{differ} differ, the most {worst:.3e} of its largest entry ({worst_name})"))
+    if differ or runs[0][0] != runs[1][0] or runs[0][1] != (blocks, blocks) \
+            or runs[1][1] != runs[0][1] or not np.all(np.isfinite(runs[0][0])):
+        raise AssertionError("[20] two runs of one train step are not bitwise equal")
+    step_launches = runs[0][1]
+    del runs
+    torch.cuda.empty_cache()
+    return launches["4 s"], step_launches
+
+
+def backward_phase(m):
+    """[7] with the functions of the chip_smoke module m (this file, or
+    another checkout's with the same functions): kernel #2's cases, the wide
+    backward's, their device profiles and the fp32 kernels against float64.
+    Returns (kernel #2's cases, the wide backward's cases)."""
+    bwd_cases = [m.check_backward_case(dt, 1616, 641, 641, 641, 0, seed=7)
+                 for dt in ("float32", "bfloat16")]
+    bwd_cases += m.backward_head_dim_cases()
+    bwd_cases.append(m.check_backward_case("float32", 101, 2561, 2561, 2561, 0, seed=8, chunk=16))
+    bwd_cases.append(m.check_backward_case("bfloat16", 101, 2561, 2561, 2561, 0, seed=8, chunk=16))
+    for dt in ("float32", "bfloat16"):  # most tile pairs clipped
+        bwd_cases.append(m.check_backward_case(dt, 404, 641, 641, 641, 0, seed=12, max_pos=64))
+    bwd_cases.append(m.check_backward_case("float32", 404, 641, 641, 600, 0, seed=9))
+    bwd_cases.append(m.check_backward_case("float32", 101, 1280, 2560, 2560, 128, seed=10,
+                                           chunk=16))
+    for dt in ("float32", "bfloat16"):
+        bwd_cases.append(m.check_backward_case(dt, 101, 641, 641, 1, 0, seed=15))  # one valid key
+        # a table too long for the block's shared memory: dE through global memory
+        bwd_cases.append(m.check_backward_case(dt, 32, 2561, 2561, 2561, 0, seed=16, chunk=16,
+                                               max_pos=1536))
+    wide_bwd_cases = m.wide_backward_cases()
+    for dt in ("float32", "bfloat16"):
+        m.backward_profile(dt, g=404, d=128)
+    m.check_against_float64()
+    for dt in ("float32", "bfloat16"):
+        m.backward_profile(dt)
+    return bwd_cases, wide_bwd_cases
+
+
+def backward_times(root: str) -> int:
+    """`--backward-times [ROOT]`: [1]'s builds and [7] with the chip_smoke.py
+    (and so the package) of the checkout at ROOT, then one JSON line of every
+    backward case's shape, times and bound."""
+    import importlib.util
+
+    import torch
+
+    root = os.path.abspath(root)
+    if not os.path.isdir(os.path.join(root, "cmgan_torch")):
+        print(f"chip_smoke: no cmgan_torch package in {root}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke_at_root",
+                                                  os.path.join(root, "chip_smoke.py"))
+    m = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(m)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    log(f"[1] card: {smi}; checkout {root}")
+    m.build_all()
+    bwd_cases, wide_cases = backward_phase(m)
+    keys = ("dtype", "G", "Tq", "Tk", "D", "t_valid", "q_offset", "max_pos", "ms", "plain_ms",
+            "bound_ms", "bound_by", "bitwise")
+    print(json.dumps({"root": root, "card": smi,
+                      "cases": [{k: c.get(k) for k in keys} for c in bwd_cases + wide_cases]}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2567,6 +2740,8 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cmgan_torch")):
         print("chip_smoke: the cmgan_torch package is not beside this script", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--backward-times"]:
+        return backward_times(sys.argv[2] if len(sys.argv) > 2 else ROOT)
     sys.path.insert(0, ROOT)
 
     import numpy as np
@@ -2709,27 +2884,8 @@ def main() -> int:
     lap("3-6 enhancement")
 
     # -- 7. the backward kernel against autograd through the plain version --
-    bwd_cases = [check_backward_case(dt, 1616, 641, 641, 641, 0, seed=7)
-                 for dt in ("float32", "bfloat16")]
-    bwd_cases += backward_head_dim_cases()
-    bwd_cases.append(check_backward_case("float32", 101, 2561, 2561, 2561, 0, seed=8, chunk=16))
-    bwd_cases.append(check_backward_case("bfloat16", 101, 2561, 2561, 2561, 0, seed=8, chunk=16))
-    for dt in ("float32", "bfloat16"):  # most tile pairs clipped
-        bwd_cases.append(check_backward_case(dt, 404, 641, 641, 641, 0, seed=12, max_pos=64))
-    bwd_cases.append(check_backward_case("float32", 404, 641, 641, 600, 0, seed=9))
-    bwd_cases.append(check_backward_case("float32", 101, 1280, 2560, 2560, 128, seed=10, chunk=16))
-    for dt in ("float32", "bfloat16"):
-        bwd_cases.append(check_backward_case(dt, 101, 641, 641, 1, 0, seed=15))  # one valid key
-        # a table too long for the block's shared memory: dE through global memory
-        bwd_cases.append(check_backward_case(dt, 32, 2561, 2561, 2561, 0, seed=16, chunk=16,
-                                             max_pos=1536))
+    bwd_cases, wide_bwd_cases = backward_phase(sys.modules[__name__])
     bwd_main = bwd_cases[0]  # fp32 at the training shape
-    wide_bwd_cases = wide_backward_cases()
-    for dt in ("float32", "bfloat16"):
-        backward_profile(dt, g=404, d=128)
-    check_against_float64()
-    for dt in ("float32", "bfloat16"):
-        backward_profile(dt)
 
     lap("7 backward kernel")
 
@@ -2776,6 +2932,8 @@ def main() -> int:
     (mesh_launches, local_launches, seq_launches, seq_train, seq_fwd_cases,
      seq_bwd_cases) = parallel_on_card(smi, g_ms)
     lap("19 parallel")
+    trained_launches, trained_step = trained_weights_on_card(smi)
+    lap("20 trained weights")
     log(f"seconds by phase: {json.dumps(laps)}, in all {sum(laps.values()):.1f} "
         f"(imports and the card's start not counted)")
 
@@ -2800,6 +2958,8 @@ def main() -> int:
         "launches_local_loader_epoch": {m: n[0] for m, n in local_launches.items()},
         "launches_seq_48k": seq_launches,
         "launches_seq_train_step": seq_train[0],
+        "launches_trained_4s": trained_launches,
+        "launches_trained_step": trained_step[0],
         "cases": cases,
         "cases_streaming": stream_cases,
         "cases_48k": long_cases,
@@ -2814,6 +2974,7 @@ def main() -> int:
         "launches_mesh_step": mesh_launches[1],
         "launches_local_loader_epoch": {m: n[1] for m, n in local_launches.items()},
         "launches_seq_train_step": seq_train[1],
+        "launches_trained_step": trained_step[1],
         "cases_seq_ranks": seq_bwd_cases,
         "max_abs_err": bwd_main["max_abs_err"],
         "ms": bwd_main["ms"],

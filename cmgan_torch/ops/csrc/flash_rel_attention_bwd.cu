@@ -33,30 +33,31 @@
 //       the A operands of dv = P^T . g and dk = dS^T . Q, kept in registers.
 //   flash_rel_sum_partials   adds the blocks' sums of the table's gradient.
 //
-// The table's gradient without shared atomics. ds is written skewed,
-// dR[r][r - b + 63] = ds[r][b], into a per-warp [16, 80] scratch (it lies over
-// the warp's R scratch, which is consumed by then; the cells outside the
-// parallelogram are zeroed anew). Then dE_window = dR^T . Q_tile is a tile
+// The table's gradient in a fixed order, with no atomics. ds is written
+// skewed, dR[r][r - b + 63] = ds[r][b], into a per-warp [16, 80] scratch (it
+// lies over the warp's R scratch, which is consumed by then; the cells outside
+// the parallelogram are zeroed anew). Then dE_window = dR^T . Q_tile is a tile
 // product again (rows: window rows, depth: queries); each warp owns whole
 // 16-row blocks of the window, skips the blocks of depth where dR is zero by
-// construction, and adds its result into a block-wide fp32 [2*max_pos+1, 16]
-// buffer in shared memory (65,600 B at max_pos 512) with plain
-// read-modify-writes (each cell has one owner a tile pair; the buffer grows
-// with HD: 131,200 B at HD 32). Clipped pairs, in
-// a wholly clipped tile pair or in a mixed one, are summed per query in
-// registers (rows 0 and 2*max_pos of the table collect them all); only these
-// sums, once a (group, query tile), use shared atomics. Blocks are persistent (one a
-// multiprocessor's room, looping over items); each writes its buffer once, to
-// its own row of a [blocks, 16,400] scratch, and flash_rel_sum_partials adds
-// the rows in a fixed order: no global atomics. Only the shared atomics of
-// rows 0 and 2*max_pos sum in an order that varies from run to run.
+// construction, and adds its result into the block's own dE rows with plain
+// read-modify-writes (each cell has one owner a tile pair and block). Clipped
+// pairs, in a wholly clipped tile pair or in a mixed one, are summed per query
+// in registers (rows 0 and 2*max_pos of the table collect them all); once a
+// (group, query tile) each warp adds those sums, times its queries, into a
+// slot of its own (two rows of HD floats in shared memory), and after its last
+// item the block adds the slots in warp order into its rows. Blocks are
+// persistent (as many as the card holds at once; block b takes items b,
+// b + grid, ...), each owns one row of a [blocks, (2*max_pos+1)*HD] scratch,
+// and flash_rel_sum_partials adds the rows in block order. Every sum thus has
+// one order: two runs on the same inputs give the same bits.
 //
-// A table too long for that buffer (at HD 16, max_pos above 758 in fp32, 1466
-// in bf16, beside the tiles in the 227 KB a block may have; at HD 32 the fp32
-// buffer never fits, at HD 64 neither type's) takes the same kernel with
-// de_global set: the blocks keep no buffer and add into one zeroed row of the
-// scratch with global atomics, one a cell and tile pair. The models' max_pos
-// is 512.
+// Where a block's dE rows live: a block-wide fp32 [2*max_pos+1, HD] buffer in
+// shared memory (65,600 B at max_pos 512, HD 16; 131,200 B at HD 32), written to
+// its scratch row once at the end; or, for a table too long for that buffer
+// beside the tiles (at HD 16, max_pos above 750 in fp32, 1462 in bf16; at HD 32
+// the fp32 buffer never fits, at HD 64 neither type's), the scratch row itself,
+// in global memory, which the block zeroes first (de_global). The models'
+// max_pos is 512.
 //
 // What bounds it on an H100 SXM (700 W part; 989 TFLOP/s bf16 tensor,
 // 3.35 TB/s, 16 exponentials a clock an SM): the function is eight products of
@@ -147,19 +148,22 @@ struct Layout {
   static constexpr int delta = lse + 4 * BQ;
   static constexpr int eh = delta + 4 * BQ;
   static constexpr int el = eh + 4 * HD;
-  static constexpr int debuf = el + 4 * HD;  // (2*max_pos+1) * HD floats where the block keeps dE
+  // the kernel that owns the queries: each warp's sums of its clipped pairs,
+  // rows 2*max_pos and 0 (2 * HD floats a warp)
+  static constexpr int slots = el + 4 * HD;
+  static constexpr int debuf = slots + (kOwnsQ ? 4 * 2 * HD * NW : 0);  // (2*max_pos+1) * HD floats
+                                                                       // where the block keeps dE
   static int bytes(int max_pos, bool shared_de) {
     return debuf + (kOwnsQ && shared_de ? 4 * (2 * max_pos + 1) * HD : 0);
   }
 };
 
-// sum_a c[a] q[a][:] over the warp's 16 queries, added to one row of the dE
-// buffer (the block's, or with de_global the one in global memory): the pairs
-// clipped to that row
+// slot[:] += sum_a c[a] q[a][:] over the warp's 16 queries: the pairs clipped
+// to one end row of the table, added into the warp's own slot (each column by
+// one lane)
 template <int P, int HD>
-__device__ __forceinline__ void add_clipped_row(float* debuf, float* de_all, int de_global, int r,
-                                                const float* c, const bf16* qs_w, int q_plane,
-                                                int lane) {
+__device__ __forceinline__ void add_clipped_slot(float* slot, const float* c, const bf16* qs_w,
+                                                 int q_plane, int lane) {
   constexpr int TS = stage_stride(HD);
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -172,28 +176,19 @@ __device__ __forceinline__ void add_clipped_row(float* debuf, float* de_all, int
       x += __shfl_xor_sync(0xffffffffu, x, 4);
       x += __shfl_xor_sync(0xffffffffu, x, 8);
       x += __shfl_xor_sync(0xffffffffu, x, 16);
-      if (g == 0) {
-        const int at = r * HD + de_col(r, d);
-        if (de_global) {
-          atomicAdd(de_all + at, x);
-        } else {
-          atomicAdd(debuf + at, x);
-        }
-      }
+      if (g == 0) slot[d] += x;
     }
   }
 }
 
-// dE_window = dR^T . Q for one tile pair, added into the dE buffer: the block's
-// own in shared memory, or with de_global the one in global memory that all
-// blocks share.
+// dE_window = dR^T . Q for one tile pair, added into the block's dE rows (in
+// shared memory, or with de_global its row of the scratch in global memory).
 // Window rows 16m .. 16m+15 meet the queries of warp kk at that warp's dR
 // columns 16(m - kk) ..; the other depth blocks are zero by construction. Warp
 // w owns window blocks w and w + NW: five depth blocks in all, for every warp.
 template <typename T, int NW, int CHUNK, int HD>
 __device__ __forceinline__ void window_grad(const unsigned char* scratch, const bf16* qs,
-                                            float* debuf, float* de_all, int de_global, int base,
-                                            int max_pos, int w, int lane) {
+                                            float* de, int base, int max_pos, int w, int lane) {
   constexpr int P = Parts<T>::N, WIN = 16 * NW + BK, TS = stage_stride(HD), NB = HD / 8;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -217,29 +212,33 @@ __device__ __forceinline__ void window_grad(const unsigned char* scratch, const 
         mma(acc[n], da, qb);
       }
     }
+    // the window's padding row, and a window row clipped to an end of the table,
+    // carry zeros (its pairs went to the per-query sums). An unclipped row has
+    // one owner a tile pair and block, so plain read-modify-writes do in the
+    // block's own rows: every cell read first, so that no store waits on a read
+    bool live[2];
+    float2* cell[2][NB];
+    float2 x[2][NB];
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int c = 16 * m + g + 8 * rr;
       const int dist = base + c;
-      if (c >= WIN - 1) continue;  // the window's padding row
-      // a window row clipped to an end of the table carries zeros: its pairs went
-      // to the per-query sums. An unclipped row has one owner a tile pair and
-      // block, so a plain read-modify-write does in the block's own buffer.
-      if (dist <= -max_pos || dist >= max_pos) continue;
+      live[rr] = c < WIN - 1 && dist > -max_pos && dist < max_pos;
       const int r = dist + max_pos;
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
-        const int at = r * HD + de_col(r, 8 * n + 2 * t);
-        if (de_global) {  // uniform in the grid
-          atomicAdd(de_all + at, acc[n][2 * rr]);
-          atomicAdd(de_all + at + 1, acc[n][2 * rr + 1]);
-        } else {
-          float2* cell = reinterpret_cast<float2*>(debuf + at);
-          float2 x = *cell;
-          x.x += acc[n][2 * rr];
-          x.y += acc[n][2 * rr + 1];
-          *cell = x;
-        }
+        cell[rr][n] = reinterpret_cast<float2*>(de + r * HD + de_col(r, 8 * n + 2 * t));
+        if (live[rr]) x[rr][n] = *cell[rr][n];
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (!live[rr]) continue;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        x[rr][n].x += acc[n][2 * rr];
+        x[rr][n].y += acc[n][2 * rr + 1];
+        *cell[rr][n] = x[rr][n];
       }
     }
   }
@@ -272,7 +271,11 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   float* delta_s = reinterpret_cast<float*>(smem + L::delta);
   float* eh = reinterpret_cast<float*>(smem + L::eh);
   float* el = reinterpret_cast<float*>(smem + L::el);
-  float* debuf = reinterpret_cast<float*>(smem + L::debuf);  // not there with de_global
+  float* slots = reinterpret_cast<float*>(smem + L::slots);
+  // the block's dE rows: its buffer in shared memory, or with de_global its
+  // row of the scratch (each block writes its own row either way)
+  float* de = de_global ? partials + static_cast<size_t>(blockIdx.x) * (2 * max_pos + 1) * HD
+                        : reinterpret_cast<float*>(smem + L::debuf);
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -282,13 +285,14 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   T* dsb_w = reinterpret_cast<T*>(scratch + w * CHUNK + L::dsb);
   const int n_rows = (2 * max_pos + 1) * HD;
 
-  // once a block: the table's two end rows, zero dE buffer (the global one arrives zeroed)
+  // once a block: the table's two end rows; zero dE rows and slots
   if (tid < HD) {
     eh[tid] = widen(table[2 * max_pos * HD + tid]);
     el[tid] = widen(table[tid]);
   }
-  if (kOwnsQ && !de_global) {
-    for (int e = tid; e < n_rows; e += NT) debuf[e] = 0.f;
+  if (kOwnsQ) {
+    for (int e = tid; e < n_rows; e += NT) de[e] = 0.f;
+    for (int e = tid; e < 2 * HD * NW; e += NT) slots[e] = 0.f;
   }
 
   const int n_qtiles = (Tq + BQ - 1) / BQ;
@@ -369,7 +373,7 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       if (kOwnsQ) {
         // the previous pair's share of the table's gradient: its dR stays until
         // the next block sync, Q for the whole item
-        if (prev_mixed) window_grad<T, NW, CHUNK, HD>(scratch, qs, debuf, partials, de_global, prev_base, max_pos, w, lane);
+        if (prev_mixed) window_grad<T, NW, CHUNK, HD>(scratch, qs, de, prev_base, max_pos, w, lane);
         prev_mixed = kind == kMixed;
         prev_base = base;
         a_next.store(ks, tid);
@@ -562,16 +566,16 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     if (kOwnsQ) {
       if (prev_mixed) {
         __syncthreads();  // the last pair's dR is whole
-        window_grad<T, NW, CHUNK, HD>(scratch, qs, debuf, partials, de_global, prev_base, max_pos, w, lane);
+        window_grad<T, NW, CHUNK, HD>(scratch, qs, de, prev_base, max_pos, w, lane);
       }
       const float ch[2] = {quad_sum(c_hi[0]), quad_sum(c_hi[1])};
       const float cl[2] = {quad_sum(c_lo[0]), quad_sum(c_lo[1])};
       // uniform in the block: skip the rows its distances never reach
       if (own0 + BQ - 1 + q_offset >= max_pos) {
-        add_clipped_row<P, HD>(debuf, partials, de_global, 2 * max_pos, ch, qs + 16 * w * TS, QPL, lane);
+        add_clipped_slot<P, HD>(slots + 2 * HD * w, ch, qs + 16 * w * TS, QPL, lane);
       }
       if (own0 + q_offset - (t_valid - 1) <= -max_pos) {
-        add_clipped_row<P, HD>(debuf, partials, de_global, 0, cl, qs + 16 * w * TS, QPL, lane);
+        add_clipped_slot<P, HD>(slots + 2 * HD * w + HD, cl, qs + 16 * w * TS, QPL, lane);
       }
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
@@ -602,11 +606,24 @@ flash_rel_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
   }
 
-  if (kOwnsQ && !de_global) {
-    __syncthreads();  // every warp's sums are in the block's buffer
-    // this block's sums to its row of the partial sums
-    float* mine = partials + static_cast<size_t>(blockIdx.x) * n_rows;
-    for (int e = tid; e < n_rows; e += NT) mine[e] = debuf[e];
+  if (kOwnsQ) {
+    __syncthreads();  // every warp's sums are in its slots and the block's rows
+    // the slots in warp order into rows 2*max_pos and 0 (one row where max_pos is 0)
+    if (tid < HD) {
+      float hi = 0.f, lo = 0.f;
+      for (int wk = 0; wk < NW; ++wk) {
+        hi += slots[2 * HD * wk + tid];
+        lo += slots[2 * HD * wk + HD + tid];
+      }
+      de[2 * max_pos * HD + de_col(2 * max_pos, tid)] += hi;
+      de[de_col(0, tid)] += lo;
+    }
+    if (!de_global) {
+      __syncthreads();
+      // this block's sums to its row of the partial sums
+      float* mine = partials + static_cast<size_t>(blockIdx.x) * n_rows;
+      for (int e = tid; e < n_rows; e += NT) mine[e] = de[e];
+    }
   }
 }
 
@@ -618,8 +635,9 @@ struct Args {
 };
 
 // How one of the two kernels is launched at these shapes: its shared memory
-// and its grid. The kernel that keeps dE in shared memory runs persistent
-// blocks, as many as the card holds at once; the others one block an item.
+// and its grid. The kernel that sums dE runs persistent blocks, as many as the
+// card holds at once (one row of the partial sums each); the dk/dv kernel one
+// block an item.
 struct Plan {
   int bytes, blocks;
 };
@@ -634,7 +652,7 @@ int plan(int G, int extent, int max_pos, bool shared_de, Plan* p) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tile = MODE == kOwnQ ? L::BQ : BK;
   long long blocks = static_cast<long long>(G) * ((extent + tile - 1) / tile);
-  if (L::kOwnsQ && shared_de) {
+  if (L::kOwnsQ) {
     int device = 0, sms = 0, per_sm = 0;
     if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
@@ -664,15 +682,8 @@ int launch_one(const Args& a) {
   int err = plan<T, NW, MODE, HD>(a.G, MODE == kOwnQ ? a.Tq : a.Tk, a.max_pos, shared_de, &p);
   if (err != 0) return err;
   const int n = (2 * a.max_pos + 1) * HD;
-  // rows of `partials` the kernel writes: one a block, or one for all blocks
-  const int rows = shared_de ? p.blocks : 1;
-  if (MODE == kOwnQ) {
-    if (rows > a.partial_rows) return static_cast<int>(cudaErrorInvalidValue);
-    if (!shared_de) {
-      err = static_cast<int>(cudaMemsetAsync(a.partials, 0, sizeof(float) * n, a.stream));
-      if (err != 0) return err;
-    }
-  }
+  // the kernel that sums dE writes one row of `partials` a block
+  if (MODE == kOwnQ && p.blocks > a.partial_rows) return static_cast<int>(cudaErrorInvalidValue);
   flash_rel_bwd<T, NW, MODE, HD><<<static_cast<unsigned>(p.blocks), 32 * NW, p.bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.table), static_cast<const T*>(a.gout),
@@ -683,7 +694,7 @@ int launch_one(const Args& a) {
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || MODE != kOwnQ) return err;
   flash_rel_sum_partials<<<(n + 255) / 256, 256, 0, a.stream>>>(
-      static_cast<const float*>(a.partials), static_cast<float*>(a.dtable), rows, n, HD);
+      static_cast<const float*>(a.partials), static_cast<float*>(a.dtable), p.blocks, n, HD);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -702,9 +713,8 @@ int launch(const Args& a) {
 // rows of `partials` a launch at these shapes writes, or minus the CUDA error
 template <typename T, int HD>
 int partial_rows(int G, int Tq, int max_pos) {
-  if (!shared_de_fits<T, HD>(max_pos)) return 1;
   Plan p;
-  const int err = plan<T, kWarpsQ<T, HD>, kOwnQ, HD>(G, Tq, max_pos, true, &p);
+  const int err = plan<T, kWarpsQ<T, HD>, kOwnQ, HD>(G, Tq, max_pos, shared_de_fits<T, HD>(max_pos), &p);
   return err != 0 ? -err : p.blocks;
 }
 
@@ -743,8 +753,7 @@ extern "C" int cmgan_flash_rel_attention_bwd(
 }
 
 // Rows the `partials` scratch needs on the current device: one a block of the
-// kernel that sums the table's gradient in shared memory, or one in all where
-// the table is too long for that. Negative: minus a CUDA error.
+// kernel that sums the table's gradient. Negative: minus a CUDA error.
 extern "C" int cmgan_flash_rel_attention_bwd_partial_rows(int is_bf16, int head_dim, int G,
                                                           int Tq, int max_pos) {
   if (G <= 0 || Tq <= 0 || max_pos < 0) return -static_cast<int>(cudaErrorInvalidValue);

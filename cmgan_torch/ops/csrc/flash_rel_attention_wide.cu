@@ -56,10 +56,15 @@
 //   and dv, with P and dS through shared memory so that their transposes are
 //   A operands). ds is written skewed, dR[a][a - c + 63] = ds[a][c], so dq's
 //   position part (dR . E_window) and the window's gradient (dR^T . Q) are
-//   tile products; the window's gradient goes to dE in device memory once a
-//   tile pair, window row and column, by float2 atomics (scalar for an odd
-//   head dim), in an order that varies from run to run. Pairs clipped to an
-//   end row of the table are summed per query and added once a block.
+//   tile products. The table's gradient is summed in a fixed order, with no
+//   atomics: the dq kernel's blocks are persistent (as many as the card holds
+//   at once, a whole number for each slab; block b takes the (query tile,
+//   slab) items b, b + grid, ..., all of one slab), and each adds into rows of
+//   its own in device memory, [2 max_pos + 1, slab] floats: the window's
+//   gradient once a tile pair, window row and column (one owner a cell), and
+//   the pairs clipped to an end row of the table, summed per query, once an
+//   item. flash_rel_wide_sum_partials then adds the blocks' rows in block
+//   order: two runs on the same inputs give the same bits.
 //
 // Softmax in fp32; outputs and gradients are written in the input type.
 // What this version leaves: the logits recomputed per slab past D 128 (dk
@@ -717,17 +722,21 @@ __device__ __forceinline__ void add_row_sum(float* row, float x, int t) {
   if (t == 0) *row += x;
 }
 
-// dE[row][d], dE[row][d + 1] += x, y (only x where d + 1 is at or past lim):
-// one float2 atomic where the pair is whole and 8-byte aligned (hd even)
-__device__ __forceinline__ void add_de(float* dtable, int row, int d, int hd, int lim, float x,
-                                       float y) {
-  float* p = dtable + static_cast<size_t>(row) * hd + d;
-  if (d + 1 < lim && (hd & 1) == 0) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(x, y));
-  } else {
-    atomicAdd(p, x);
-    if (d + 1 < lim) atomicAdd(p + 1, y);
-  }
+// dE[r][d] = the sum, in block order, of the partial rows of the dq kernel's
+// blocks that took d's slab (b = slab, slab + slabs, ...: the grid is a whole
+// number of slabs)
+__global__ void flash_rel_wide_sum_partials(const float* __restrict__ partials,
+                                            float* __restrict__ dtable, int blocks, int rows,
+                                            int hd, int slab) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<long long>(rows) * hd) return;
+  const int r = static_cast<int>(e / hd), d = static_cast<int>(e % hd);
+  const int slabs = n_slabs(hd, slab), sl = d / slab;
+  const size_t per_block = static_cast<size_t>(rows) * slab;
+  const float* p = partials + static_cast<size_t>(r) * slab + (d - sl * slab);
+  float acc = 0.f;
+  for (int b = sl; b < blocks; b += slabs) acc += p[b * per_block];
+  dtable[e] = acc;
 }
 
 // The block's item loop, shared by the two backward kernels: before item
@@ -751,17 +760,20 @@ __device__ __forceinline__ void next_item(int it, int total, Issue issue, Split 
 }
 
 // The kernel that owns a query tile and a slab of dq's columns: dq, and the
-// table's gradient in those columns. Items: for each key tile, the head dim's
-// chunks (the logits), then the slab's chunks (dq += dS . K + dR . E_window,
-// and dE_window = dR^T . Q to dE).
+// table's gradient in those columns. Persistent: block b takes the jobs (query
+// tile, slab) b, b + grid, ..., all of its slab (the grid is a whole number of
+// slabs), and adds the table's gradient into its own rows of `partials`. A
+// job's items: for each key tile, the head dim's chunks (the logits), then the
+// slab's chunks (dq += dS . K + dR . E_window, and dE_window = dR^T . Q to the
+// block's rows).
 template <typename T>
 __global__ void __launch_bounds__(NT, 1)
 flash_rel_wide_bwd_q(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ table, const T* __restrict__ gout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dq, float* __restrict__ dtable, int Tq, int Tk, int hd,
-                     int n_qtiles, int slab, int max_pos, int t_valid, int q_offset,
-                     int de_atomics) {
+                     T* __restrict__ dq, float* __restrict__ partials, int G, int Tq, int Tk,
+                     int hd, int n_qtiles, int slab, int max_pos, int t_valid, int q_offset,
+                     int de_writes) {
   using L = BwdLayout<T, kOwnQ>;
   using S = typename L::S;
   constexpr int P = S::P, DC = L::DC, RST = S::RST, CS = S::CS, PL = S::PLANE;
@@ -780,277 +792,311 @@ flash_rel_wide_bwd_q(const T* __restrict__ q, const T* __restrict__ k, const T* 
   auto dr_w = [=] { return reinterpret_cast<T*>(smem + L::rt + opaque(w) * L::CHUNK); };
   auto ds_w = [=] { return reinterpret_cast<T*>(smem + L::pds + opaque(w) * L::pds_stride); };
   const int slabs = n_slabs(hd, slab);
-  const int item = blockIdx.x / slabs;
-  const int grp = item / n_qtiles;
-  const int i0 = (item % n_qtiles) * BQ;
-  // the slab's bounds and the group's rows, computed where used (kept live
-  // through the item loop they would crowd the accumulators)
+  // the block's dE rows: its slab's columns of every table row, addressed where used
+  const int de_rows = 2 * max_pos + 1;
+  auto de = [=] {
+    return partials + static_cast<size_t>(opaque(static_cast<int>(blockIdx.x))) * de_rows * slab;
+  };
+  for (int e = tid; e < de_rows * slab; e += NT) de()[e] = 0.f;
+  // the slab's bounds, computed where used (kept live through the item loop
+  // they would crowd the accumulators): the block's, the same for every job
   auto s0 = [=] { return opaque(static_cast<int>(blockIdx.x) % slabs) * slab; };
   auto s_end = [=] { return min(hd, s0() + slab); };
   auto nn = [=] { return (s_end() - s0() + 7) / 8; };
-  auto qg = [=] { return q + static_cast<size_t>(opaque(grp)) * Tq * hd; };
-  auto gg = [=] { return gout + static_cast<size_t>(opaque(grp)) * Tq * hd; };
-  auto kg = [=] { return k + static_cast<size_t>(opaque(grp)) * Tk * hd; };
-  auto vg = [=] { return v + static_cast<size_t>(opaque(grp)) * Tk * hd; };
   const int copy = copy_bytes<T>(hd);
 
-  if (tid < BQ) {
-    const bool ok = i0 + tid < Tq;
-    lse_s[tid] = ok ? lse[static_cast<size_t>(grp) * Tq + i0 + tid] : 0.f;
-    delta_s[tid] = ok ? delta[static_cast<size_t>(grp) * Tq + i0 + tid] : 0.f;
-    ch_s[tid] = cl_s[tid] = 0.f;  // the clipped pairs' ds summed a query, a row a lane with t == 0
-  }
-
-  float dq_acc[SLAB_Q / 8][4];  // rows g, g+8; columns s0 + 8n + 2t, +1
-#pragma unroll
-  for (int n = 0; n < SLAB_Q / 8; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
-  float s[BK / 8][4], dp[BK / 8][4];
-
-  const int nc = (hd + DC - 1) / DC;
-  const int per_pair = nc + (s_end() - s0() + DC - 1) / DC;
-  const int total = (t_valid + BK - 1) / BK * per_pair;
-  auto slot_of = [=](int it) { return slots + (S::SLOTS == 2 ? (it & 1) * S::SLOT : 0); };
-  auto issue = [=](int it) {
-    const int j0 = it / per_pair * BK, sub = it % per_pair;
-    const int base = i0 + q_offset - j0 - (BK - 1);
-    T* slot = slot_of(it);
-    if (sub < nc) {
-      fetch_logit_chunk<T, kOwnQ>(slot, qg(), gg(), kg(), vg(), table, i0, j0, Tq, Tk, hd, sub * DC, base,
-                                  max_pos, tid, copy);
-    } else {
-      const int c0 = s0() + (sub - nc) * DC;
-      auto q_row = [=](int r) { return i0 + r < Tq ? i0 + r : -1; };
-      auto k_row = [=](int r) { return j0 + r < Tk ? j0 + r : -1; };
-      fetch<T, BK, DC, RST>(slot + L::SK * RST, kg(), k_row, hd, c0, s_end(), tid, copy);
-      if (clip_kind(base, BQ, max_pos) == kMixed) {
-        auto e_row = [=](int r) { return window_row(base, r, max_pos); };
-        fetch<T, WIN, DC, RST>(slot + L::SE * RST, table, e_row, hd, c0, s_end(), tid, copy);
-        fetch<T, BQ, DC, RST>(slot + L::SQ * RST, qg(), q_row, hd, c0, s_end(), tid, copy);
-      }
-    }
-    cp_async_commit();
-  };
-  auto split = [=](int it) {
-    if constexpr (P == 3) {
-      const int j0 = it / per_pair * BK, sub = it % per_pair;
-      const bool mixed = clip_kind(i0 + q_offset - j0 - (BK - 1), BQ, max_pos) == kMixed;
-      const float* slot = reinterpret_cast<const float*>(slot_of(it));
-      if (sub < nc) {
-        split_rows<L::E, DC, RST, CS>(planes, PL, slot, tid);
-        if (mixed) split_rows<WIN, DC, RST, CS>(planes + L::E * CS, PL, slot + L::E * RST, tid);
-      } else {
-        split_rows<BK, DC, RST, CS>(planes, L::PLS, slot, tid);
-        if (mixed) {
-          split_rows<WIN + BQ, DC, RST, CS>(planes + L::SE * CS, L::PLS, slot + L::SE * RST, tid);
-        }
-      }
-    }
-  };
-
-  issue(0);
 #pragma unroll 1
-  for (int it = 0; it < total; ++it) {
-    const int j0 = it / per_pair * BK, sub = it % per_pair;
-    const int base = i0 + q_offset - j0 - (BK - 1);
-    const int kind = clip_kind(base, BQ, max_pos);
-    next_item<T>(it, total, issue, split);
-    const bf16* ops = P == 1 ? reinterpret_cast<const bf16*>(slot_of(it)) : planes;
-    const int ln = opaque(lane);
+  for (int job = blockIdx.x; job < G * n_qtiles * slabs; job += gridDim.x) {
+    __syncthreads();  // the job before is done with the shared arrays; the zeroed rows are in
+    const int item = job / slabs;
+    const int grp = item / n_qtiles;
+    const int i0 = (item % n_qtiles) * BQ;
+    // the group's rows, computed where used
+    auto qg = [=] { return q + static_cast<size_t>(opaque(grp)) * Tq * hd; };
+    auto gg = [=] { return gout + static_cast<size_t>(opaque(grp)) * Tq * hd; };
+    auto kg = [=] { return k + static_cast<size_t>(opaque(grp)) * Tk * hd; };
+    auto vg = [=] { return v + static_cast<size_t>(opaque(grp)) * Tk * hd; };
 
-    if (sub < nc) {
-      if (sub == 0) {
+    if (tid < BQ) {
+      const bool ok = i0 + tid < Tq;
+      lse_s[tid] = ok ? lse[static_cast<size_t>(grp) * Tq + i0 + tid] : 0.f;
+      delta_s[tid] = ok ? delta[static_cast<size_t>(grp) * Tq + i0 + tid] : 0.f;
+      ch_s[tid] = cl_s[tid] = 0.f;  // the clipped pairs' ds summed a query, a row a lane with t == 0
+    }
+
+    float dq_acc[SLAB_Q / 8][4];  // rows g, g+8; columns s0 + 8n + 2t, +1
 #pragma unroll
-        for (int nb = 0; nb < BK / 8; ++nb) {
-          s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-          dp[nb][0] = dp[nb][1] = dp[nb][2] = dp[nb][3] = 0.f;
+    for (int n = 0; n < SLAB_Q / 8; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
+    float s[BK / 8][4], dp[BK / 8][4];
+
+    const int nc = (hd + DC - 1) / DC;
+    const int per_pair = nc + (s_end() - s0() + DC - 1) / DC;
+    const int total = (t_valid + BK - 1) / BK * per_pair;
+    auto slot_of = [=](int it) { return slots + (S::SLOTS == 2 ? (it & 1) * S::SLOT : 0); };
+    auto issue = [=](int it) {
+      const int j0 = it / per_pair * BK, sub = it % per_pair;
+      const int base = i0 + q_offset - j0 - (BK - 1);
+      T* slot = slot_of(it);
+      if (sub < nc) {
+        fetch_logit_chunk<T, kOwnQ>(slot, qg(), gg(), kg(), vg(), table, i0, j0, Tq, Tk, hd, sub * DC, base,
+                                    max_pos, tid, copy);
+      } else {
+        const int c0 = s0() + (sub - nc) * DC;
+        auto q_row = [=](int r) { return i0 + r < Tq ? i0 + r : -1; };
+        auto k_row = [=](int r) { return j0 + r < Tk ? j0 + r : -1; };
+        fetch<T, BK, DC, RST>(slot + L::SK * RST, kg(), k_row, hd, c0, s_end(), tid, copy);
+        if (clip_kind(base, BQ, max_pos) == kMixed) {
+          auto e_row = [=](int r) { return window_row(base, r, max_pos); };
+          fetch<T, WIN, DC, RST>(slot + L::SE * RST, table, e_row, hd, c0, s_end(), tid, copy);
+          fetch<T, BQ, DC, RST>(slot + L::SQ * RST, qg(), q_row, hd, c0, s_end(), tid, copy);
         }
       }
-      const int ksteps = min(DC / 16, (hd - sub * DC + 15) / 16);
-      chunk_logits_bwd<T, kOwnQ>(s, dp, ops, rt(), kind, ksteps, w, ln);
-      if (sub < nc - 1) continue;
-      if (kind != kMixed) {
-        float pos_hi[2], pos_lo[2];
-        clipped_scalars(pos_hi, pos_lo, qg(), table, i0 + 16 * w, Tq, hd, max_pos, lane);
-        add_rows(s, kind == kHigh ? pos_hi[0] : pos_lo[0], kind == kHigh ? pos_hi[1] : pos_lo[1]);
-      }
-      weights_and_ds(s, dp, lse_s, delta_s, i0, j0, Tq, t_valid, w, lane);
-      if (kind == kMixed) {
-        __syncwarp();  // every lane has read its R: the chunk is free for dR
-        // dR[r][r - b + 63] = ds[r][b]; a pair that is itself clipped goes to its
-        // query's sum instead, as in a clipped tile pair (uniform test first)
-        const bool some_high = base + BQ + BK - 2 >= max_pos;
-        const bool some_low = base <= -max_pos;
-        float c_hi[2] = {0.f, 0.f}, c_lo[2] = {0.f, 0.f};  // this lane's share
-        // the cells no pair writes are zeroed anew, 16 a row (columns below r and from r + 64)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int row = lane >> 1, cell = (lane & 1) * 8 + i;
-          narrow(0.f, dr_w() + row * DRS + (cell < row ? cell : cell + BK));
+      cp_async_commit();
+    };
+    auto split = [=](int it) {
+      if constexpr (P == 3) {
+        const int j0 = it / per_pair * BK, sub = it % per_pair;
+        const bool mixed = clip_kind(i0 + q_offset - j0 - (BK - 1), BQ, max_pos) == kMixed;
+        const float* slot = reinterpret_cast<const float*>(slot_of(it));
+        if (sub < nc) {
+          split_rows<L::E, DC, RST, CS>(planes, PL, slot, tid);
+          if (mixed) split_rows<WIN, DC, RST, CS>(planes + L::E * CS, PL, slot + L::E * RST, tid);
+        } else {
+          split_rows<BK, DC, RST, CS>(planes, L::PLS, slot, tid);
+          if (mixed) {
+            split_rows<WIN + BQ, DC, RST, CS>(planes + L::SE * CS, L::PLS, slot + L::SE * RST, tid);
+          }
         }
+      }
+    };
+
+    issue(0);
+#pragma unroll 1
+    for (int it = 0; it < total; ++it) {
+      const int j0 = it / per_pair * BK, sub = it % per_pair;
+      const int base = i0 + q_offset - j0 - (BK - 1);
+      const int kind = clip_kind(base, BQ, max_pos);
+      next_item<T>(it, total, issue, split);
+      const bf16* ops = P == 1 ? reinterpret_cast<const bf16*>(slot_of(it)) : planes;
+      const int ln = opaque(lane);
+
+      if (sub < nc) {
+        if (sub == 0) {
 #pragma unroll
-        for (int nb = 0; nb < BK / 8; ++nb) {
+          for (int nb = 0; nb < BK / 8; ++nb) {
+            s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+            dp[nb][0] = dp[nb][1] = dp[nb][2] = dp[nb][3] = 0.f;
+          }
+        }
+        const int ksteps = min(DC / 16, (hd - sub * DC + 15) / 16);
+        chunk_logits_bwd<T, kOwnQ>(s, dp, ops, rt(), kind, ksteps, w, ln);
+        if (sub < nc - 1) continue;
+        if (kind != kMixed) {
+          float pos_hi[2], pos_lo[2];
+          clipped_scalars(pos_hi, pos_lo, qg(), table, i0 + 16 * w, Tq, hd, max_pos, lane);
+          add_rows(s, kind == kHigh ? pos_hi[0] : pos_lo[0], kind == kHigh ? pos_hi[1] : pos_lo[1]);
+        }
+        weights_and_ds(s, dp, lse_s, delta_s, i0, j0, Tq, t_valid, w, lane);
+        if (kind == kMixed) {
+          __syncwarp();  // every lane has read its R: the chunk is free for dR
+          // dR[r][r - b + 63] = ds[r][b]; a pair that is itself clipped goes to its
+          // query's sum instead, as in a clipped tile pair (uniform test first)
+          const bool some_high = base + BQ + BK - 2 >= max_pos;
+          const bool some_low = base <= -max_pos;
+          float c_hi[2] = {0.f, 0.f}, c_lo[2] = {0.f, 0.f};  // this lane's share
+          // the cells no pair writes are zeroed anew, 16 a row (columns below r and from r + 64)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = g - (8 * nb + 2 * t + e) + BK - 1;
+          for (int i = 0; i < 8; ++i) {
+            const int row = lane >> 1, cell = (lane & 1) * 8 + i;
+            narrow(0.f, dr_w() + row * DRS + (cell < row ? cell : cell + BK));
+          }
 #pragma unroll
-            for (int rr = 0; rr < 2; ++rr) {
-              float x = dp[nb][2 * rr + e];
-              const int dist = base + 16 * w + c + 8 * rr;
-              if (some_high && dist >= max_pos) {
-                c_hi[rr] += x;
-                x = 0.f;
+          for (int nb = 0; nb < BK / 8; ++nb) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = g - (8 * nb + 2 * t + e) + BK - 1;
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr) {
+                float x = dp[nb][2 * rr + e];
+                const int dist = base + 16 * w + c + 8 * rr;
+                if (some_high && dist >= max_pos) {
+                  c_hi[rr] += x;
+                  x = 0.f;
+                }
+                if (some_low && dist <= -max_pos) {
+                  c_lo[rr] += x;
+                  x = 0.f;
+                }
+                narrow(x, dr_w() + (g + 8 * rr) * DRS + c + 8 * rr);
               }
-              if (some_low && dist <= -max_pos) {
-                c_lo[rr] += x;
-                x = 0.f;
-              }
-              narrow(x, dr_w() + (g + 8 * rr) * DRS + c + 8 * rr);
+            }
+          }
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            if (some_high) add_row_sum(ch_s + 16 * w + g + 8 * rr, c_hi[rr], t);
+            if (some_low) add_row_sum(cl_s + 16 * w + g + 8 * rr, c_lo[rr], t);
+          }
+        } else {
+          float sum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int nb = 0; nb < BK / 8; ++nb) {
+            sum[0] += dp[nb][0] + dp[nb][1];
+            sum[1] += dp[nb][2] + dp[nb][3];
+          }
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            add_row_sum((kind == kHigh ? ch_s : cl_s) + 16 * w + g + 8 * rr, sum[rr], t);
+          }
+        }
+        if (!L::IN_PLANES) store_rows(ds_w(), dp, lane);
+        continue;
+      }
+
+      // a chunk of the slab's columns, c0 ..
+      const int c = sub - nc, c0 = s0() + c * DC, c_end = s_end(), n_tiles = nn();
+      if (L::IN_PLANES && c == 0) {
+        // ds to the warp's rows in the planes' free rows (the logits' chunk lay there)
+        store_rows(ds_w(), dp, lane);
+        __syncwarp();
+      }
+      const bf16* ks = ops + L::SK * CS;
+      const bf16* es = ops + L::SE * CS;
+      const bf16* qs = ops + L::SQ * CS;
+#pragma unroll
+      for (int cc = 0; cc < SLAB_Q / DC; ++cc) {
+        if (cc != c) continue;  // uniform: the accumulators' indices stay static
+        // dq += dS . K
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          FragA<P> da;
+          load_a_scratch(da, ds_w(), PS, 0, 16 * kk, ln);
+#pragma unroll
+          for (int n = 0; n < DC / 8; ++n) {
+            if (cc * (DC / 8) + n < n_tiles) {
+              FragB<P> kb;
+              load_b_trans<P>(kb, ks, L::PLS, CS, 8 * n, 16 * kk, ln);
+              mma(dq_acc[cc * (DC / 8) + n], da, kb);
             }
           }
         }
+        if (kind != kMixed) continue;
+        // dq += dR_w . E_window (the warp's own 80 window rows)
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          if (some_high) add_row_sum(ch_s + 16 * w + g + 8 * rr, c_hi[rr], t);
-          if (some_low) add_row_sum(cl_s + 16 * w + g + 8 * rr, c_lo[rr], t);
-        }
-      } else {
-        float sum[2] = {0.f, 0.f};
+        for (int kk = 0; kk < RCOLS / 16; ++kk) {
+          FragA<P> da;
+          load_a_scratch(da, dr_w(), DRS, 0, 16 * kk, ln);
 #pragma unroll
-        for (int nb = 0; nb < BK / 8; ++nb) {
-          sum[0] += dp[nb][0] + dp[nb][1];
-          sum[1] += dp[nb][2] + dp[nb][3];
-        }
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          add_row_sum((kind == kHigh ? ch_s : cl_s) + 16 * w + g + 8 * rr, sum[rr], t);
-        }
-      }
-      if (!L::IN_PLANES) store_rows(ds_w(), dp, lane);
-      continue;
-    }
-
-    // a chunk of the slab's columns, c0 ..
-    const int c = sub - nc, c0 = s0() + c * DC, c_end = s_end(), n_tiles = nn();
-    if (L::IN_PLANES && c == 0) {
-      // ds to the warp's rows in the planes' free rows (the logits' chunk lay there)
-      store_rows(ds_w(), dp, lane);
-      __syncwarp();
-    }
-    const bf16* ks = ops + L::SK * CS;
-    const bf16* es = ops + L::SE * CS;
-    const bf16* qs = ops + L::SQ * CS;
-#pragma unroll
-    for (int cc = 0; cc < SLAB_Q / DC; ++cc) {
-      if (cc != c) continue;  // uniform: the accumulators' indices stay static
-      // dq += dS . K
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        FragA<P> da;
-        load_a_scratch(da, ds_w(), PS, 0, 16 * kk, ln);
-#pragma unroll
-        for (int n = 0; n < DC / 8; ++n) {
-          if (cc * (DC / 8) + n < n_tiles) {
-            FragB<P> kb;
-            load_b_trans<P>(kb, ks, L::PLS, CS, 8 * n, 16 * kk, ln);
-            mma(dq_acc[cc * (DC / 8) + n], da, kb);
+          for (int n = 0; n < DC / 8; ++n) {
+            if (cc * (DC / 8) + n < n_tiles) {
+              FragB<P> eb;
+              load_b_trans<P>(eb, es, L::PLS, CS, 8 * n, 16 * w + 16 * kk, ln);
+              mma(dq_acc[cc * (DC / 8) + n], da, eb);
+            }
           }
         }
       }
       if (kind != kMixed) continue;
-      // dq += dR_w . E_window (the warp's own 80 window rows)
+      // dE_window = dR^T . Q: window rows 16m .. 16m + 15 meet the queries of
+      // warp kk at that warp's dR columns 16(m - kk) ..; warp w owns window
+      // blocks w and w + NW
 #pragma unroll
-      for (int kk = 0; kk < RCOLS / 16; ++kk) {
-        FragA<P> da;
-        load_a_scratch(da, dr_w(), DRS, 0, 16 * kk, ln);
+      for (int mi = 0; mi < 2; ++mi) {
+        const int m = w + mi * NW;
+        float ea[DC / 8][4];
 #pragma unroll
-        for (int n = 0; n < DC / 8; ++n) {
-          if (cc * (DC / 8) + n < n_tiles) {
-            FragB<P> eb;
-            load_b_trans<P>(eb, es, L::PLS, CS, 8 * n, 16 * w + 16 * kk, ln);
-            mma(dq_acc[cc * (DC / 8) + n], da, eb);
+        for (int n = 0; n < DC / 8; ++n) ea[n][0] = ea[n][1] = ea[n][2] = ea[n][3] = 0.f;
+#pragma unroll
+        for (int back = 0; back < RCOLS / 16; ++back) {
+          const int kk = m - back;
+          if (kk < 0 || kk >= NW) continue;  // uniform in the warp
+          FragA<P> da;
+          load_a_scratch_trans(da, reinterpret_cast<const T*>(smem + L::rt + kk * L::CHUNK), DRS,
+                               16 * back, 0, ln);
+#pragma unroll
+          for (int n = 0; n < DC / 8; ++n) {
+            FragB<P> qb;
+            load_b_trans<P>(qb, qs, L::PLS, CS, 8 * n, 16 * kk, ln);
+            mma(ea[n], da, qb);
+          }
+        }
+        if (!de_writes) continue;
+        // into the block's rows (width slab, a multiple of 8; columns from s0):
+        // plain read-modify-writes, each cell with one owner a tile pair, every
+        // cell read first so that no store waits on a read. The window's padding
+        // row, and rows clipped to an end of the table (their pairs went to the
+        // per-query sums), carry nothing; of a column pair that crosses the
+        // head dim's end, the second column is one no sum reads.
+        bool live[2];
+        float2* cell[2][DC / 8];
+        float2 x[2][DC / 8];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int wr = 16 * m + g + 8 * rr;  // window row
+          const int dist = base + wr;
+          live[rr] = wr < WIN - 1 && dist > -max_pos && dist < max_pos;
+          float* row = de() + static_cast<size_t>(dist + max_pos) * slab + (c0 - s0()) + 2 * t;
+#pragma unroll
+          for (int n = 0; n < DC / 8; ++n) {
+            cell[rr][n] = reinterpret_cast<float2*>(row + 8 * n);
+            if (live[rr] && c0 + 8 * n + 2 * t < c_end) x[rr][n] = *cell[rr][n];
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int n = 0; n < DC / 8; ++n) {
+            if (live[rr] && c0 + 8 * n + 2 * t < c_end) {
+              x[rr][n].x += ea[n][2 * rr];
+              x[rr][n].y += ea[n][2 * rr + 1];
+              *cell[rr][n] = x[rr][n];
+            }
           }
         }
       }
     }
-    if (kind != kMixed) continue;
-    // dE_window = dR^T . Q: window rows 16m .. 16m + 15 meet the queries of
-    // warp kk at that warp's dR columns 16(m - kk) ..; warp w owns window
-    // blocks w and w + NW
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int m = w + mi * NW;
-      float ea[DC / 8][4];
-#pragma unroll
-      for (int n = 0; n < DC / 8; ++n) ea[n][0] = ea[n][1] = ea[n][2] = ea[n][3] = 0.f;
-#pragma unroll
-      for (int back = 0; back < RCOLS / 16; ++back) {
-        const int kk = m - back;
-        if (kk < 0 || kk >= NW) continue;  // uniform in the warp
-        FragA<P> da;
-        load_a_scratch_trans(da, reinterpret_cast<const T*>(smem + L::rt + kk * L::CHUNK), DRS,
-                             16 * back, 0, ln);
-#pragma unroll
-        for (int n = 0; n < DC / 8; ++n) {
-          FragB<P> qb;
-          load_b_trans<P>(qb, qs, L::PLS, CS, 8 * n, 16 * kk, ln);
-          mma(ea[n], da, qb);
-        }
-      }
-      if (!de_atomics) continue;
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int wr = 16 * m + g + 8 * rr;  // window row
-        const int dist = base + wr;
-        // the window's padding row, and rows clipped to an end of the table
-        // (their pairs went to the per-query sums), carry nothing
-        if (wr >= WIN - 1 || dist <= -max_pos || dist >= max_pos) continue;
-#pragma unroll
-        for (int n = 0; n < DC / 8; ++n) {
-          const int d = c0 + 8 * n + 2 * t;
-          if (d < c_end) add_de(dtable, dist + max_pos, d, hd, c_end, ea[n][2 * rr], ea[n][2 * rr + 1]);
-        }
-      }
-    }
-  }
 
-  // the clipped pairs' share: dq_a += c_hi[a] E[2 max_pos] + c_lo[a] E[0], and
-  // dE[2 max_pos] += sum_a c_hi[a] q_a, dE[0] likewise, in the slab's columns
-  __syncwarp();  // the warp's rows' sums are in
-  const float ch[2] = {ch_s[16 * w + g], ch_s[16 * w + g + 8]};
-  const float cl[2] = {cl_s[16 * w + g], cl_s[16 * w + g + 8]};
-  const T* e_hi = table + static_cast<size_t>(2 * max_pos) * hd;
-  const int c0 = s0(), c_end = s_end(), n_tiles = nn();
+    // the clipped pairs' share: dq_a += c_hi[a] E[2 max_pos] + c_lo[a] E[0], and
+    // dE[2 max_pos] += sum_a c_hi[a] q_a, dE[0] likewise, in the slab's columns
+    __syncwarp();  // the warp's rows' sums are in
+    const float ch[2] = {ch_s[16 * w + g], ch_s[16 * w + g + 8]};
+    const float cl[2] = {cl_s[16 * w + g], cl_s[16 * w + g + 8]};
+    const T* e_hi = table + static_cast<size_t>(2 * max_pos) * hd;
+    const int c0 = s0(), c_end = s_end(), n_tiles = nn();
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = i0 + 16 * w + g + 8 * rr;
-    if (row >= Tq) continue;
-    T* o = dq + (static_cast<size_t>(grp) * Tq + row) * hd;
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = i0 + 16 * w + g + 8 * rr;
+      if (row >= Tq) continue;
+      T* o = dq + (static_cast<size_t>(grp) * Tq + row) * hd;
 #pragma unroll
-    for (int n = 0; n < SLAB_Q / 8; ++n) {
+      for (int n = 0; n < SLAB_Q / 8; ++n) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = c0 + 8 * n + 2 * t + e;
-        if (n < n_tiles && d < c_end) {
-          narrow(dq_acc[n][2 * rr + e] + ch[rr] * widen(e_hi[d]) + cl[rr] * widen(table[d]), o + d);
+        for (int e = 0; e < 2; ++e) {
+          const int d = c0 + 8 * n + 2 * t + e;
+          if (n < n_tiles && d < c_end) {
+            narrow(dq_acc[n][2 * rr + e] + ch[rr] * widen(e_hi[d]) + cl[rr] * widen(table[d]), o + d);
+          }
         }
       }
     }
-  }
-  __syncthreads();  // every row's sums are in
-  // uniform in the block: skip the rows its distances never reach
-  const bool any_hi = i0 + BQ - 1 + q_offset >= max_pos;
-  const bool any_lo = i0 + q_offset - (t_valid - 1) <= -max_pos;
-  if (de_atomics && (any_hi || any_lo)) {
-    const T* qrows = qg();
-    for (int d = c0 + tid; d < c_end; d += NT) {
-      float hi = 0.f, lo = 0.f;
-      for (int a = 0; a < BQ && i0 + a < Tq; ++a) {
-        const float x = widen(qrows[static_cast<size_t>(i0 + a) * hd + d]);
-        hi = fmaf(ch_s[a], x, hi);
-        lo = fmaf(cl_s[a], x, lo);
+    __syncthreads();  // every row's sums are in
+    // uniform in the block: skip the rows its distances never reach
+    const bool any_hi = i0 + BQ - 1 + q_offset >= max_pos;
+    const bool any_lo = i0 + q_offset - (t_valid - 1) <= -max_pos;
+    if (de_writes && (any_hi || any_lo)) {
+      // each column by one thread, the same one for every job: rows 2 max_pos
+      // and 0 of the block's (one row where max_pos is 0)
+      const T* qrows = qg();
+      float* rows = de();
+      for (int d = c0 + tid; d < c_end; d += NT) {
+        float hi = 0.f, lo = 0.f;
+        for (int a = 0; a < BQ && i0 + a < Tq; ++a) {
+          const float x = widen(qrows[static_cast<size_t>(i0 + a) * hd + d]);
+          hi = fmaf(ch_s[a], x, hi);
+          lo = fmaf(cl_s[a], x, lo);
+        }
+        if (any_hi) rows[static_cast<size_t>(2 * max_pos) * slab + d - c0] += hi;
+        if (any_lo) rows[d - c0] += lo;
       }
-      if (any_hi) atomicAdd(dtable + static_cast<size_t>(2 * max_pos) * hd + d, hi);
-      if (any_lo) atomicAdd(dtable + d, lo);
     }
   }
 }
@@ -1237,8 +1283,8 @@ int slab_of(int hd, int which) {
   return slab_width(hd, which == 0 ? (hd <= 128 ? 128 : SLAB_FWD) : which == 1 ? SLAB_Q : SLAB_K);
 }
 
-// the window's gradient is added to dE (off only to time the kernels without it)
-int g_de_atomics = 1;
+// the dq kernel writes the table's gradient (off only to time it without those writes)
+int g_de_writes = 1;
 
 template <typename K>
 int allow(K kernel, int bytes) {
@@ -1271,33 +1317,67 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* table, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// The dq kernel's persistent grid at these shapes: as many blocks as the card
+// holds at once, rounded down to a whole number of slabs (at least one of
+// each), at most one a job. Returns 0 or the CUDA error.
+template <typename T>
+int q_grid(int G, int Tq, int hd, int* blocks) {
+  constexpr int qb = BwdLayout<T, kOwnQ>::bytes;
+  auto kernel = flash_rel_wide_bwd_q<T>;
+  int err = allow(kernel, qb);
+  if (err != 0) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = static_cast<int>(cudaGetDevice(&device))) != 0) return err;
+  err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  if (err != 0) return err;
+  err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, qb));
+  if (err != 0) return err;
+  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const int slab = slab_of(hd, 1), slabs = n_slabs(hd, slab);
+  const long long jobs = grid_blocks(G, (Tq + BQ - 1) / BQ, hd, slab);
+  if (jobs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long fit = static_cast<long long>(sms) * per_sm / slabs;
+  const long long room = (fit > 0 ? fit : 1) * slabs;
+  *blocks = static_cast<int>(jobs < room ? jobs : room);
+  return 0;
+}
+
+// rows of `partials` ((2*max_pos+1)*hd floats each) that hold the dq
+// kernel's `blocks` rows of (2*max_pos+1)*slab floats
+long long partial_rows_for(int blocks, int hd) {
+  return (static_cast<long long>(blocks) * slab_of(hd, 1) + hd - 1) / hd;
+}
+
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* table, const void* out,
                const void* gout, const void* lse, void* dq, void* dk, void* dv, void* delta,
-               void* dtable, int G, int Tq, int Tk, int hd, int max_pos, int t_valid,
-               int q_offset, cudaStream_t s) {
+               void* dtable, void* partials, int G, int Tq, int Tk, int hd, int max_pos,
+               int t_valid, int q_offset, int partial_rows, cudaStream_t s) {
   constexpr int qb = BwdLayout<T, kOwnQ>::bytes, kb = BwdLayout<T, kOwnK>::bytes;
-  int err = allow(flash_rel_wide_bwd_q<T>, qb);
+  int q_blocks = 0;
+  int err = q_grid<T>(G, Tq, hd, &q_blocks);
   if (err == 0) err = allow(flash_rel_wide_bwd_k<T>, kb);
   if (err != 0) return err;
+  if (partial_rows_for(q_blocks, hd) > partial_rows) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(G) * Tq;
   const int n_qtiles = (Tq + BQ - 1) / BQ, n_ktiles = (Tk + BK - 1) / BK;
   const int slab_q = slab_of(hd, 1), slab_k = slab_of(hd, 2);
-  const long long q_blocks = grid_blocks(G, n_qtiles, hd, slab_q);
   const long long k_blocks = grid_blocks(G, n_ktiles, hd, slab_k);
-  if (q_blocks < 0 || k_blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k_blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
 
   flash_rel_wide_delta<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
       static_cast<const T*>(out), static_cast<const T*>(gout), static_cast<float*>(delta), rows, hd);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  // the table's gradient arrives by atomics: zeroed first, on the same stream
-  err = static_cast<int>(cudaMemsetAsync(dtable, 0, sizeof(float) * (2 * max_pos + 1) * hd, s));
-  if (err != 0) return err;
   flash_rel_wide_bwd_q<T><<<static_cast<unsigned>(q_blocks), NT, qb, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(table), static_cast<const T*>(gout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<float*>(dtable), Tq, Tk,
-      hd, n_qtiles, slab_q, max_pos, t_valid, q_offset, g_de_atomics);
+      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<float*>(partials), G, Tq,
+      Tk, hd, n_qtiles, slab_q, max_pos, t_valid, q_offset, g_de_writes);
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  const long long cells = static_cast<long long>(2 * max_pos + 1) * hd;
+  flash_rel_wide_sum_partials<<<static_cast<unsigned>((cells + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(partials), static_cast<float*>(dtable), q_blocks, 2 * max_pos + 1,
+      hd, slab_q);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   flash_rel_wide_bwd_k<T><<<static_cast<unsigned>(k_blocks), NT, kb, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -1328,36 +1408,39 @@ extern "C" int cmgan_flash_rel_attention_fwd(
                                      t_valid, q_offset, s);
 }
 
-// `delta` fp32 [G, Tq] is scratch; `dtable` fp32 [2*max_pos+1, head_dim]
-// receives the table's gradient. `partials` is not read: this library asks for
-// no rows of it (cmgan_flash_rel_attention_bwd_partial_rows).
+// `delta` fp32 [G, Tq] and `partials` fp32 [partial_rows, (2*max_pos+1)*head_dim]
+// are scratch, none of it zeroed, with partial_rows at least what
+// cmgan_flash_rel_attention_bwd_partial_rows gives for these shapes; `dtable`
+// fp32 [2*max_pos+1, head_dim] receives the table's gradient.
 extern "C" int cmgan_flash_rel_attention_bwd(
     const void* q, const void* k, const void* v, const void* table, const void* out,
     const void* gout, const void* lse, void* dq, void* dk, void* dv, void* delta,
     void* dtable, void* partials, int G, int Tq, int Tk, int head_dim, int max_pos, int t_valid,
     int q_offset, int is_bf16, int partial_rows, void* stream) {
-  (void)partials;
-  (void)partial_rows;
   if (G <= 0 || Tq <= 0 || t_valid <= 0 || t_valid > Tk || max_pos < 0 || head_dim < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_bwd<__nv_bfloat16>(q, k, v, table, out, gout, lse, dq, dk, dv, delta,
-                                             dtable, G, Tq, Tk, head_dim, max_pos, t_valid,
-                                             q_offset, s)
-                 : launch_bwd<float>(q, k, v, table, out, gout, lse, dq, dk, dv, delta, dtable, G,
-                                     Tq, Tk, head_dim, max_pos, t_valid, q_offset, s);
+                                             dtable, partials, G, Tq, Tk, head_dim, max_pos,
+                                             t_valid, q_offset, partial_rows, s)
+                 : launch_bwd<float>(q, k, v, table, out, gout, lse, dq, dk, dv, delta, dtable,
+                                     partials, G, Tq, Tk, head_dim, max_pos, t_valid, q_offset,
+                                     partial_rows, s);
 }
 
-// Rows of `partials` a backward launch writes: none (the table's gradient
-// goes to dtable by global atomics). Negative: minus a CUDA error.
+// Rows of `partials` a backward launch on the current device needs: the dq
+// kernel's blocks each write (2*max_pos+1) x (a slab's width) floats. Negative:
+// minus a CUDA error.
 extern "C" int cmgan_flash_rel_attention_bwd_partial_rows(int is_bf16, int head_dim, int G,
                                                           int Tq, int max_pos) {
-  (void)is_bf16;
   if (G <= 0 || Tq <= 0 || max_pos < 0 || head_dim < 1) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
+  int blocks = 0;
+  const int err = is_bf16 ? q_grid<__nv_bfloat16>(G, Tq, head_dim, &blocks)
+                          : q_grid<float>(G, Tq, head_dim, &blocks);
+  return err != 0 ? -err : static_cast<int>(partial_rows_for(blocks, head_dim));
 }
 
 // Dynamic shared memory, in bytes, of one block of the forward, or -1: the
@@ -1386,11 +1469,11 @@ extern "C" int cmgan_flash_rel_attention_wide_slab(int head_dim, int which) {
   return slab_of(head_dim, which);
 }
 
-// Whether the dq kernel adds the window's gradient to dE (1, the default) or
-// skips those atomics (0: dE is then wrong; for timing their share only).
-// Returns the setting before.
-extern "C" int cmgan_flash_rel_attention_wide_de_atomics(int on) {
-  const int before = g_de_atomics;
-  g_de_atomics = on != 0;
+// Whether the dq kernel writes the table's gradient into its blocks' rows (1,
+// the default) or skips those writes (0: dE is then wrong; for timing their
+// share only). Returns the setting before.
+extern "C" int cmgan_flash_rel_attention_wide_de_writes(int on) {
+  const int before = g_de_writes;
+  g_de_writes = on != 0;
   return before;
 }

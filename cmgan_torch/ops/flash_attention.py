@@ -38,6 +38,12 @@ dim d runs; `wide_attention` and `wide_attention_grads` are the wide
 kernels' walk (chunks, slabs, logits recomputed per slab, the table's
 gradient added once a tile pair, window row and slab column) in plain
 PyTorch.
+
+Every backward path sums the table's gradient in one fixed order, with no
+atomics, so two runs on the same inputs give the same bits: the kernel
+that owns the query tiles runs persistent blocks, each adding into rows of
+its own, and the rows are summed in block order (`_BlockRows` is that
+order in plain PyTorch).
 """
 
 from __future__ import annotations
@@ -58,6 +64,10 @@ KERNEL_HEAD_DIMS = (16, 32, 64)
 WIDE_SLABS = {"fwd": 256, "bwd_q": 128, "bwd_k": 64}
 # head-dim columns the wide kernels stage a chunk, by type
 WIDE_CHUNK = {torch.float32: 16, torch.bfloat16: 32}
+# persistent blocks of the backward kernel that sums the table's gradient in
+# the walks (`tiled_attention_grads`, `wide_attention_grads`; a slab's blocks in
+# the wide one); on the card, as many as it holds at once
+WALK_BLOCKS = 8
 KERNEL = "flash_rel_attention"
 BWD_KERNEL = "flash_rel_attention_bwd"
 WIDE_KERNEL = "flash_rel_attention_wide"
@@ -144,6 +154,56 @@ def _skew_index(nq: int, nk: int, tile: int, device):
     return a - b + tile - 1
 
 
+class _BlockRows:
+    """The table's gradient [rows, d] summed as the backward kernels sum it.
+
+    Item (group, query tile) i is taken by the persistent block i % blocks,
+    which adds into rows of its own: each tile pair's window gradient, and
+    once an item its clipped pairs, per group of `warp` queries (a warp;
+    the wide kernel's whole tile) into that group's slot. After its items a
+    block adds its slots in order into rows 2*max_pos and 0; then the
+    blocks' rows are added in block order.
+    """
+
+    def __init__(self, blocks: int, tq: int, tile: int, warp: int, rows: int, d: int, device):
+        self.blocks, self.tile, self.warp = blocks, tile, warp
+        self.n_qtiles = -(-tq // tile)
+        self.rows = torch.zeros(blocks, rows, d, device=device)
+        self.hi = torch.zeros(blocks, tile // warp, d, device=device)
+        self.lo = torch.zeros_like(self.hi)
+
+    def _block(self, groups: int, qtile, device):
+        return (torch.arange(groups, device=device)[:, None] * self.n_qtiles + qtile) % self.blocks
+
+    def add_window(self, i0: int, window, dr, qt):
+        """Each group's dE_window = dR^T . Q into its block's rows."""
+        groups, _, d = qt.shape
+        de = torch.einsum("gac,gad->gcd", dr, qt)
+        index = self._block(groups, i0 // self.tile, qt.device) * self.rows.shape[1] + window
+        self.rows.view(-1, d).index_add_(0, index.reshape(-1), de.reshape(-1, d))
+
+    def add_clipped(self, c_hi, c_lo, qf):
+        """Every item's per-query sums of its clipped pairs (c_hi, c_lo
+        [G, Tq]) times its queries, into the slots of the item's block."""
+        groups, tq, d = qf.shape
+        items = self._block(groups, torch.arange(self.n_qtiles, device=qf.device), qf.device)
+        for c, slots in ((c_hi, self.hi), (c_lo, self.lo)):
+            x = F.pad(c[:, :, None] * qf, (0, 0, 0, self.n_qtiles * self.tile - tq))
+            per_slot = x.reshape(groups * self.n_qtiles, self.tile // self.warp, self.warp, d).sum(2)
+            slots.index_add_(0, items.reshape(-1), per_slot)
+
+    def total(self):
+        """Each block's slots in order into its rows, then the rows in block order."""
+        rows = self.rows.clone()
+        for k in range(self.hi.shape[1]):
+            rows[:, -1] += self.hi[:, k]
+            rows[:, 0] += self.lo[:, k]
+        out = torch.zeros_like(rows[0])
+        for b in range(self.blocks):
+            out += rows[b]
+        return out
+
+
 def _tile_logits(qt, kt, table, max_pos, base, kind, tile, chunk: int | None = None):
     """Logits [G, nq, nk] of one tile pair the kernels' way: the content
     product plus, for a mixed pair, R = Q . E_window^T read through the
@@ -193,20 +253,21 @@ def tiled_attention(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: in
 
 
 def tiled_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int, g,
-                          tile: int = 64):
+                          tile: int = 64, blocks: int = WALK_BLOCKS):
     """The backward kernel's arithmetic in plain PyTorch: weights recomputed
     per tile pair from the row log-sum-exp, ds written skewed into dR, the
-    table's gradient as dE_window = dR^T . Q added to its rows, the clipped
-    pairs (of clipped and of mixed tile pairs) by two sums a query. Returns
-    (dq, dk, dv, dtable) like `reference_attention_grads`; for tests and
-    checks only.
+    table's gradient as dE_window = dR^T . Q added to its block's rows, the
+    clipped pairs (of clipped and of mixed tile pairs) by two sums a query,
+    added once an item per warp of 16 queries; the rows of `blocks`
+    persistent blocks summed in block order (`_BlockRows`). Returns (dq, dk,
+    dv, dtable) like `reference_attention_grads`; for tests and checks only.
     """
     out, lse = tiled_attention(q, k, v, rel_table, max_pos, t_valid, q_offset, tile, True)
     qf, kf, vf, table, gf = q.float(), k.float(), v.float(), rel_table.float(), g.float()
     groups, tq, _ = q.shape
     delta = (gf * out.float()).sum(dim=2)
     dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
-    dtable = torch.zeros_like(table)
+    de_rows = _BlockRows(blocks, tq, tile, min(16, tile), *table.shape, q.device)
     # ds summed over the pairs clipped to row 2*max_pos / row 0, per query
     c_hi = torch.zeros(groups, tq, device=q.device)
     c_lo = torch.zeros(groups, tq, device=q.device)
@@ -230,14 +291,14 @@ def tiled_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offs
             # zero outside the parallelogram and on the window's clipped rows
             dr.scatter_(2, c.expand(groups, -1, -1), ds * (dist.abs() < max_pos))
             dq[:, rows] += dr @ table[window]
-            dtable.index_add_(0, window, torch.einsum("gac,gad->cd", dr, qt))
+            de_rows.add_window(i0, window, dr, qt)
         elif kind == "high":
             c_hi[:, rows] += ds.sum(dim=2)
         else:
             c_lo[:, rows] += ds.sum(dim=2)
     dq += c_hi[:, :, None] * table[2 * max_pos] + c_lo[:, :, None] * table[0]
-    dtable[2 * max_pos] += torch.einsum("ga,gad->d", c_hi, qf)
-    dtable[0] += torch.einsum("ga,gad->d", c_lo, qf)
+    de_rows.add_clipped(c_hi, c_lo, qf)
+    dtable = de_rows.total()
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dtable.to(rel_table.dtype)
 
 
@@ -279,14 +340,16 @@ def wide_attention(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int
     return (out, m + torch.log(l)) if return_lse else out
 
 
-def wide_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int, g):
+def wide_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int, g,
+                         blocks: int = WALK_BLOCKS):
     """The wide backward kernels' walk in plain PyTorch: the dq kernel's
     slabs (dq and the table's gradient in the slab's columns; per tile pair
     the weights recomputed over the whole head dim, ds written skewed into
-    dR, dE_window = dR^T . Q added to the window's rows once, and the clipped
-    pairs by two sums a query), then the dk/dv kernel's slabs. Returns
-    (dq, dk, dv, dtable) like `reference_attention_grads`; for tests and
-    checks."""
+    dR, dE_window = dR^T . Q added to the window's rows of the item's block,
+    and the clipped pairs by two sums a query, added once an item; each
+    slab's `blocks` blocks' rows summed in block order), then the dk/dv
+    kernel's slabs. Returns (dq, dk, dv, dtable) like
+    `reference_attention_grads`; for tests and checks."""
     out, lse = wide_attention(q, k, v, rel_table, max_pos, t_valid, q_offset, True)
     qf, kf, vf, table, gf = q.float(), k.float(), v.float(), rel_table.float(), g.float()
     groups, tq, d = q.shape
@@ -303,6 +366,7 @@ def wide_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offse
         return p, p * (gf[:, rows] @ vf[:, keys].transpose(1, 2) - delta[:, rows, None])
 
     for cols in _slabs(d, "bwd_q"):
+        de_rows = _BlockRows(blocks, tq, 64, 64, table.shape[0], cols.stop - cols.start, q.device)
         c_hi = torch.zeros(groups, tq, device=q.device)
         c_lo = torch.zeros(groups, tq, device=q.device)
         for i0, nq, j0, nk, base, kind in pairs:
@@ -318,18 +382,16 @@ def wide_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offse
                 dr = torch.zeros(groups, nq, 127, device=q.device)
                 dr.scatter_(2, c.expand(groups, -1, -1), ds * (dist.abs() < max_pos))
                 dq[:, rows, cols] += dr @ table[window][:, cols]
-                # one add a window row and column of the slab, summed over the groups
-                de = torch.zeros(127, d, device=q.device)
-                de[:, cols] = torch.einsum("gac,gad->cd", dr, qf[:, rows, cols])
-                dtable.index_add_(0, window, de)
+                # one add a window row and column of the slab
+                de_rows.add_window(i0, window, dr, qf[:, rows, cols])
             elif kind == "high":
                 c_hi[:, rows] += ds.sum(dim=2)
             else:
                 c_lo[:, rows] += ds.sum(dim=2)
         dq[:, :, cols] += (c_hi[:, :, None] * table[2 * max_pos, cols]
                            + c_lo[:, :, None] * table[0, cols])
-        dtable[2 * max_pos, cols] += torch.einsum("ga,gad->d", c_hi, qf[:, :, cols])
-        dtable[0, cols] += torch.einsum("ga,gad->d", c_lo, qf[:, :, cols])
+        de_rows.add_clipped(c_hi, c_lo, qf[:, :, cols])
+        dtable[:, cols] = de_rows.total()
     for cols in _slabs(d, "bwd_k"):
         for i0, nq, j0, nk, base, kind in pairs:
             rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
@@ -449,11 +511,10 @@ def _launch_backward(q, k, v, rel_table, out, lse, grad_out, max_pos, t_valid, q
     delta = torch.empty(g, tq, dtype=torch.float32, device=q.device)
     dtable = torch.empty(rel_table.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        # the table's gradient arrives as rows of partial sums, one a block of the
-        # kernel that sums it (or one in all for a table too long for a block's
-        # shared memory), which the library adds into dtable; the wide kernels
-        # ask for none: they add each tile pair's window gradient, a slab's
-        # columns at a time, into the zeroed dtable by atomics
+        # the table's gradient arrives as rows of partial sums, one a persistent
+        # block of the kernel that sums it (the wide kernels' blocks fill a
+        # slab's width of a row each), which the library adds into dtable in
+        # block order: no atomics, the same bits on every run
         rows = lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, d, g, tq, max_pos)
         if rows < 0:
             _raise_on(lib, -rows, "flash_rel_attention_bwd")

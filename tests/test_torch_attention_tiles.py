@@ -10,7 +10,9 @@ Tolerances. Forward: atol 2e-5 / rtol 1e-4, what the JAX package holds
 its kernel to (fp32 sums in another order, ~1e-6 seen). Gradients: 1e-4
 of the reference's largest entry: every entry sums up to G*T*T fp32
 products in an order that differs between tile walks (rows 0 and
-2*max_pos of the table collect every distant pair), ~1e-6 seen.
+2*max_pos of the table collect every distant pair), ~1e-6 seen. The
+table's gradient is summed as the kernels sum it: rows of partial sums,
+one a persistent block, added in block order.
 """
 
 import os
@@ -95,6 +97,37 @@ def test_tiled_matches_jax_kernels(rng, g, tq, tk, max_pos, t_valid, q_offset, t
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=ATOL, rtol=RTOL)
     ours = fa.tiled_attention_grads(*tensors, max_pos, t_valid, q_offset, torch.from_numpy(cot), tile)
     _assert_grads([x.numpy() for x in ours], ref)
+
+
+# tables whose gradient kernel #2 keeps in global memory, in rows of its own a
+# block: head dim 32 (in fp32 at any max_pos), and max_pos above 750 (head dim 16)
+GLOBAL_DE_CASES = [
+    pytest.param(2, 256, 40, 32, id="D32"),
+    pytest.param(1, 900, 800, 16, id="max_pos-800"),
+]
+
+
+@pytest.mark.parametrize("g,t,max_pos,d", GLOBAL_DE_CASES)
+def test_tiled_matches_jax_kernels_where_the_table_gradient_is_global(rng, g, t, max_pos, d):
+    q, k, v, table, cot = _inputs(rng, g, t, t, max_pos, d)
+    assert {kind for *_, kind in fa._tile_pairs(t, t, 0, max_pos, 64)} == {"mixed", "high", "low"}
+    _, vjp = jax.vjp(lambda *a: jfa.flash_rel_attention_at(*a, max_pos, t, jnp.asarray(0.0)),
+                     *map(jnp.asarray, (q, k, v, table)))
+    ref = vjp(jnp.asarray(cot))
+    ours = fa.tiled_attention_grads(*map(torch.from_numpy, (q, k, v, table)), max_pos, t, 0,
+                                    torch.from_numpy(cot), blocks=3)
+    _assert_grads([x.numpy() for x in ours], ref)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 132])
+def test_block_count_moves_only_the_table_sums_order(rng, blocks):
+    """The persistent blocks' rows change the order of the table's sums, and
+    nothing else: dq, dk and dv are bitwise those of one block."""
+    q, k, v, table, cot = map(torch.from_numpy, _inputs(rng, 3, 200, 200, 8))
+    one = fa.tiled_attention_grads(q, k, v, table, 8, 187, 0, cot, tile=16, blocks=1)
+    ours = fa.tiled_attention_grads(q, k, v, table, 8, 187, 0, cot, tile=16, blocks=blocks)
+    assert all(torch.equal(a, b) for a, b in zip(ours[:3], one[:3]))
+    _assert_grads(ours, one)
 
 
 def test_tile_width_does_not_change_the_function(rng):

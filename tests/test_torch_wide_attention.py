@@ -56,6 +56,18 @@ def test_wide_walk_matches_dense(rng, d, max_pos, tq, tk, t_valid, q_offset):
                                atol=1e-5 * ref_grads[3].abs().max().item(), rtol=RTOL)
 
 
+@pytest.mark.parametrize("blocks", [1, 5])
+def test_wide_walk_blocks_move_only_the_table_sums_order(rng, blocks):
+    """Each slab's persistent blocks change the order of the table's sums,
+    and nothing else: dq, dk and dv are bitwise those of the default."""
+    q, k, v, table, cot = _inputs(rng, 3, 70, 140, 320, 32)
+    ref = fa.wide_attention_grads(q, k, v, table, 32, 130, 50, cot)
+    ours = fa.wide_attention_grads(q, k, v, table, 32, 130, 50, cot, blocks=blocks)
+    assert all(torch.equal(a, b) for a, b in zip(ours[:3], ref[:3]))
+    np.testing.assert_allclose(ours[3].numpy(), ref[3].numpy(),
+                               atol=1e-5 * ref[3].abs().max().item(), rtol=RTOL)
+
+
 def test_wide_walk_keeps_the_input_type(rng):
     q, k, v, table, cot = (t.bfloat16() for t in _inputs(rng, 1, 40, 70, 72, 16))
     out = fa.wide_attention(q, k, v, table, 16, 70, 30)
