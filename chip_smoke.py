@@ -134,9 +134,18 @@ failure, none falling back to the CPU or to a plain version:
      own output and against 'xla', bf16 against fp32; a 16 s track 'auto'
      against 'xla' and bf16 against fp32; one device-label train_step at
      cut_len 64000 from the trained generator, run twice from one state:
-     every state tensor bitwise equal.
+     every state tensor bitwise equal;
+ 21. the bench (cmgan_torch.bench): every cell once at BENCH_REPS repeats
+     with a traced window each, its JSON lines and summary printed, any
+     failed check failing the run; the tools' lockstep ticks and the DSP's
+     share; and the library route for kernels #1 and #2 (the position
+     bias formed once as [G, T, T] by one einsum, then
+     scaled_dot_product_attention with it), each part timed apart and
+     held against the kernel: forward at G 404, T 2561 fp32 and bf16,
+     backward through autograd at G 1616, T 641 fp32.
 
-Then the card's line, a JSON line with each kernel's numbers, and, last,
+Then the phases' seconds and the whole run's, the card's line, a JSON line
+with each kernel's numbers, and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, or without
 the `cmgan_torch` package beside this file.
 """
@@ -154,6 +163,7 @@ import sys
 import tempfile
 import time
 
+STARTED = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
 
@@ -259,6 +269,9 @@ LOADER_FILES, LOADER_RANKS = 128, 8
 TRAINED_DIR = os.path.join(ROOT, "tests", "torch_data", "r05_fold1_ema")
 TRAINED_BF16_REL = 2e-2
 TRAINED_LONG_SECONDS = 16
+# [21] the bench's timed repeats a metric in this run (the bench's own default
+# is 5; here every cell runs once, briefly)
+BENCH_REPS = 2
 
 
 def log(msg: str):
@@ -286,39 +299,26 @@ def attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward:
     """The least time the card could take for the attention function (or its
     gradient) on these shapes: the largest of its products at the tensor
     cores' rate, its bytes at the memory's rate and its exponentials (one a
-    query-key pair) at the special-function units' rate. A pair whose
-    distance is clipped needs no position product: its position logit, its
-    share of dq and of the table's gradient come from one scalar a query and
-    table end, so the forward needs 2 products of 2*d FLOP for it, not 3,
-    and the backward 5 (content logit, dp, dv, dk, dq), not 8. d: the head
-    dim the caller asks for (not the width the kernels pad it to)."""
-    import numpy as np
+    query-key pair) at the special-function units' rate. The counts are the
+    package's (`ops.flash_attention.attention_work`, which the bench counts
+    by too): a clipped pair needs no position product. d: the head dim the
+    caller asks for (not the width the kernels pad it to)."""
     import torch
 
-    i = np.arange(tq) + q_offset
-    first = np.maximum(0, i - max_pos + 1)
-    last = np.minimum(t_valid - 1, i + max_pos - 1)
-    near = int(np.maximum(0, last - first + 1).sum())   # pairs a group with |i - j| < max_pos
-    far = tq * t_valid - near
-    rows = 2 * max_pos + 1
+    from cmgan_torch.ops.flash_attention import attention_work
+
     es = 2 if dtype_name == "bfloat16" else 4
-    if backward:
-        flops = 2 * d * g * (8 * near + 5 * far)
-        # q, g, out, dq and k, v, dk, dv once each, the table and its gradient, lse
-        nbytes = es * d * (4 * g * tq + 4 * g * tk + rows) + 4 * (rows * d + g * tq)
-    else:
-        flops = 2 * d * g * (3 * near + 2 * far)
-        nbytes = es * d * (2 * g * tq + 2 * g * tk + rows)
-    exps = g * tq * t_valid
+    work = attention_work(g, tq, tk, t_valid, q_offset, max_pos, d, es, backward)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     times = {
-        "operations": flops / ATTN_PEAK_FLOPS[dtype_name],
-        "bytes": nbytes / PEAK_BYTES,
-        "exp": exps / (EXP_PER_CLOCK_SM * sms * max_sm_clock_hz()),
+        "operations": work["flop"] / ATTN_PEAK_FLOPS[dtype_name],
+        "bytes": work["bytes"] / PEAK_BYTES,
+        "exp": work["exps"] / (EXP_PER_CLOCK_SM * sms * max_sm_clock_hz()),
     }
     by = max(times, key=times.get)
-    return {"bound_ms": 1e3 * times[by], "bound_by": by, "flop": flops, "bytes": nbytes,
-            "exps": exps, "clipped_share": far / (tq * t_valid),
+    return {"bound_ms": 1e3 * times[by], "bound_by": by, "flop": work["flop"],
+            "bytes": work["bytes"], "exps": work["exps"],
+            "clipped_share": work["far"] / (tq * t_valid),
             "bound_parts_ms": {k: 1e3 * v for k, v in times.items()}}
 
 
@@ -2672,6 +2672,123 @@ def trained_weights_on_card(smi: str):
     return launches["4 s"], step_launches
 
 
+def library_route(dtype_name, g, t, seed, backward: bool, max_pos=512, d=16):
+    """[21] the library route for kernel #1 (backward: #2) on the inputs of
+    [2]'s (or [7]'s) case at this seed: the position bias formed once as
+    [G, T, T] by one einsum over the gathered band, then
+    scaled_dot_product_attention with it as the mask (q carries the scale),
+    each part timed apart, and held against the kernel's output (and
+    gradients) on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from cmgan_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    q = randn(g, t, d, scale=d ** -0.5)
+    k, v = randn(g, t, d), randn(g, t, d)
+    table = randn(2 * max_pos + 1, d)
+    i = torch.arange(t, device="cuda")
+    dist = i[:, None] - i[None, :] + t - 1
+
+    def bias_of(q, table):
+        return torch.einsum("gid,ijd->gij", q, fa.make_rel_band(table, t, max_pos)[dist])
+
+    def attend(q, k, v, bias):
+        return F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=bias[None],
+                                              scale=1.0)[0]
+
+    record = {"dtype": dtype_name, "G": g, "T": t, "D": d, "max_pos": max_pos,
+              "bias_gb": g * t * t * q.element_size() / 1e9}
+    if not backward:
+        with torch.no_grad():
+            bias = bias_of(q, table)
+            out = attend(q, k, v, bias)
+            ref = fa.flash_rel_attention_at(q, k, v, table, max_pos)
+            record["bias_ms"] = cuda_ms(lambda: bias_of(q, table), reps=3)
+            record["sdpa_ms"] = cuda_ms(lambda: attend(q, k, v, bias), reps=3)
+        record["library_ms"] = record["bias_ms"] + record["sdpa_ms"]
+        errs = {"out": rel_l2(out.float().cpu().numpy(), ref.float().cpu().numpy())}
+        del bias, out, ref
+    else:
+        cot = randn(g, t, d)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, table)]
+        ql, kl, vl, tl = leaves
+        bias = bias_of(ql, tl)
+        bias_leaf = bias.detach().requires_grad_()
+        out = attend(ql, kl, vl, bias_leaf)
+        dq, dk, dv, dbias = torch.autograd.grad(out, [ql, kl, vl, bias_leaf], cot,
+                                                retain_graph=True)
+        dq_bias, dtable = torch.autograd.grad(bias, [ql, tl], dbias, retain_graph=True)
+        lib = [dq + dq_bias, dk, dv, dtable]
+        kernel_leaves = [x.clone().requires_grad_() for x in (q, k, v, table)]
+        kernel = torch.autograd.grad(fa.flash_rel_attention_at(*kernel_leaves, max_pos),
+                                     kernel_leaves, cot)
+        errs = {n: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                for n, a, b in zip(("dq", "dk", "dv", "dE"), lib, kernel)}
+        record["bias_fwd_ms"] = cuda_ms(lambda: bias_of(ql, tl), reps=3)
+        record["sdpa_fwd_ms"] = cuda_ms(lambda: attend(ql, kl, vl, bias_leaf), reps=3)
+        record["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out, [ql, kl, vl, bias_leaf], cot, retain_graph=True), reps=3)
+        record["bias_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            bias, [ql, tl], dbias, retain_graph=True), reps=3)
+        record["library_ms"] = record["sdpa_bwd_ms"] + record["bias_bwd_ms"]
+        del leaves, bias, bias_leaf, out, lib, kernel, kernel_leaves
+    torch.cuda.empty_cache()
+    record["rel_err_against_kernel"] = errs
+    # the bias rounds to the input type: bf16 holds to its own limit
+    limit = (BWD_TOL[dtype_name] if backward else
+             KERNEL_TOL["float32"][1] if dtype_name == "float32" else BF16_VS_FP32_REL)
+    log(f"[21] library route {'backward' if backward else 'forward'} {json.dumps(record)} "
+        f"(limit {limit})")
+    if not all(e <= limit for e in errs.values()):
+        raise AssertionError("[21] the library route disagrees with the kernel")
+    return record
+
+
+def bench_on_card(smi: str):
+    """[21] every cell of the bench (cmgan_torch.bench) once, BENCH_REPS
+    repeats each, a traced window each; the bench's tools (lockstep ticks,
+    the DSP's share); the library route for kernels #1 and #2. Returns
+    kernel #1's and #2's library records."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch import bench
+    from cmgan_torch.config import CMGANConfig
+    from cmgan_torch.inference import load_generator
+    from cmgan_torch.tools import profile_dsp_share, serving_bench
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        ctx = bench.Run(smi, seed=0, reps=BENCH_REPS, trace_dir=tmp)
+        summary = bench.run(list(bench.CELLS), ctx, emit=lambda line: log(f"[21] {line}"))
+    log(f"[21] bench summary {json.dumps(summary)}")
+
+    cfg = CMGANConfig()
+    model = load_generator(cfg, None, torch.bfloat16, "cuda")
+    x = torch.from_numpy((0.1 * np.random.default_rng(0).standard_normal(
+        (16, 2 * SR))).astype(np.float32)).cuda()
+    share = profile_dsp_share.dsp_share(model, cfg.dsp, x, iters=5)
+    log(f"[21] tools.profile_dsp_share, 16 x 2 s bf16: {json.dumps(share)} on {smi}")
+    del model, x
+    fp32 = load_generator(cfg, None, None, "cuda")
+    ticks = serving_bench.lockstep_ticks(cfg, fp32, 8, 5, 2, seed=0)
+    log(f"[21] tools.serving_bench lockstep, 8 streams: ms a tick "
+        f"{json.dumps(rounded([1e3 * s for s in ticks], 3))} on {smi}")
+    del fp32
+    torch.cuda.empty_cache()
+
+    fwd = [library_route(dt, 404, 2561, seed=2561, backward=False)
+           for dt in ("float32", "bfloat16")]
+    bwd = library_route("float32", 1616, 641, seed=7, backward=True)
+    return fwd, bwd
+
+
 def backward_phase(m):
     """[7] with the functions of the chip_smoke module m (this file, or
     another checkout's with the same functions): kernel #2's cases, the wide
@@ -2934,8 +3051,11 @@ def main() -> int:
     lap("19 parallel")
     trained_launches, trained_step = trained_weights_on_card(smi)
     lap("20 trained weights")
+    library_fwd, library_bwd = bench_on_card(smi)
+    lap("21 bench")
     log(f"seconds by phase: {json.dumps(laps)}, in all {sum(laps.values()):.1f} "
-        f"(imports and the card's start not counted)")
+        f"(imports and the card's start not counted); the whole run "
+        f"{time.perf_counter() - STARTED:.1f} s")
 
     kernels = {"kernels": [{
         "name": "flash_rel_attention",
@@ -2952,7 +3072,8 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
-        "library_ms": None,
+        "library_ms": library_fwd[0]["library_ms"],
+        "library_route": library_fwd,
         "launches_48k": long_launches,
         "launches_mesh_step": mesh_launches[0],
         "launches_local_loader_epoch": {m: n[0] for m, n in local_launches.items()},
@@ -2981,7 +3102,8 @@ def main() -> int:
         "plain_ms": bwd_main["plain_ms"],
         "bound_ms": bwd_main["bound_ms"],
         "bound_by": bwd_main["bound_by"],
-        "library_ms": None,
+        "library_ms": library_bwd["library_ms"],
+        "library_route": library_bwd,
         "cases": bwd_cases,
     }, {
         "name": "flash_rel_attention_wide",

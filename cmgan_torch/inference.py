@@ -21,7 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from cmgan_torch.config import CMGANConfig
+from cmgan_torch.config import CMGANConfig, DSPConfig
 from cmgan_torch.dsp import istft, power_compress, power_uncompress, stft
 from cmgan_torch.models import TSCNet
 from cmgan_torch.models.layers import torch_default_init_
@@ -93,6 +93,22 @@ def load_generator(cfg: CMGANConfig, weights, dtype=None, device="cuda",
     return model.to(device).eval()
 
 
+def enhance_tensor(model: TSCNet, dsp: DSPConfig, x: torch.Tensor,
+                   dft_impl: str = "fft") -> torch.Tensor:
+    """The device part of an enhancement call: segments x [B, L] (float32,
+    on the model's device) -> enhanced [B, (T-1) * hop], L itself when hop
+    divides it. STFT, power compression, the generator, uncompression of
+    its float32 outputs (the generator returns float32 under bf16 too, as
+    the JAX pipeline casts them) and the iSTFT, all on tensors: nothing is
+    read back, so calls queue on the device and a CUDA graph can capture
+    them. Callers pick the grad mode (`Enhancer` and streaming run it under
+    `torch.inference_mode`)."""
+    packed = power_compress(stft(x, dsp.n_fft, dsp.hop, dft_impl=dft_impl), dsp.compress_exponent)
+    est_real, est_imag = model(packed)
+    est = power_uncompress(est_real.float(), est_imag.float(), dsp.compress_exponent)
+    return istft(est, dsp.n_fft, dsp.hop, dft_impl=dft_impl)
+
+
 class Enhancer:
     """Offline enhancement with one TSCNet.
 
@@ -120,17 +136,13 @@ class Enhancer:
 
     def _enhance_batch(self, segments: np.ndarray) -> np.ndarray:
         """segments [B, L], already RMS-normalized -> enhanced [B, L]."""
-        dsp = self.cfg.dsp
         rows = segments.shape[0]
         if self.mesh is not None:
             pad = np.repeat(segments[:1], -rows % self.mesh.data_size, axis=0)
             segments = shard_batch(self.mesh, np.concatenate([segments, pad]))
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(segments, np.float32)).to(self.device)
-            packed = power_compress(stft(x, dsp.n_fft, dsp.hop), dsp.compress_exponent)
-            est_real, est_imag = self.model(packed)
-            est_spec = power_uncompress(est_real, est_imag, dsp.compress_exponent)
-            out = istft(est_spec, dsp.n_fft, dsp.hop)
+            out = enhance_tensor(self.model, self.cfg.dsp, x)
             if self.mesh is not None:
                 out = collectives.gather_rows(out, self.mesh.data_group)[:rows]
             return out.cpu().numpy()

@@ -19,7 +19,9 @@ PyTorch: the CPU tests check the index work there, where no kernel runs.
 the table. For CPU tensors it runs the plain version
 (`reference_attention`, any head dim) under ordinary autograd; for CUDA
 tensors it launches the kernels, through a `torch.autograd.Function`
-when a gradient is wanted, or raises. `reference_attention_grads` is the
+when a gradient is wanted, or raises; for meta tensors it gives the
+output's shape alone. `attention_work` counts the function's operations
+and bytes from its shapes. `reference_attention_grads` is the
 backward's plain version.
 
 The tensor-core kernels are built for head dims of 16, 32 and 64
@@ -120,6 +122,42 @@ def reference_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int,
         band = make_rel_band(leaves[3].float(), k.shape[1], max_pos)
         out = reference_attention(*leaves[:3], band, t_valid, q_offset)
     return torch.autograd.grad(out, leaves, g)
+
+
+def attention_work(g: int, tq: int, tk: int, t_valid: int, q_offset: int, max_pos: int,
+                   d: int, elem_bytes: int, backward: bool = False) -> dict:
+    """The work the attention function (or its gradient) needs on these
+    shapes, counted by the algorithm and not by any implementation of it:
+    the same for the kernels, the dense path and a library's.
+
+    - flop: 2*d a product of a query-key pair. A pair whose distance is
+      clipped (|i - j| >= max_pos) needs no position product: its position
+      logit, and its share of dq and of the table's gradient, come from one
+      scalar a query and table end. So the forward takes 3 products a near
+      pair (content logit, position logit, P.V) and 2 a clipped one; the
+      backward 8 and 5 (content logit, dp, dv, dk, dq).
+    - bytes: every input read once and every output written once: q, k, v,
+      the table and the output in the forward (elements of `elem_bytes`);
+      the backward adds the output's gradient, dq, dk, dv, and the float32
+      table gradient and row log-sum-exp.
+    - exps: one exponential a query-key pair.
+    d is the head dim the caller asks for (not the width the kernels pad
+    it to); queries sit at q_offset + i, keys from t_valid on are masked.
+    """
+    # keys within max_pos of query position p: plain integers, no tensor op
+    near = sum(max(0, min(t_valid - 1, p + max_pos - 1) - max(0, p - max_pos + 1) + 1)
+               for p in range(q_offset, q_offset + tq))
+    far = tq * t_valid - near
+    rows = 2 * max_pos + 1
+    if backward:
+        flop = 2 * d * g * (8 * near + 5 * far)
+        # q, the output's gradient, out, dq and k, v, dk, dv once each, the
+        # table and its gradient, the lse
+        nbytes = elem_bytes * d * (4 * g * tq + 4 * g * tk + rows) + 4 * (rows * d + g * tq)
+    else:
+        flop = 2 * d * g * (3 * near + 2 * far)
+        nbytes = elem_bytes * d * (2 * g * tq + 2 * g * tk + rows)
+    return {"flop": flop, "bytes": nbytes, "exps": g * tq * t_valid, "near": near, "far": far}
 
 
 def _tile_pairs(tq: int, t_valid: int, q_offset: int, max_pos: int, tile: int):
@@ -624,6 +662,10 @@ def flash_rel_attention_at(q, k, v, rel_table, max_pos: int,
         return reference_attention(
             q, k, v, make_rel_band(rel_table, tk, max_pos), t_valid, q_offset
         )
+    if q.device.type == "meta":
+        # shapes only, as PyTorch's own meta kernels: a model on the meta
+        # device is walked for its work (`attention_work`, `bench.call_work`)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     d = q.shape[2]

@@ -33,8 +33,7 @@ import numpy as np
 import torch
 
 from cmgan_torch.config import CMGANConfig, DSPConfig
-from cmgan_torch.dsp import istft, power_compress, power_uncompress, stft
-from cmgan_torch.inference import load_generator
+from cmgan_torch.inference import enhance_tensor, load_generator
 
 
 def _window_fn(model, windows: torch.Tensor, c: torch.Tensor, dsp: DSPConfig) -> torch.Tensor:
@@ -45,14 +44,9 @@ def _window_fn(model, windows: torch.Tensor, c: torch.Tensor, dsp: DSPConfig) ->
     and the server calls this from its tick thread and its handler threads.
     """
     with torch.inference_mode():
-        x = windows * c[:, None]
         # dft_impl threaded through: a config trained with 'matmul' streams
         # through the same DFT
-        spec = stft(x, dsp.n_fft, dsp.hop, dft_impl=dsp.dft_impl)
-        packed = power_compress(spec, dsp.compress_exponent)
-        est_real, est_imag = model(packed)
-        est = power_uncompress(est_real.float(), est_imag.float(), dsp.compress_exponent)
-        return istft(est, dsp.n_fft, dsp.hop, dft_impl=dsp.dft_impl) / c[:, None]
+        return enhance_tensor(model, dsp, windows * c[:, None], dsp.dft_impl) / c[:, None]
 
 
 def _enhance_windows(model, dsp: DSPConfig, device, windows: np.ndarray,

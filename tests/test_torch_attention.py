@@ -16,6 +16,7 @@ from cmgan_tpu.ops import flash_attention as jfa
 from cmgan_torch.convert import _linear
 from cmgan_torch.models.conformer import RelPosAttention
 from cmgan_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 MAX_POS = 512
 ATOL, RTOL = 2e-5, 1e-4

@@ -12,6 +12,7 @@ from cmgan_tpu.checkpoint.torch_import import export_generator_state_dict, save_
 from cmgan_torch.config import ModelConfig
 from cmgan_torch.convert import state_dict_from_flax
 from cmgan_torch.models import TSCNet
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 REPORTS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "reports")
 CHECKPOINTS = ["trained_generator_r05_fold1_ema", "trained_generator_r04_ema",

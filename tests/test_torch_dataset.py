@@ -10,6 +10,7 @@ import pytest
 from cmgan_tpu.data import dataset as jds
 from cmgan_torch.data import dataset as tds
 from cmgan_torch.data import write_wav
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from cmgan_torch.convert import DISC_SN_LAYERS, disc_state_dict_from_flax
 from cmgan_torch.models import MetricDiscriminator
 from cmgan_torch.models.discriminator import SpectralNorm
 from cmgan_torch.models.layers import Linear, torch_default_init_
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 ATOL, RTOL = 1e-5, 1e-4
 SMALL = dict(ndf=4, disc_dropout=0.0)

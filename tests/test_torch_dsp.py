@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 # the packages re-export the function `stft`, which hides the module
 jstft = importlib.import_module("cmgan_tpu.dsp.stft")

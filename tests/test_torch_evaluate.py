@@ -27,6 +27,7 @@ from cmgan_torch.data import read_wav, write_wav
 from cmgan_torch.inference import Enhancer
 from cmgan_torch.metrics import compute_metrics
 from cmgan_torch.train import init_train_state
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 SR = 16000
 KEYS = ("pesq", "csig", "cbak", "covl", "ssnr", "stoi")

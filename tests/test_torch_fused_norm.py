@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from cmgan_tpu.ops import fused_norm as jfn
 from cmgan_torch.ops import fused_norm as fn
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 
 def _inputs(rng, shape):

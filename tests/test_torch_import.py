@@ -11,6 +11,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 REF_SRC = "/root/reference/src"
 

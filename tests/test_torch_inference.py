@@ -22,6 +22,7 @@ from cmgan_torch import config as tcfg
 from cmgan_torch import inference as tinf
 from cmgan_torch.convert import state_dict_from_flax
 from cmgan_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 SMALL = dict(num_channels=32, num_tscb_blocks=1, dense_depth=2, attn_heads=2)
 SR = 16000

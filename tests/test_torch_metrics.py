@@ -15,6 +15,7 @@ import cmgan_tpu.metrics as jm
 from cmgan_tpu.metrics import pesq_ref as jref
 from cmgan_torch import metrics as tm
 from cmgan_torch.metrics import pesq_ref as tref
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 SR = 16000
 RTOL = 1e-9

@@ -27,6 +27,7 @@ from cmgan_torch.convert import (
 from cmgan_torch.models import layers as tl
 from cmgan_torch.models.conformer import ConformerBlock
 from cmgan_torch.models.generator import TSCNet
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 ATOL, RTOL = 2e-4, 1e-3
 CKPT = os.path.join(os.path.dirname(os.path.dirname(__file__)),

@@ -7,6 +7,7 @@ import pytest
 from cmgan_tpu.metrics import pesq_native as jpn
 from cmgan_torch.metrics import pesq_native as pn
 from cmgan_torch.train.steps import pesq_labels_host
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 
 def _pairs(rng, b=3, n=16000):

@@ -20,6 +20,7 @@ import torch
 from cmgan_tpu.metrics.pesq_jax import pesq_labels_jax, pesq_mos_jax
 from cmgan_torch.metrics import pesq_torch as pt
 from cmgan_torch.metrics.pesq_native import pesq_batch
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 SR = 16000
 

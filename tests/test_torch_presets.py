@@ -30,6 +30,7 @@ from cmgan_torch.convert import state_dict_from_flax
 from cmgan_torch.models.conformer import RelPosAttention
 from cmgan_torch.ops import flash_attention as fa
 from cmgan_torch.train.state import check_supported
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 SR = 48_000
 TINY = dict(num_channels=16, num_tscb_blocks=1, dense_depth=2, attn_heads=2)

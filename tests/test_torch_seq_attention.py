@@ -25,6 +25,7 @@ from cmgan_tpu.ops import seq_attention as jseq
 from cmgan_torch.models.conformer import RelPosAttention
 from cmgan_torch.ops import flash_attention as fa
 from cmgan_torch.ops import seq_attention as sa
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 MAX_POS = 512
 CASES = [(1024, 4), (777, 4), (512, 2)]   # (T, ranks)

@@ -34,6 +34,7 @@ from cmgan_torch.cli.serve import (
 from cmgan_torch.convert import state_dict_from_flax
 from cmgan_torch.inference import load_generator
 from cmgan_torch.streaming import StreamingEnhancer
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 TINY = dict(num_channels=16, num_tscb_blocks=1, dense_depth=2, attn_heads=2)
 ATOL, RTOL = 2e-4, 1e-3   # against JAX, as for the offline Enhancer

@@ -23,6 +23,7 @@ from cmgan_torch import streaming as tstream
 from cmgan_torch.convert import state_dict_from_flax
 from cmgan_torch.inference import load_generator
 from cmgan_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 TINY = dict(num_channels=16, num_tscb_blocks=1, dense_depth=2, attn_heads=2)
 LONG = dict(num_channels=16, num_tscb_blocks=1, dense_depth=2, attn_heads=1)

@@ -50,6 +50,7 @@ from cmgan_torch.train import (
     Trainer, init_train_state, make_disc_lr_schedule, make_lr_schedule, make_train_steps,
 )
 from cmgan_torch.train import steps as tsteps
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 MODEL = dict(num_channels=16, num_tscb_blocks=2, dense_depth=2, attn_heads=1, ndf=4,
              attn_dropout=0.0, ff_dropout=0.0, disc_dropout=0.0, attention_impl="flash")

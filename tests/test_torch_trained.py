@@ -28,6 +28,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)

@@ -24,6 +24,7 @@ from cmgan_tpu.utils import MetricsLogger as JaxMetricsLogger
 from cmgan_torch import config as tcfg
 from cmgan_torch.train import Trainer
 from cmgan_torch.utils import MetricsLogger, StepTimer, annotate, trace
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 MODEL = dict(num_channels=16, num_tscb_blocks=1, dense_depth=2, attn_heads=2, ndf=4)
 BATCH, CUT = 8, 4000

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from cmgan_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 ATOL, RTOL = 2e-5, 1e-4
 
