@@ -130,19 +130,31 @@ failure, none falling back to the CPU or to a plain version:
  20. trained weights: the JAX package's fold-1 EMA generator as
      tests/torch_data/r05_fold1_ema/generator.pt, loaded through
      inference.load_generator, on the 4 s track of golden_4s.npz in bucket
-     mode: fp32 through kernel #1 (4 launches) against the JAX package's
-     own output and against 'xla', bf16 against fp32; a 16 s track 'auto'
-     against 'xla' and bf16 against fp32; one device-label train_step at
-     cut_len 64000 from the trained generator, run twice from one state:
-     every state tensor bitwise equal;
+     mode: (a) fp32 through kernel #1 (4 launches) against the JAX
+     package's own output, (b) against 'xla', (c) bf16 against fp32; (d) a
+     16 s track 'auto' against 'xla' and bf16 against fp32; (e) one
+     device-label train_step at cut_len 64000 from the trained generator,
+     run twice from one state: every state tensor bitwise equal; against
+     the JAX package's own outputs (golden_stream.npz, golden_gstep.npz):
+     (f) a 2-slot StreamBatcher on golden_stream.npz's two tracks opened at
+     its ticks, at the default window (361 frames, no launches) and the
+     long-context one (601 frames, kernel #1 4 times a tick), every slot's
+     emissions, fp32 and bf16; (g) `python -m cmgan_torch.cli.serve --slots
+     2 --left_context 48000 --torch_ckpt ...generator.pt` as its own
+     process with two concurrent clients, stopped by SIGTERM; (h) one
+     Trainer G step (fp32, dropout 0, deterministic algorithms) at cut_len
+     64000, batch 2, on golden_gstep.npz's seeded batch and discriminator:
+     kernels #1 and #2 4 launches each, the loss and every parameter's
+     gradient, and the worst parameter's distance from a float64 step;
  21. the bench (cmgan_torch.bench): every cell once at BENCH_REPS repeats
      with a traced window each, its JSON lines and summary printed, any
      failed check failing the run; the tools' lockstep ticks and the DSP's
-     share; and the library route for kernels #1 and #2 (the position
-     bias formed once as [G, T, T] by one einsum, then
-     scaled_dot_product_attention with it), each part timed apart and
-     held against the kernel: forward at G 404, T 2561 fp32 and bf16,
-     backward through autograd at G 1616, T 641 fp32.
+     share; and the library route for kernels #1 and #2 at every shape of
+     PERF.md's kernel table (the position bias formed as [G, Tq, Tk] by one
+     einsum, then scaled_dot_product_attention with it; in chunks of
+     groups where the bias is too large), fp32 and bf16, forward and
+     backward, each part timed apart, the kernel timed beside it and held
+     against it.
 
 Then the phases' seconds and the whole run's, the card's line, a JSON line
 with each kernel's numbers, and, last,
@@ -269,9 +281,24 @@ LOADER_FILES, LOADER_RANKS = 128, 8
 TRAINED_DIR = os.path.join(ROOT, "tests", "torch_data", "r05_fold1_ema")
 TRAINED_BF16_REL = 2e-2
 TRAINED_LONG_SECONDS = 16
+# [20] (f)-(h) read golden_stream.npz and golden_gstep.npz (the tracks, the
+# batch's and the discriminator's seeds, the JAX package's outputs): (f) the
+# port's StreamBatcher against the JAX package's within FLASH_VS_XLA_REL,
+# bf16 against the card's fp32 within TRAINED_BF16_REL; (g) the served
+# streams against the golden within SERVE_PROCESS_REL + FLASH_VS_XLA_REL, and
+# against (f)'s fp32 batcher within SERVE_PROCESS_REL; (h) the G step's loss
+# within TRAINED_GSTEP_LOSS_REL (the CPU tests' rtol for losses,
+# test_torch_train.py), its gradient within GSTEP_REL as one vector and
+# GSTEP_PARAM_REL for the worst parameter (the limits of [9] and of the
+# bench's 64000 cell)
+TRAINED_GSTEP_LOSS_REL = 1e-5
 # [21] the bench's timed repeats a metric in this run (the bench's own default
-# is 5; here every cell runs once, briefly)
+# is 5; here every cell runs once, briefly); the library route's chunks of
+# groups: a forward's [g, Tq, Tk] bias at most 16 GB (a second one is made
+# while it is timed, and SDPA may copy it to pad its rows), a backward's a
+# quarter of that (the bias, its gradient and SDPA's copies live together)
 BENCH_REPS = 2
+LIBRARY_BIAS_BYTES = {False: 16e9, True: 4e9}
 
 
 def log(msg: str):
@@ -920,11 +947,15 @@ def wide_kernel_at_64(smi: str):
             raise AssertionError("the wide forward at D 64 disagrees with the plain version")
 
 
-def wide_summary(cases):
-    """The kernels line's numbers of a wide kernel: its fp32 case at D 128."""
-    main = next(c for c in cases if c["D"] == 128 and c["dtype"] == "float32")
-    return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")} | {
-        "library_ms": None}
+def wide_summary(cases, library):
+    """The kernels line's numbers of a wide kernel: its fp32 case at D 128,
+    beside [21]'s library route there."""
+    def main(records):
+        return next(c for c in records if c["D"] == 128 and c["dtype"] == "float32"
+                    and c["q_offset"] == 0)
+
+    return {k: main(cases)[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by")} | {"library_ms": main(library)["library_ms"]}
 
 
 def wide_backward_cases():
@@ -1055,10 +1086,10 @@ def train_config(cut_len: int, attention_impl: str = "auto", mode: str = "host",
     )
 
 
-def train_batch(cut_len: int, seed: int):
+def train_batch(cut_len: int, seed: int, batch: int = TRAIN_BATCH):
     import numpy as np
 
-    clean = np.stack([synthetic_track(cut_len, seed + i) for i in range(TRAIN_BATCH)])
+    clean = np.stack([synthetic_track(cut_len, seed + i) for i in range(batch)])
     rng = np.random.default_rng(seed)
     return clean, clean + (0.05 * rng.standard_normal(clean.shape)).astype(np.float32)
 
@@ -1704,11 +1735,12 @@ def stream_solo(cfg, model, track, block: int, **kw):
     return np.concatenate(parts + [s.flush()])
 
 
-def stream_slots(batcher, tracks, starts):
+def stream_emissions(batcher, tracks, starts, ticks=None):
     """Tracks through a StreamBatcher as the server drives it: track i opens a
     slot at tick starts[i], feeds a chunk a tick (the last one zero-padded),
-    drains the lookahead with zero chunks and closes. Returns the aligned
-    outputs, trimmed to the tracks' lengths, and the ticks run."""
+    drains the lookahead with zero chunks and closes. Runs every tick, or
+    the first `ticks`. Returns each track's emissions, one array a tick it
+    fed, and the ticks run."""
     import numpy as np
 
     chunk = batcher.chunk
@@ -1719,21 +1751,31 @@ def stream_slots(batcher, tracks, starts):
         padded = np.zeros(n * chunk, np.float32)
         padded[:track.size] = track
         plans.append(padded.reshape(n, chunk))
-    slots, outs, ticks = [None] * len(tracks), [[] for _ in tracks], 0
-    for tick in range(max(s + len(p) for s, p in zip(starts, plans))):
+    slots, outs, run = [None] * len(tracks), [[] for _ in tracks], 0
+    end = max(s + len(p) for s, p in zip(starts, plans))
+    for tick in range(end if ticks is None else ticks):
         blocks = {}
         for i, (start, plan) in enumerate(zip(starts, plans)):
             if tick == start:
                 slots[i] = batcher.open()
             if start <= tick < start + len(plan):
                 blocks[slots[i]] = plan[tick - start]
-        ticks += bool(blocks)
+        run += bool(blocks)
         result = batcher.step(blocks)
         for i, (start, plan) in enumerate(zip(starts, plans)):
             if start <= tick < start + len(plan):
-                outs[i].append(result[slots[i]])
+                outs[i].append(np.asarray(result[slots[i]], np.float32))
                 if tick == start + len(plan) - 1:
                     batcher.close(slots[i])
+    return outs, run
+
+
+def stream_slots(batcher, tracks, starts):
+    """stream_emissions' outputs aligned and trimmed to the tracks'
+    lengths, and the ticks run."""
+    import numpy as np
+
+    outs, ticks = stream_emissions(batcher, tracks, starts)
     return [np.concatenate(o)[:t.size] for o, t in zip(outs, tracks)], ticks
 
 
@@ -1890,25 +1932,76 @@ def timed_clients(addr, tracks):
     return outs, walls
 
 
-def check_served(tag, outs, walls, tracks, refs, limit, smi):
-    """Every stream complete and within `limit` (rel L2) of its direct stream."""
+def check_served(tag, outs, walls, tracks, refs, limit, smi, phase="[17]"):
+    """Every stream complete and within `limit` (rel L2) of its reference stream."""
     import numpy as np
 
     for i, (out, wall, track, ref) in enumerate(zip(outs, walls, tracks, refs)):
         err = rel_l2(out, ref)
-        log(f"[17] {tag} client {i}: {track.size / SR:.0f} s in {wall:.3f} s wall, realtime "
-            f"factor {track.size / SR / wall:.2f}, out len {out.size}, rel L2 against its direct "
+        log(f"{phase} {tag} client {i}: {track.size / SR:.0f} s in {wall:.3f} s wall, realtime "
+            f"factor {track.size / SR / wall:.2f}, out len {out.size}, rel L2 against its reference "
             f"stream {err:.3e} (tol {limit}) on {smi}")
         if out.shape != track.shape or not np.isfinite(out).all() or not err <= limit:
             raise AssertionError(f"{tag}: a served stream is incomplete or disagrees")
+
+
+def serve_process(args, tracks, tag):
+    """`python -m cmgan_torch.cli.serve --port 0` with `args` as its own
+    process: waits until it serves, runs each track through its own
+    concurrent client, stops it by SIGTERM. Raises unless it ran with TF32
+    off (its main() pins it) and stopped cleanly. Returns the clients'
+    outputs and wall seconds."""
+    import re
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-m", "cmgan_torch.cli.serve", "--port", "0", *args]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.DEVNULL,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    lines, ready = [], threading.Event()
+
+    def read_stderr():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+            if "serving on" in line:
+                ready.set()
+
+    reader = threading.Thread(target=read_stderr, daemon=True)
+    reader.start()
+    try:
+        t0 = time.perf_counter()
+        if not ready.wait(SERVE_WAIT):
+            raise AssertionError(f"{tag} the server process did not start: {lines[-20:]}")
+        started = re.search(r"serving on [^:]+:(\d+) \(TF32: cuDNN (\w+), matmul (\w+)\)",
+                            next(l for l in lines if "serving on" in l))
+        port = int(started.group(1))
+        server_tf32 = (started.group(2) == "True", started.group(3) == "True")
+        log(f"{tag} {' '.join(cmd[1:])}: serving on port {port} after "
+            f"{time.perf_counter() - t0:.1f} s, TF32 cuDNN {server_tf32[0]}, matmul "
+            f"{server_tf32[1]}")
+        outs, walls = timed_clients(("127.0.0.1", port), tracks)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(SERVE_WAIT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(SERVE_WAIT)
+    stopped = [l for l in lines if "stopped after" in l]
+    log(f"{tag} server process exit code {rc}; {stopped[-1] if stopped else 'no tick count'}")
+    if server_tf32 != (False, False):
+        raise AssertionError(f"{tag} the serve CLI runs with TF32 on: cuDNN, matmul {server_tf32}")
+    if rc != 0 or not stopped or any("batcher.step failed" in l or "Traceback" in l
+                                     for l in lines):
+        raise AssertionError(f"{tag} the server process failed or did not stop cleanly: "
+                             f"{lines[-30:]}")
+    return outs, walls
 
 
 def serving_on_card(smi: str):
     """[17] the TCP server: solo mode in a thread against the direct stream,
     8 slots with 8 concurrent clients, then the CLI as its own process at the
     long-context window with two clients and a clean shutdown."""
-    import re
-    import signal
     import threading
 
     import numpy as np
@@ -1950,53 +2043,15 @@ def serving_on_card(smi: str):
         logging.getLogger("cmgan_torch.serve").removeHandler(errors)
 
     # the real entry point, as its own process
-    cmd = [sys.executable, "-m", "cmgan_torch.cli.serve", "--port", "0", "--slots", "4",
-           "--left_context", str(LONG_CONTEXT)]
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.DEVNULL,
-                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-    lines, ready = [], threading.Event()
-
-    def read_stderr():
-        for line in proc.stderr:
-            lines.append(line.rstrip())
-            if "serving on" in line:
-                ready.set()
-
-    reader = threading.Thread(target=read_stderr, daemon=True)
-    reader.start()
-    try:
-        t0 = time.perf_counter()
-        if not ready.wait(SERVE_WAIT):
-            raise AssertionError(f"the server process did not start: {lines[-20:]}")
-        started = re.search(r"serving on [^:]+:(\d+) \(TF32: cuDNN (\w+), matmul (\w+)\)",
-                            next(l for l in lines if "serving on" in l))
-        port = int(started.group(1))
-        server_tf32 = (started.group(2) == "True", started.group(3) == "True")
-        log(f"[17] {' '.join(cmd[1:])}: serving on port {port} after "
-            f"{time.perf_counter() - t0:.1f} s, TF32 cuDNN {server_tf32[0]}, matmul "
-            f"{server_tf32[1]}")
-        tracks = [synthetic_track(6 * SR, seed=420 + i) for i in range(2)]
-        outs, walls = timed_clients(("127.0.0.1", port), tracks)
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(SERVE_WAIT)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        reader.join(SERVE_WAIT)
-    stopped = [l for l in lines if "stopped after" in l]
-    log(f"[17] server process exit code {rc}; {stopped[-1] if stopped else 'no tick count'}")
+    cmd = ["--slots", "4", "--left_context", str(LONG_CONTEXT)]
+    tracks = [synthetic_track(6 * SR, seed=420 + i) for i in range(2)]
+    outs, walls = serve_process(cmd, tracks, "[17]")
     # the direct streams: an fp32 batcher of the server's 4 slots (the same
     # shapes a tick), TF32 off as in this process
     refs, _ = stream_slots(StreamBatcher(cfg, model, num_slots=4, left_context=LONG_CONTEXT,
                                          device="cuda"), tracks, [0, 0])
     check_served("the CLI, 4 slots, long context", outs, walls, tracks, refs,
                  SERVE_PROCESS_REL, smi)
-    if server_tf32 != (False, False):
-        raise AssertionError(f"the serve CLI runs with TF32 on: cuDNN, matmul {server_tf32}")
-    if rc != 0 or not stopped or any("batcher.step failed" in l or "Traceback" in l
-                                     for l in lines):
-        raise AssertionError(f"the server process failed or did not stop cleanly: {lines[-30:]}")
     del model
     torch.cuda.empty_cache()
 
@@ -2594,8 +2649,10 @@ def trained_weights_on_card(smi: str):
     'auto' against 'xla' and bf16 against fp32; (e) one device-label
     train_step at cut_len 64000 from the trained generator and a seeded
     discriminator, run twice from one state under deterministic algorithms:
-    every state tensor bitwise equal. Returns (a)'s launches and (e)'s
-    (forward, backward) launches."""
+    every state tensor bitwise equal; then (f)-(h) against the JAX
+    package's streams, served streams and G step (trained_streams,
+    trained_g_step). Returns (a)'s launches, (e)'s (forward, backward)
+    launches, (f)'s launches by window and (h)'s (forward, backward)."""
     import numpy as np
     import torch
 
@@ -2606,8 +2663,7 @@ def trained_weights_on_card(smi: str):
 
     sd = torch.load(os.path.join(TRAINED_DIR, "generator.pt"), map_location="cpu",
                     weights_only=True)
-    with np.load(os.path.join(TRAINED_DIR, "golden_4s.npz")) as f:
-        golden = {k: f[k] for k in f.files}
+    golden = load_npz(os.path.join(TRAINED_DIR, "golden_4s.npz"))
     blocks = CMGANConfig().model.num_tscb_blocks
 
     def enhance(track, impl, dtype):
@@ -2669,16 +2725,257 @@ def trained_weights_on_card(smi: str):
     step_launches = runs[0][1]
     del runs
     torch.cuda.empty_cache()
-    return launches["4 s"], step_launches
+    stream_launches = trained_streams(sd, smi)
+    gstep_launches = trained_g_step(sd, smi)
+    return launches["4 s"], step_launches, stream_launches, gstep_launches
 
 
-def library_route(dtype_name, g, t, seed, backward: bool, max_pos=512, d=16):
+def load_npz(path) -> dict:
+    import numpy as np
+
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def trained_streams(sd, smi: str):
+    """[20] (f) the port's StreamBatcher on the card, 'auto', from the
+    trained generator, on golden_stream.npz's tracks opened at its ticks, at
+    each of its windows: every slot's emissions, tick by tick, against the
+    JAX package's (fp32), kernel #1's launches a tick, bf16 against fp32;
+    (g) the serve CLI with --torch_ckpt at the long-context window as its own
+    process, two concurrent clients, against the golden and against (f).
+    Returns kernel #1's launches in (f)'s fp32 runs, by window."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch.config import CMGANConfig
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.streaming import StreamBatcher
+
+    golden = load_npz(os.path.join(TRAINED_DIR, "golden_stream.npz"))
+    opens = [int(t) for t in golden["open_ticks"]]
+    tracks = [golden[f"track_{i}"] for i in range(len(opens))]
+    chunk, lookahead = int(golden["chunk"]), int(golden["lookahead"])
+    cfg = CMGANConfig()
+    blocks = cfg.model.num_tscb_blocks
+    launches, card = {}, {}
+    for lc in (int(x) for x in golden["left_contexts"]):
+        frames = cfg.dsp.num_frames(lc + chunk + lookahead)
+        per_tick = blocks if lc == LONG_CONTEXT else 0
+        outs = {}
+        for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            batcher = StreamBatcher(cfg, sd, num_slots=len(tracks), chunk=chunk,
+                                    left_context=lc, lookahead=lookahead, dtype=dtype,
+                                    device="cuda")
+            fa.launches = 0
+            emitted, ticks = stream_emissions(batcher, tracks, opens)
+            torch.cuda.synchronize()
+            if name == "fp32":
+                launches[lc] = fa.launches
+            if fa.launches != per_tick * ticks:
+                raise AssertionError(f"[20] (f) {name} window {frames} frames: kernel #1 launched "
+                                     f"{fa.launches} times in {ticks} ticks, not {per_tick} a tick")
+            for i, e in enumerate(emitted):
+                sizes = [t.size for t in e]
+                if sizes != golden[f"emitted_{lc}_{i}"].tolist():
+                    raise AssertionError(f"[20] (f) slot {i} emitted {sizes}")
+            outs[name] = [np.concatenate(e) for e in emitted]
+            del batcher
+        card[lc] = outs["fp32"]
+        errs = {i: {"fp32_vs_jax": rel_l2(outs["fp32"][i], golden[f"out_{lc}_{i}"]),
+                    "bf16_vs_fp32": rel_l2(outs["bf16"][i], outs["fp32"][i])}
+                for i in range(len(tracks))}
+        log(f"[20] (f) StreamBatcher {len(tracks)} slots, trained generator, left_context {lc} "
+            f"({frames} frames), tracks of {[t.size / SR for t in tracks]} s opened at ticks "
+            f"{opens}, {ticks} ticks: kernel #1 launches {launches[lc]} ({per_tick} a tick); rel "
+            f"L2 {json.dumps(errs)} (tol: fp32 against the JAX package {FLASH_VS_XLA_REL}, bf16 "
+            f"against fp32 {TRAINED_BF16_REL}) on {smi}")
+        if not all(e["fp32_vs_jax"] <= FLASH_VS_XLA_REL and e["bf16_vs_fp32"] <= TRAINED_BF16_REL
+                   for e in errs.values()):
+            raise AssertionError("[20] (f) the trained generator's streams disagree")
+        torch.cuda.empty_cache()
+
+    # (g) the serve CLI as its own process, from generator.pt
+    ckpt = os.path.relpath(os.path.join(TRAINED_DIR, "generator.pt"), ROOT)
+    outs, walls = serve_process(["--slots", str(len(tracks)), "--left_context",
+                                 str(LONG_CONTEXT), "--torch_ckpt", ckpt], tracks, "[20] (g)")
+    check_served("the CLI, trained generator, against the JAX package's streams", outs, walls,
+                 tracks, [golden[f"out_{LONG_CONTEXT}_{i}"][:t.size] for i, t in enumerate(tracks)],
+                 SERVE_PROCESS_REL + FLASH_VS_XLA_REL, smi, phase="[20] (g)")
+    check_served("the CLI, trained generator, against (f)'s batcher", outs, walls, tracks,
+                 [o[:t.size] for o, t in zip(card[LONG_CONTEXT], tracks)],
+                 SERVE_PROCESS_REL, smi, phase="[20] (g)")
+    return launches
+
+
+def seeded_disc(names, shapes, seed: int):
+    """The discriminator's flax variables (params, batch_stats) as nested
+    dicts of float32 arrays, made leaf by leaf from a numpy seed. names:
+    "collection:module:leaf"; shapes: "AxBxC". Kernels N(0, 1/fan_in);
+    biases N(0, 0.05^2); InstanceNorm scales, PReLU and sigmoid slopes their
+    init (1, 0.25, 1) plus N(0, 0.05^2); spectral-norm u N(0, 1), sigma 1."""
+    import numpy as np
+
+    trees = {"params": {}, "batch_stats": {}}
+    for index, (name, text) in enumerate(zip(names, shapes)):
+        collection, module, leaf = str(name).split(":")
+        shape = tuple(int(n) for n in str(text).split("x") if n)
+        z = np.random.default_rng([seed, index]).standard_normal(shape)
+        kind = leaf.rsplit("/", 1)[-1]
+        if kind == "kernel":
+            x = z / np.sqrt(np.prod(shape[:-1]))
+        elif kind == "u":
+            x = z
+        elif kind == "sigma":
+            x = np.ones(shape)
+        else:
+            x = {"bias": 0.0, "scale": 1.0, "alpha": 0.25, "slope": 1.0}[kind] + 0.05 * z
+        trees[collection].setdefault(module, {})[leaf] = np.asarray(x, np.float32)
+    return trees["params"], trees["batch_stats"]
+
+
+def grad_sketch(index: int, g, seed: int, size: int = 64):
+    """A linear sketch of `size` numbers of one parameter's gradient: a
+    count sketch (each entry added, with a random sign, into one of `size`
+    buckets, both drawn from the seed and the parameter's index), or the
+    gradient itself, zero-padded, where it has at most `size` entries. For
+    any two gradients a and b, sketch(a) - sketch(b) = sketch(a - b), whose
+    squared norm is ||a - b||^2 in expectation (relative spread
+    sqrt(2 / size), 18% at 64): a golden holds a gradient's distance from
+    its own without storing it."""
+    import numpy as np
+
+    g = np.asarray(g, np.float64).reshape(-1)
+    if g.size <= size:
+        return np.pad(g, (0, size - g.size))
+    rng = np.random.default_rng([seed, index])
+    bucket = rng.integers(0, size, g.size)
+    sign = 2.0 * rng.integers(0, 2, g.size) - 1.0
+    return np.bincount(bucket, weights=sign * g, minlength=size)
+
+
+def gradient_errors(golden: dict, grads: dict):
+    """A generator gradient (name -> array, the port's names) against
+    golden_gstep.npz's: each parameter's distance, from the sketches (exact
+    for the leaves stored whole, `grad:<name>`), over its golden norm, or
+    over 1e-2 of the largest golden norm where that is more (as
+    bench.gradient_rel); and all parameters as one vector. Returns (whole,
+    {name: relative distance})."""
+    import numpy as np
+
+    names, norms = [str(n) for n in golden["grad_names"]], golden["grad_norms"]
+    if set(grads) != set(names):
+        raise ValueError(f"gradient names differ: {sorted(set(grads) ^ set(names))[:5]}")
+    size, seed = golden["grad_sketch"].shape[1], int(golden["sketch_seed"])
+    floor = 1e-2 * float(norms.max())
+    dist = {}
+    for index, name in enumerate(names):
+        g = np.asarray(grads[name], np.float64)
+        whole = golden.get(f"grad:{name}")
+        if whole is not None:
+            dist[name] = float(np.linalg.norm(g - whole))
+        else:
+            dist[name] = float(np.linalg.norm(grad_sketch(index, g, seed, size)
+                                              - golden["grad_sketch"][index]))
+    total = float(np.sqrt(sum(d * d for d in dist.values())) / np.sqrt(np.sum(norms ** 2)))
+    return total, {n: d / max(float(norm), floor) for (n, d), norm in zip(dist.items(), norms)}
+
+
+def trained_g_step(sd, smi: str):
+    """[20] (h) one G step of the port's Trainer on the card ('auto', fp32,
+    TF32 off, deterministic algorithms, dropout 0) from the trained
+    generator and golden_gstep.npz's seeded discriminator on its seeded
+    batch, read through bench.g_step_record (the loss, and the gradient from
+    AdamW's first moment): the loss, every parameter's gradient (sketched)
+    and the attention leaves' whole gradients against the JAX package's
+    step. Then the same step in float64 ('xla', remat), the gradient both
+    float32 steps are rounded from: the worst parameter's distance from it,
+    the port's exact and the JAX package's through the sketch. Returns
+    kernel #1's and #2's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cmgan_torch.bench import g_step_record
+    from cmgan_torch.config import CMGANConfig, ModelConfig, TrainConfig
+    from cmgan_torch.convert import disc_state_dict_from_flax
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.train import Trainer, init_train_state
+
+    golden = load_npz(os.path.join(TRAINED_DIR, "golden_gstep.npz"))
+    cut, batch = int(golden["cut_len"]), int(golden["batch"])
+    clean, noisy = train_batch(cut, int(golden["batch_seed"]), batch)
+    sumsq = [np.sum(np.square(x, dtype=np.float64)) for x in (clean, noisy)]
+    if not np.allclose(sumsq, golden["batch_sumsq"], rtol=1e-6, atol=0):
+        raise AssertionError(f"[20] (h) the seeded batch is not the golden's: {sumsq}")
+    no_dropout = dict(attn_dropout=0.0, ff_dropout=0.0, disc_dropout=0.0)
+    cfg = CMGANConfig(model=ModelConfig(attention_impl="auto", **no_dropout),
+                      train=dataclasses.replace(TrainConfig(), batch_size=batch, cut_len=cut))
+    disc = disc_state_dict_from_flax(*seeded_disc(golden["disc_names"], golden["disc_shapes"],
+                                                  int(golden["disc_seed"])))
+    with deterministic():
+        state = init_train_state(cfg, seed=0, steps_per_epoch=1, device="cuda")
+        state.gen.load_state_dict(sd, strict=True)
+        state.disc.load_state_dict(disc, strict=True)
+        trainer = Trainer(cfg, [None], None, device="cuda", state=state)
+        fa.launches = fa.backward_launches = 0
+        audio, loss, moments = g_step_record(trainer, clean, noisy)
+        torch.cuda.synchronize()
+        launched = (fa.launches, fa.backward_launches)
+    beta1 = trainer.state.gen_opt.param_groups[0]["betas"][0]
+    names = [name for name, _ in trainer.state.gen.named_parameters()]
+    got = {n: (m / (1 - beta1)).cpu().numpy() for n, m in zip(names, moments)}
+    finite = bool(torch.isfinite(audio).all()) and audio.shape == (batch, cut)
+    del trainer, state, audio, moments
+    torch.cuda.empty_cache()
+    loss_rel = abs(loss - float(golden["loss"])) / abs(float(golden["loss"]))
+    whole, per = gradient_errors(golden, got)
+    worst = max(per, key=per.get)
+    attention = {n[len("grad:"):]: per[n[len("grad:"):]] for n in golden if n.startswith("grad:")}
+
+    # the float64 step (dropout 0, remat to hold float64 activations)
+    c, n = (torch.from_numpy(x).cuda() for x in (clean, noisy))
+    cfg64 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, attention_impl="xla",
+                                                               remat=True))
+    _, truth, _, _, _, _ = g_step_gradients("xla", c, n, (sd, disc), double=True, cfg=cfg64)
+    index = names.index(worst)
+    t = truth[index].cpu().numpy()
+    port64 = float(np.linalg.norm(got[worst] - t) / np.linalg.norm(t))
+    jax64 = float(np.linalg.norm(golden["grad_sketch"][index] - grad_sketch(
+        index, t, int(golden["sketch_seed"]), golden["grad_sketch"].shape[1])) / np.linalg.norm(t))
+    del truth, c, n
+    torch.cuda.empty_cache()
+
+    blocks = cfg.model.num_tscb_blocks
+    log(f"[20] (h) Trainer.g_step from the trained generator, cut_len {cut} batch {batch}, fp32, "
+        f"dropout 0: kernel launches {launched[0]} forward / {launched[1]} backward; loss "
+        f"{loss:.8f}, the JAX package's {float(golden['loss']):.8f}, rel {loss_rel:.3e} (tol "
+        f"{TRAINED_GSTEP_LOSS_REL}); enhanced audio finite {finite}")
+    log(f"[20] (h) gradients against the JAX package's: all {len(names)} parameters as one "
+        f"vector rel L2 {whole:.3e} (tol {GSTEP_REL}), worst parameter {per[worst]:.3e} "
+        f"({worst}; tol {GSTEP_PARAM_REL}); the attention leaves whole: {json.dumps(attention)}; "
+        f"the worst parameter's float32 gradients against the float64 step's, rel L2: the "
+        f"port's {port64:.3e}, the JAX package's {jax64:.3e} (sketched) on {smi}")
+    if launched != (blocks, blocks):
+        raise AssertionError(f"[20] (h) expected {blocks} launches of kernels #1 and #2")
+    if not (finite and loss_rel <= TRAINED_GSTEP_LOSS_REL and whole <= GSTEP_REL
+            and per[worst] <= GSTEP_PARAM_REL):
+        raise AssertionError("[20] (h) the G step from the trained generator disagrees with the "
+                             "JAX package's")
+    return launched
+
+
+def library_route(dtype_name, g, tq, tk, t_valid, q_offset, seed, backward: bool, max_pos=512,
+                  d=16):
     """[21] the library route for kernel #1 (backward: #2) on the inputs of
-    [2]'s (or [7]'s) case at this seed: the position bias formed once as
-    [G, T, T] by one einsum over the gathered band, then
-    scaled_dot_product_attention with it as the mask (q carries the scale),
-    each part timed apart, and held against the kernel's output (and
-    gradients) on the same inputs."""
+    [2]'s (or [7]'s) case at this seed: the position bias formed as
+    [G, Tq, Tk] by one einsum over the band gathered in fp32 (keys from
+    t_valid masked by -inf), then scaled_dot_product_attention with it as
+    the mask (q carries the scale), each part timed apart, in G-chunks whose
+    bias fits LIBRARY_BIAS_BYTES (the chunks' times summed); held against
+    the kernel's output (and gradients) on the same inputs, and the kernel
+    timed beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -2690,55 +2987,85 @@ def library_route(dtype_name, g, t, seed, backward: bool, max_pos=512, d=16):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
-    q = randn(g, t, d, scale=d ** -0.5)
-    k, v = randn(g, t, d), randn(g, t, d)
+    q = randn(g, tq, d, scale=d ** -0.5)
+    k, v = randn(g, tk, d), randn(g, tk, d)
     table = randn(2 * max_pos + 1, d)
-    i = torch.arange(t, device="cuda")
-    dist = i[:, None] - i[None, :] + t - 1
+    i = torch.arange(tq, device="cuda") + q_offset
+    dist = i[:, None] - torch.arange(tk, device="cuda")[None, :] + tk - 1
+    mask = torch.zeros(tq, tk, dtype=dtype, device="cuda")
+    mask[:, t_valid:] = float("-inf")
 
     def bias_of(q, table):
-        return torch.einsum("gid,ijd->gij", q, fa.make_rel_band(table, t, max_pos)[dist])
+        rel = fa.make_rel_band(table.float(), tk, max_pos)[dist].to(dtype)
+        bias = torch.einsum("gid,ijd->gij", q, rel)
+        return bias + mask if t_valid < tk else bias
 
     def attend(q, k, v, bias):
         return F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=bias[None],
                                               scale=1.0)[0]
 
-    record = {"dtype": dtype_name, "G": g, "T": t, "D": d, "max_pos": max_pos,
-              "bias_gb": g * t * t * q.element_size() / 1e9}
+    def kernel(*x):
+        return fa.flash_rel_attention_at(*x, max_pos, t_valid, q_offset)
+
+    step = max(1, min(g, int(LIBRARY_BIAS_BYTES[backward] // (tq * tk * q.element_size()))))
+    chunks = [slice(s, s + step) for s in range(0, g, step)]
+    record = {"dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "D": d, "t_valid": t_valid,
+              "q_offset": q_offset, "max_pos": max_pos, "chunks": len(chunks),
+              "bias_gb": g * tq * tk * q.element_size() / 1e9}
     if not backward:
         with torch.no_grad():
-            bias = bias_of(q, table)
-            out = attend(q, k, v, bias)
-            ref = fa.flash_rel_attention_at(q, k, v, table, max_pos)
-            record["bias_ms"] = cuda_ms(lambda: bias_of(q, table), reps=3)
-            record["sdpa_ms"] = cuda_ms(lambda: attend(q, k, v, bias), reps=3)
+            ref = kernel(q, k, v, table)
+            record["kernel_ms"] = cuda_ms(lambda: kernel(q, k, v, table), reps=5)
+            out = torch.empty_like(q)
+            record["bias_ms"] = record["sdpa_ms"] = 0.0
+            for sl in chunks:
+                bias = bias_of(q[sl], table)
+                out[sl] = attend(q[sl], k[sl], v[sl], bias)
+                record["sdpa_ms"] += cuda_ms(lambda: attend(q[sl], k[sl], v[sl], bias), reps=2)
+                del bias
+                record["bias_ms"] += cuda_ms(lambda: bias_of(q[sl], table), reps=2)
         record["library_ms"] = record["bias_ms"] + record["sdpa_ms"]
         errs = {"out": rel_l2(out.float().cpu().numpy(), ref.float().cpu().numpy())}
-        del bias, out, ref
+        del out, ref
     else:
-        cot = randn(g, t, d)
-        leaves = [x.clone().requires_grad_() for x in (q, k, v, table)]
-        ql, kl, vl, tl = leaves
-        bias = bias_of(ql, tl)
-        bias_leaf = bias.detach().requires_grad_()
-        out = attend(ql, kl, vl, bias_leaf)
-        dq, dk, dv, dbias = torch.autograd.grad(out, [ql, kl, vl, bias_leaf], cot,
-                                                retain_graph=True)
-        dq_bias, dtable = torch.autograd.grad(bias, [ql, tl], dbias, retain_graph=True)
-        lib = [dq + dq_bias, dk, dv, dtable]
+        cot = randn(g, tq, d)
         kernel_leaves = [x.clone().requires_grad_() for x in (q, k, v, table)]
-        kernel = torch.autograd.grad(fa.flash_rel_attention_at(*kernel_leaves, max_pos),
-                                     kernel_leaves, cot)
-        errs = {n: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
-                for n, a, b in zip(("dq", "dk", "dv", "dE"), lib, kernel)}
-        record["bias_fwd_ms"] = cuda_ms(lambda: bias_of(ql, tl), reps=3)
-        record["sdpa_fwd_ms"] = cuda_ms(lambda: attend(ql, kl, vl, bias_leaf), reps=3)
-        record["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            out, [ql, kl, vl, bias_leaf], cot, retain_graph=True), reps=3)
-        record["bias_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            bias, [ql, tl], dbias, retain_graph=True), reps=3)
+        want = torch.autograd.grad(kernel(*kernel_leaves), kernel_leaves, cot)
+        del kernel_leaves
+        # the backward kernel alone, at its width (a narrower head is padded to it)
+        width = fa.kernel_head_dim(d)
+        qp, kp, vp, tp, cp = (F.pad(x, (0, width - d)) for x in (q, k, v, table, cot))
+        outp, lse = fa._launch_forward(qp, kp, vp, tp, max_pos, t_valid, q_offset, True)
+        record["kernel_ms"] = cuda_ms(lambda: fa._launch_backward(
+            qp, kp, vp, tp, outp, lse, cp, max_pos, t_valid, q_offset), reps=3)
+        del qp, kp, vp, tp, cp, outp, lse
+        lib = [torch.zeros_like(x, dtype=torch.float32) for x in (q, k, v, table)]
+        for key in ("bias_fwd_ms", "sdpa_fwd_ms", "sdpa_bwd_ms", "bias_bwd_ms"):
+            record[key] = 0.0
+        for sl in chunks:
+            ql, kl, vl = (x[sl].clone().requires_grad_() for x in (q, k, v))
+            tl = table.clone().requires_grad_()
+            bias = bias_of(ql, tl)
+            bias_leaf = bias.detach().requires_grad_()
+            out = attend(ql, kl, vl, bias_leaf)
+            dq, dk, dv, dbias = torch.autograd.grad(out, [ql, kl, vl, bias_leaf], cot[sl],
+                                                    retain_graph=True)
+            dq_bias, dtable = torch.autograd.grad(bias, [ql, tl], dbias, retain_graph=True)
+            lib[0][sl], lib[1][sl], lib[2][sl] = (dq + dq_bias).float(), dk.float(), dv.float()
+            lib[3] += dtable.float()
+            del dq, dk, dv, dq_bias, dtable
+            record["sdpa_bwd_ms"] += cuda_ms(lambda: torch.autograd.grad(
+                out, [ql, kl, vl, bias_leaf], cot[sl], retain_graph=True), reps=2)
+            record["bias_bwd_ms"] += cuda_ms(lambda: torch.autograd.grad(
+                bias, [ql, tl], dbias, retain_graph=True), reps=2)
+            record["sdpa_fwd_ms"] += cuda_ms(lambda: attend(ql, kl, vl, bias_leaf), reps=2)
+            del out, dbias
+            record["bias_fwd_ms"] += cuda_ms(lambda: bias_of(ql, tl), reps=2)
+            del ql, kl, vl, tl, bias, bias_leaf
         record["library_ms"] = record["sdpa_bwd_ms"] + record["bias_bwd_ms"]
-        del leaves, bias, bias_leaf, out, lib, kernel, kernel_leaves
+        errs = {n: ((a - b.float()).abs().max() / b.float().abs().max()).item()
+                for n, a, b in zip(("dq", "dk", "dv", "dE"), lib, want)}
+        del lib, want
     torch.cuda.empty_cache()
     record["rel_err_against_kernel"] = errs
     # the bias rounds to the input type: bf16 holds to its own limit
@@ -2749,6 +3076,48 @@ def library_route(dtype_name, g, t, seed, backward: bool, max_pos=512, d=16):
     if not all(e <= limit for e in errs.values()):
         raise AssertionError("[21] the library route disagrees with the kernel")
     return record
+
+
+def library_cases():
+    """[21] the library route at every shape of PERF.md's kernel table, fp32
+    and bf16, with the backward wherever the row has one: kernel #1 at the
+    16 s segment, the G step's shape (G 1616, T 641), the streaming shapes
+    (G 404 and 3232, T 601), the 48 kHz segment (G 1204, T 4801: its fp32
+    bias is 111 GB, so in chunks), head dims 8, 32 and 64, the wide heads
+    and their offset case, one rank of 4 in the 48 kHz sequence split (Tq
+    1280, Tk 5120 from q_offset 0 to 3840); kernel #2 at the G step's
+    shape, head dims 8, 32 and 64, max_pos 1536, the wide heads and the
+    split. Returns (forward records, backward records)."""
+    both = ("float32", "bfloat16")
+    t601 = 601
+    fwd = [library_route(dt, 404, 2561, 2561, 2561, 0, seed=2561, backward=False) for dt in both]
+    fwd += [library_route(dt, 1616, 641, 641, 641, 0, seed=5, backward=False) for dt in both]
+    fwd += [library_route(dt, 404 * slots, t601, t601, t601, 0, seed=16 + slots, backward=False)
+            for dt in both for slots in (1, 8)]
+    fwd += [library_route(dt, SEQ_G, SEQ_T, SEQ_T, SEQ_T, 0, seed=18, backward=False)
+            for dt in both]
+    fwd += [library_route(dt, 404, 641, 641, 641, 0, seed=20 + d, backward=False, d=d)
+            for d in (8, 32, 64) for dt in both]
+    fwd += [library_route(dt, 404, 641, 641, 641, 0, seed=40 + d, backward=False, d=d)
+            for d in WIDE_HEAD_DIMS for dt in both]
+    fwd.append(library_route("float32", 404, 320, 641, 600, 128, seed=41, backward=False, d=128))
+    from cmgan_torch.ops import seq_attention as sa
+
+    t_loc = sa.local_block(SEQ_T, SEQ_RANKS)
+    t_pad = SEQ_RANKS * t_loc
+    fwd += [library_route(dt, SEQ_G, t_loc, t_pad, SEQ_T, r * t_loc, seed=60 + r, backward=False)
+            for dt in both for r in range(SEQ_RANKS)]
+    bwd = [library_route(dt, 1616, 641, 641, 641, 0, seed=7, backward=True) for dt in both]
+    bwd += [library_route(dt, 404, 641, 641, 641, 0, seed=30 + d, backward=True, d=d)
+            for d in (8, 32, 64) for dt in both]
+    bwd += [library_route(dt, 32, 2561, 2561, 2561, 0, seed=16, backward=True, max_pos=1536)
+            for dt in both]
+    bwd += [library_route(dt, 404, 641, 641, 641, 0, seed=50 + d, backward=True, d=d)
+            for d in WIDE_HEAD_DIMS for dt in both]
+    bwd.append(library_route("float32", 404, 320, 641, 600, 128, seed=51, backward=True, d=128))
+    bwd += [library_route(dt, SEQ_G, t_loc, t_pad, SEQ_T, r * t_loc, seed=70 + r, backward=True)
+            for dt in both for r in range(SEQ_RANKS)]
+    return fwd, bwd
 
 
 def bench_on_card(smi: str):
@@ -2783,10 +3152,7 @@ def bench_on_card(smi: str):
     del fp32
     torch.cuda.empty_cache()
 
-    fwd = [library_route(dt, 404, 2561, seed=2561, backward=False)
-           for dt in ("float32", "bfloat16")]
-    bwd = library_route("float32", 1616, 641, seed=7, backward=True)
-    return fwd, bwd
+    return library_cases()
 
 
 def backward_phase(m):
@@ -3049,7 +3415,7 @@ def main() -> int:
     (mesh_launches, local_launches, seq_launches, seq_train, seq_fwd_cases,
      seq_bwd_cases) = parallel_on_card(smi, g_ms)
     lap("19 parallel")
-    trained_launches, trained_step = trained_weights_on_card(smi)
+    trained_launches, trained_step, trained_stream, trained_gstep = trained_weights_on_card(smi)
     lap("20 trained weights")
     library_fwd, library_bwd = bench_on_card(smi)
     lap("21 bench")
@@ -3081,6 +3447,8 @@ def main() -> int:
         "launches_seq_train_step": seq_train[0],
         "launches_trained_4s": trained_launches,
         "launches_trained_step": trained_step[0],
+        "launches_trained_stream": trained_stream,
+        "launches_trained_gstep": trained_gstep[0],
         "cases": cases,
         "cases_streaming": stream_cases,
         "cases_48k": long_cases,
@@ -3096,13 +3464,14 @@ def main() -> int:
         "launches_local_loader_epoch": {m: n[1] for m, n in local_launches.items()},
         "launches_seq_train_step": seq_train[1],
         "launches_trained_step": trained_step[1],
+        "launches_trained_gstep": trained_gstep[1],
         "cases_seq_ranks": seq_bwd_cases,
         "max_abs_err": bwd_main["max_abs_err"],
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],
         "bound_ms": bwd_main["bound_ms"],
         "bound_by": bwd_main["bound_by"],
-        "library_ms": library_bwd["library_ms"],
+        "library_ms": library_bwd[0]["library_ms"],
         "library_route": library_bwd,
         "cases": bwd_cases,
     }, {
@@ -3114,7 +3483,7 @@ def main() -> int:
         "launches": wide_launches,
         "launches_widest_model": widest_launches,
         "launches_g_step": wide_step_fwd,
-        **wide_summary(wide_cases),
+        **wide_summary(wide_cases, library_fwd),
         "cases": wide_cases,
     }, {
         "name": "flash_rel_attention_wide_bwd",
@@ -3123,7 +3492,7 @@ def main() -> int:
         "replaces": "cmgan_tpu/ops/flash_attention.py:250",
         "path": f"head dims over 64; one G step of the model {WIDE_MODEL}",
         "launches": wide_step_bwd,
-        **wide_summary(wide_bwd_cases),
+        **wide_summary(wide_bwd_cases, library_bwd),
         "cases": wide_bwd_cases,
     }, {
         "name": "fused_layernorm",

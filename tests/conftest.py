@@ -34,3 +34,8 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: takes minutes on the CPU; deselected by -m 'not slow'")
