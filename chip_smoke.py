@@ -3,11 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --backward-times [ROOT]
+    python3 chip_smoke.py --forward-times [ROOT]
 
 The second form runs only the builds and phase 7 with the chip_smoke.py
 and the package of the checkout at ROOT (default: this one), then prints
 one JSON line of every backward case's times: run it on two checkouts in
-one call to compare their kernels on one card.
+one call to compare their kernels on one card. The third does the same
+for kernel #1: the builds, then its cases at every shape of PERF.md's
+kernel table, fp32 and bf16, against the plain version, the library
+route at head dim 64, and phase 9's G step against float64 at three
+seeded batches.
 
 CMGAN at its full published width (64 channels, 4 TSCBs, 4 heads of dim
 16, 201 bins, discriminator ndf 16) with seeded random weights, through
@@ -20,11 +25,15 @@ failure, none falling back to the CPU or to a plain version:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and the build of every kernel source (started together) and of the
-     host PESQ scorer;
+     host PESQ scorer; each kernel's registers and spills, and the count of
+     wgmma (HGMMA) and TMA (UTMALDG) instructions in the forward library;
   2. the attention forward kernel against its plain PyTorch version on the
      card, fp32 and bf16, at the 4 s bucket (T = 641) and the 16 s segment
-     (T = 2561), with a t_valid < T case, a q_offset = 128 case, a
-     max_pos = 64 case (most tile pairs clipped) and a t_valid = 1 case;
+     (T = 2561), each type with a t_valid < T case, q_offset = 128 and
+     100 cases (the second with masked keys), masked keys at an offset at
+     head dims 32 and 64, a max_pos = 64 case (most tile pairs clipped), a
+     t_valid = 1 case and a max_pos = 1536 case, each also holding the
+     row log-sum-exp against the plain logits' (LSE_TOL);
      head dims 8 (zero-padded to 16), 32 and 64; the tile-by-tile plain
      versions against both kernels at one small shape; a tiny model of 2
      heads of dim 8 through kernel #1 against 'xla'; the wide kernels
@@ -57,7 +66,8 @@ failure, none falling back to the CPU or to a plain version:
   9. one G step at cut_len 64000, batch 4, fp32: attention_impl='auto'
      (4 forward and 4 backward launches) against 'xla' (none), loss and
      every parameter's gradient; and both against the dense path in float64
-     on one utterance;
+     on one utterance, the kernels' path within GSTEP_TRUTH_FACTOR of dense
+     fp32's distance;
  10. the train CLI on a written VCTK-DEMAND-shaped directory at cut_len
      64000: an epoch, its test pass and checkpoint, then --resume for one
      more; launch counts, moved parameters, the continued step counter,
@@ -189,6 +199,11 @@ EXP_PER_CLOCK_SM = 16     # results of the special-function units, a clock and m
 
 # stated tolerances
 KERNEL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 8e-3)}  # (atol, rtol)
+# kernel #1's row log-sum-exp against the plain logits' logsumexp, absolute:
+# fp32 a few ulp of lse (~10 at these shapes); bf16 2^-9, since the kernel
+# sums the weights after rounding each to bf16 for P . V (each within 2^-9
+# of itself, so the sum, and its log within 2^-9)
+LSE_TOL = {"float32": 1e-5, "bfloat16": 2 ** -9}
 FLASH_VS_XLA_REL = 1e-4   # fp32: attention sums in another order (~1e-6), 100x margin
 BF16_VS_FP32_REL = 5e-2   # bf16 keeps 8 significant bits; 1.6e-2 measured on a CPU run
 PLAIN_GROUP_CHUNK = 32    # groups per plain-version call, so its [g, T, T] logits fit
@@ -211,8 +226,11 @@ LN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (6.25e-2, 1.6e-2)}  # (atol, rtol
 # phase 9), and which cuDNN algorithms run shifts single parameters by as much.
 GSTEP_REL = 1e-3
 GSTEP_PARAM_REL = 5e-3
-# against float64 the kernels' path may be twice as far as dense fp32, plus this
-GSTEP_TRUTH_SLACK = 1e-4
+# against float64 the kernels' path may be this many times as far as dense
+# fp32 (1.0001x at [9]'s batch, 1.0000x-1.015x at three more seeded batches:
+# both sit at float32's own distance, which at one batch differs by up to 3x
+# between two correct fp32 implementations)
+GSTEP_TRUTH_FACTOR = 1.25
 TRAIN_BATCH = 4
 # the wide kernels' head dims in [2] / [7], and the models that run them: 128
 # channels in 1 head (head dim 128), one TSCB, with its G step's batch; 320
@@ -405,15 +423,29 @@ def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, max_pos=51
             for s in range(0, g, PLAIN_GROUP_CHUNK)
         ])
 
+    def plain_lse():
+        return torch.cat([
+            fa.reference_logits(q[s:s + PLAIN_GROUP_CHUNK], k[s:s + PLAIN_GROUP_CHUNK], band,
+                                t_valid, q_offset).logsumexp(-1)
+            for s in range(0, g, PLAIN_GROUP_CHUNK)
+        ])
+
     count = fa.launches
     out = kernel()
     launched = fa.launches - count
     ref = plain()
+    # the row log-sum-exp the backward recomputes the weights from: the
+    # wrapper's launch with it, at the kernels' head dim (zero columns added)
+    width = fa.kernel_head_dim(d)
+    _, lse = fa._launch_forward(*(torch.nn.functional.pad(t, (0, width - d))
+                                  for t in (q, k, v, table)),
+                                max_pos, t_valid, q_offset, True)
+    lse_err = (lse - plain_lse()).abs().max().item()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     atol, rtol = KERNEL_TOL[dtype_name]
     close = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
-    finite = bool(torch.isfinite(out.float()).all())
+    finite = bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(lse).all())
     if launched != 1 or out.shape != q.shape:
         raise AssertionError(f"the wrapper launched {launched} kernels, out {tuple(out.shape)}")
 
@@ -422,11 +454,11 @@ def check_kernel_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, max_pos=51
     case = {
         "dtype": dtype_name, "G": g, "Tq": tq, "Tk": tk, "D": d, "t_valid": t_valid,
         "q_offset": q_offset, "max_pos": max_pos, "max_abs_err": err, "tol": [atol, rtol],
-        "ms": ms, "plain_ms": plain_ms,
+        "lse_err": lse_err, "lse_tol": LSE_TOL[dtype_name], "ms": ms, "plain_ms": plain_ms,
         **attention_bound(dtype_name, g, tq, tk, t_valid, q_offset, max_pos, backward=False, d=d),
     }
     log(f"{tag} kernel {json.dumps(case)}")
-    if not (close and finite):
+    if not (close and finite and lse_err <= LSE_TOL[dtype_name]):
         raise AssertionError(f"kernel disagrees with the plain version: {case}")
     return case
 
@@ -787,6 +819,17 @@ def ptxas_usage(nvcc_log: str):
     return out
 
 
+def sass_counts(path: str) -> dict:
+    """Hopper instructions in a library's SASS (cuobjdump beside nvcc): HGMMA
+    (wgmma), UTMALDG (TMA tensor loads), UBLKCP (bulk copies)."""
+    from cmgan_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: text.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+
+
 def build_all():
     """[1] every kernel source and the host PESQ scorer, one build each, all
     started together; each kernel's registers and spills as ptxas reports
@@ -810,6 +853,10 @@ def build_all():
         log(f"[1] built {os.path.relpath(build.path, ROOT)} in {build.seconds:.2f} s")
         for kernel, usage in ptxas_usage(build.log):
             log(f"[1]   {kernel}: {usage}")
+    sass = sass_counts(futures[0].result().path)
+    log(f"[1] forward library ({fa.KERNEL}): {json.dumps(sass)} instructions in its SASS")
+    if not (sass["HGMMA"] and sass["UTMALDG"] + sass["UBLKCP"]):
+        raise AssertionError("the forward library has no wgmma or no TMA instruction")
     fwd_lib, bwd_lib = fa._kernel(), fa._bwd_kernel()
     for bf16 in (0, 1):
         for hd in fa.KERNEL_HEAD_DIMS:
@@ -1196,18 +1243,41 @@ def g_step_flash_vs_dense():
     if not (loss_rel <= GSTEP_REL and whole <= GSTEP_REL and worst <= GSTEP_PARAM_REL):
         raise AssertionError("the G step through the kernels disagrees with the dense one")
 
-    # what float32 itself is worth here: one utterance, dropout off (its masks
-    # depend on the type), both float32 paths against the dense path in float64
-    one = (clean[:1], noisy[:1])
-    _, truth, _, _, _, _ = g_step_gradients("xla", *one, weights, double=True, dropout=False)
-    _, d32, _, _, _, _ = g_step_gradients("xla", *one, weights, dropout=False)
-    _, f32, _, fwd, bwd, _ = g_step_gradients("auto", *one, weights, dropout=False)
-    err_d, err_f = whole_rel_l2(d32, truth), whole_rel_l2(f32, truth)
+    r = g_step_float64()
+    err_d, err_f = r["dense_fp32"], r["flash_fp32"]
     log(f"[9] batch 1, dropout off, all gradients rel L2 against dense float64: dense fp32 "
-        f"{err_d:.3e}, flash fp32 {err_f:.3e} ({fwd} fwd / {bwd} bwd launches); flash against "
-        f"dense fp32 {whole_rel_l2(f32, d32):.3e}")
-    if (fwd, bwd) != (4, 4) or not err_f <= 2 * err_d + GSTEP_TRUTH_SLACK:
+        f"{err_d:.3e}, flash fp32 {err_f:.3e} ({r['launches'][0]} fwd / {r['launches'][1]} bwd "
+        f"launches; limit {GSTEP_TRUTH_FACTOR} x dense); flash against dense fp32 "
+        f"{r['flash_vs_dense']:.3e}")
+    if r["launches"] != [4, 4] or not err_f <= GSTEP_TRUTH_FACTOR * err_d:
         raise AssertionError("the kernels' gradients are further from float64 than dense float32's")
+
+
+def g_step_float64(seed: int = 40, m=None) -> dict:
+    """What float32 itself is worth in the G step ([9]), with the functions
+    of the chip_smoke module m (default this one; or another checkout's):
+    the first utterance of [9]'s batch drawn from `seed`, dropout off (its
+    masks depend on the type), the generator's gradients by dense fp32
+    ('xla') and through the kernels ('auto') against the dense path in
+    float64, relative L2 of all gradients as one vector."""
+    import torch
+
+    from cmgan_torch.train import init_train_state
+
+    m = m or sys.modules[__name__]
+    clean, noisy = (torch.from_numpy(a).cuda()[:1]
+                    for a in m.train_batch(m.FLASH_CUT, seed=seed))
+    fresh = init_train_state(m.train_config(m.FLASH_CUT), seed=0, steps_per_epoch=1,
+                             device="cuda")
+    weights = ({k: v.clone() for k, v in fresh.gen.state_dict().items()},
+               {k: v.clone() for k, v in fresh.disc.state_dict().items()})
+    del fresh
+    _, truth, *_ = m.g_step_gradients("xla", clean, noisy, weights, double=True, dropout=False)
+    _, d32, *_ = m.g_step_gradients("xla", clean, noisy, weights, dropout=False)
+    _, f32, _, fwd, bwd, _ = m.g_step_gradients("auto", clean, noisy, weights, dropout=False)
+    return {"seed": seed, "dense_fp32": whole_rel_l2(d32, truth),
+            "flash_fp32": whole_rel_l2(f32, truth), "flash_vs_dense": whole_rel_l2(f32, d32),
+            "launches": [fwd, bwd]}
 
 
 def write_pairs(root: str, seconds, seed0: int):
@@ -3184,10 +3254,35 @@ def backward_phase(m):
     return bwd_cases, wide_bwd_cases
 
 
-def backward_times(root: str) -> int:
-    """`--backward-times [ROOT]`: [1]'s builds and [7] with the chip_smoke.py
-    (and so the package) of the checkout at ROOT, then one JSON line of every
-    backward case's shape, times and bound."""
+def forward_phase(m):
+    """`--forward-times`: kernel #1 at every shape of PERF.md's kernel table,
+    fp32 and bf16, with the functions of the chip_smoke module m (this file,
+    or another checkout's with the same functions): the 16 s segment, the G
+    step's shape, the streaming shapes, the 48 kHz segment, the four ranks of
+    its sequence split, head dims 8, 32 and 64."""
+    from cmgan_torch.ops import seq_attention as sa
+
+    t_loc = sa.local_block(SEQ_T, SEQ_RANKS)
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        cases.append(m.check_kernel_case(dt, 404, 2561, 2561, 2561, 0, seed=2561))
+        cases.append(m.check_kernel_case(dt, 1616, 641, 641, 641, 0, seed=5))
+        for slots in (1, 8):
+            cases.append(m.check_kernel_case(dt, 404 * slots, 601, 601, 601, 0, seed=16 + slots))
+        cases.append(m.check_kernel_case(dt, SEQ_G, SEQ_T, SEQ_T, SEQ_T, 0, seed=18))
+        for r in range(SEQ_RANKS):
+            cases.append(m.check_kernel_case(dt, SEQ_G, t_loc, SEQ_RANKS * t_loc, SEQ_T, r * t_loc,
+                                             seed=60 + r))
+        for d in (8, 32, 64):
+            cases.append(m.check_kernel_case(dt, 404, 641, 641, 641, 0, seed=20 + d, d=d))
+    return cases
+
+
+def times(root: str, phase: str) -> int:
+    """`--backward-times [ROOT]` / `--forward-times [ROOT]`: [1]'s builds and
+    [7] (or kernel #1's cases) with the chip_smoke.py (and so the package) of
+    the checkout at ROOT, then one JSON line of every case's shape, times and
+    bound (forward: and the library route at head dim 64)."""
     import importlib.util
 
     import torch
@@ -3206,11 +3301,24 @@ def backward_times(root: str) -> int:
     smi = nvidia_smi()
     log(f"[1] card: {smi}; checkout {root}")
     m.build_all()
-    bwd_cases, wide_cases = backward_phase(m)
     keys = ("dtype", "G", "Tq", "Tk", "D", "t_valid", "q_offset", "max_pos", "ms", "plain_ms",
-            "bound_ms", "bound_by", "bitwise")
-    print(json.dumps({"root": root, "card": smi,
-                      "cases": [{k: c.get(k) for k in keys} for c in bwd_cases + wide_cases]}))
+            "bound_ms", "bound_by", "bitwise", "max_abs_err", "lse_err")
+    record = {"root": root, "card": smi}
+    if phase == "backward":
+        bwd_cases, wide_cases = backward_phase(m)
+        cases = bwd_cases + wide_cases
+    else:
+        cases = forward_phase(m)
+        # [9]'s reading, at its own batch and two more
+        record["g_step_float64"] = [g_step_float64(seed, m) for seed in (40, 41, 42)]
+        record["library_d64"] = [
+            {k: r[k] for k in ("dtype", "library_ms", "kernel_ms", "bias_ms", "sdpa_ms")}
+            for r in (library_route(dt, 404, 641, 641, 641, 0, seed=84, backward=False, d=64)
+                      for dt in ("float32", "bfloat16"))]
+    record["cases"] = [{k: c.get(k) for k in keys} for c in cases]
+    for case in record["cases"]:
+        case["share_of_bound"] = case["bound_ms"] / case["ms"]
+    print(json.dumps(record))
     return 0
 
 
@@ -3223,8 +3331,9 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cmgan_torch")):
         print("chip_smoke: the cmgan_torch package is not beside this script", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--backward-times"]:
-        return backward_times(sys.argv[2] if len(sys.argv) > 2 else ROOT)
+    if sys.argv[1:2] in (["--backward-times"], ["--forward-times"]):
+        phase = sys.argv[1].removeprefix("--").removesuffix("-times")
+        return times(sys.argv[2] if len(sys.argv) > 2 else ROOT, phase)
     sys.path.insert(0, ROOT)
 
     import numpy as np
@@ -3260,13 +3369,20 @@ def main() -> int:
     for dtype_name in ("float32", "bfloat16"):
         for t in (641, 2561):
             cases.append(check_kernel_case(dtype_name, 404, t, t, t, 0, seed=t))
-    cases.append(check_kernel_case("float32", 404, 2561, 2561, 2400, 0, seed=1))
-    cases.append(check_kernel_case("float32", 404, 1280, 2560, 2560, 128, seed=2))
-    for dtype_name in ("float32", "bfloat16"):  # most tile pairs clipped
+    for dtype_name in ("float32", "bfloat16"):
+        cases.append(check_kernel_case(dtype_name, 404, 2561, 2561, 2400, 0, seed=1))
+        cases.append(check_kernel_case(dtype_name, 404, 1280, 2560, 2560, 128, seed=2))
+        # masked keys at an offset off the tiles, and past the queries' tiles
+        cases.append(check_kernel_case(dtype_name, 404, 1280, 2560, 2400, 100, seed=3))
+        cases.append(check_kernel_case(dtype_name, 404, 320, 641, 600, 128, seed=7, d=32))
+        cases.append(check_kernel_case(dtype_name, 404, 320, 641, 600, 128, seed=7, d=64))
+        # most tile pairs clipped
         cases.append(check_kernel_case(dtype_name, 404, 641, 641, 641, 0, seed=4, max_pos=64))
         # the G step's forward shape at cut_len 64000, batch 4
         cases.append(check_kernel_case(dtype_name, 1616, 641, 641, 641, 0, seed=5))
-    cases.append(check_kernel_case("float32", 101, 641, 641, 1, 0, seed=6))  # one valid key
+        cases.append(check_kernel_case(dtype_name, 101, 641, 641, 1, 0, seed=6))  # one valid key
+        # the longest table the kernels take (2 * 1536 + 1 rows)
+        cases.append(check_kernel_case(dtype_name, 32, 2561, 2561, 2561, 0, seed=8, max_pos=1536))
     cases += head_dim_cases()
     check_tiled_against_kernels()
     main_case = cases[1]  # fp32 at the 16 s segment, the main path's shape

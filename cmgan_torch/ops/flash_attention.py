@@ -11,9 +11,16 @@ writes the row log-sum-exp, the backward recomputes the weights from it.
 
 Both kernels run their products on the tensor cores, tile pair by tile
 pair, with the position term read through a skew and whole clipped tile
-pairs served by two scalars a query (`csrc/flash_rel_common.cuh`).
-`tiled_attention` and `tiled_attention_grads` are that arithmetic in plain
-PyTorch: the CPU tests check the index work there, where no kernel runs.
+pairs served by two scalars a query (`csrc/flash_rel_common.cuh`). The
+forward is built for Hopper (`csrc/flash_rel_hopper.cuh`): a producer
+warpgroup fills a ring of stages in shared memory (TMA copies in bf16;
+in fp32 its own loads, split into three bf16 parts), and two or three
+consumer warpgroups of 64 queries each run the products on `wgmma`. A
+mixed pair's window of the table is one TMA box of its rows where no row
+is clipped, else gathered with the clipped rows repeating the table's
+ends (`_window` either way). `tiled_attention` and
+`tiled_attention_grads` are the kernels' arithmetic in plain PyTorch: the
+CPU tests check the index work there, where no kernel runs.
 
 `flash_rel_attention_at` is the wrapper, differentiable in q, k, v and
 the table. For CPU tensors it runs the plain version
@@ -88,14 +95,11 @@ def make_rel_band(rel_table: torch.Tensor, t: int, max_pos: int) -> torch.Tensor
     return rel_table[s.clamp(-max_pos, max_pos) + max_pos]
 
 
-def reference_attention(q, k, v, rel_band, t_valid: int, q_offset: int = 0):
-    """The plain version. q [G, Tq, D]; k, v [G, Tk, D]; rel_band
-    [2*Tk-1, D] from `make_rel_band(table, Tk, max_pos)`. Query i sits at
-    global position i + q_offset (q_offset + Tq <= Tk); keys >= t_valid
-    are masked. Math in fp32; the output has q's dtype.
-    """
+def reference_logits(q, k, rel_band, t_valid: int, q_offset: int = 0):
+    """The plain version's logits [G, Tq, Tk] in fp32, -inf at keys >=
+    t_valid (arguments as `reference_attention`'s)."""
     tq, tk = q.shape[1], k.shape[1]
-    qf, kf, vf, band = q.float(), k.float(), v.float(), rel_band.float()
+    qf, kf, band = q.float(), k.float(), rel_band.float()
     logits = torch.einsum("gid,gjd->gij", qf, kf)
     i = torch.arange(tq, device=q.device) + q_offset
     j = torch.arange(tk, device=q.device)
@@ -103,8 +107,17 @@ def reference_attention(q, k, v, rel_band, t_valid: int, q_offset: int = 0):
     logits = logits + torch.einsum("gid,ijd->gij", qf, rel)
     if t_valid < tk:
         logits[..., t_valid:] = float("-inf")
-    attn = torch.softmax(logits, dim=-1)
-    return torch.einsum("gij,gjd->gid", attn, vf).to(q.dtype)
+    return logits
+
+
+def reference_attention(q, k, v, rel_band, t_valid: int, q_offset: int = 0):
+    """The plain version. q [G, Tq, D]; k, v [G, Tk, D]; rel_band
+    [2*Tk-1, D] from `make_rel_band(table, Tk, max_pos)`. Query i sits at
+    global position i + q_offset (q_offset + Tq <= Tk); keys >= t_valid
+    are masked. Math in fp32; the output has q's dtype.
+    """
+    attn = torch.softmax(reference_logits(q, k, rel_band, t_valid, q_offset), dim=-1)
+    return torch.einsum("gij,gjd->gid", attn, v.float()).to(q.dtype)
 
 
 def reference_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int,

@@ -164,3 +164,40 @@ def test_library_path_follows_an_included_header(tmp_path, monkeypatch):
     # a source that does not include the header keeps its library
     assert _build.library_path("fused_layernorm") == before["fused_layernorm"]
     assert os.path.dirname(before[fa.KERNEL]).startswith(_build.BUILD_ROOT)
+
+
+# queries a block of the forward kernel owns: 64 a consumer warpgroup, three
+# warpgroups (bf16 at head dim 16) or two (`Cfg::NCW`, csrc/flash_rel_attention.cu)
+BLOCK_QUERIES = [pytest.param(128, id="block-128"), pytest.param(192, id="block-192")]
+
+
+@pytest.mark.parametrize("block", BLOCK_QUERIES)
+@pytest.mark.parametrize("g,tq,tk,max_pos,t_valid,q_offset,tile,kinds", CASES)
+def test_every_mixed_window_is_a_slice_of_its_blocks_window(g, tq, tk, max_pos, t_valid,
+                                                            q_offset, tile, kinds, block):
+    """The forward kernel stages one window of block + 63 table rows a block
+    and key tile, row c being E[clip(base + c, +-max_pos) + max_pos]: each
+    mixed pair's window (64 queries, 127 rows) is its rows from 64 *
+    warpgroup on, equal to `_window`'s; and where none of the block's rows
+    is clipped, the window is one contiguous slice of the table (the TMA
+    box from row base + max_pos)."""
+    table = torch.arange((2 * max_pos + 1) * 4, dtype=torch.float32).reshape(-1, 4) + 1
+    pairs = {(i0, j0): (base, kind) for i0, _, j0, _, base, kind
+             in fa._tile_pairs(tq, t_valid, q_offset, max_pos, 64)}
+    seen = boxes = 0
+    for b0 in range(0, tq, block):
+        for j0 in range(0, t_valid, 64):
+            base = b0 + q_offset - j0 - 63
+            rows = (torch.arange(block + 64) + base).clamp(-max_pos, max_pos) + max_pos
+            window = table[rows]
+            if base >= -max_pos and base + block + 63 <= max_pos:
+                start = base + max_pos
+                assert torch.equal(window, table[start:start + block + 64])
+                boxes += 1
+            for i0 in range(b0, min(b0 + block, tq), 64):
+                base_w, kind = pairs[(i0, j0)]
+                if kind == "mixed":
+                    mine = window[i0 - b0:i0 - b0 + 127]
+                    assert torch.equal(mine, table[fa._window(table, base_w, max_pos, 64)])
+                    seen += 1
+    assert seen > 0 and (boxes > 0 or max_pos < block)
