@@ -7,8 +7,10 @@
 
 The second form runs only the builds and phase 7 with the chip_smoke.py
 and the package of the checkout at ROOT (default: this one), then prints
-one JSON line of every backward case's times: run it on two checkouts in
-one call to compare their kernels on one card. The third does the same
+one JSON line of every backward case's times, each backward kernel's
+device time at the G step's shape and the library route's backward at
+head dim 64 in both types: run it on two checkouts in one call to
+compare their kernels on one card. The third does the same
 for kernel #1: the builds, then its cases at every shape of PERF.md's
 kernel table, fp32 and bf16, against the plain version, the library
 route at head dim 64, and phase 9's G step against float64 at three
@@ -26,7 +28,8 @@ failure, none falling back to the CPU or to a plain version:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and the build of every kernel source (started together) and of the
      host PESQ scorer; each kernel's registers and spills, and the count of
-     wgmma (HGMMA) and TMA (UTMALDG) instructions in the forward library;
+     wgmma (HGMMA) and TMA (UTMALDG) instructions in the forward and the
+     backward library (each fails without them);
   2. the attention forward kernel against its plain PyTorch version on the
      card, fp32 and bf16, at the 4 s bucket (T = 641) and the 16 s segment
      (T = 2561), each type with a t_valid < T case, q_offset = 128 and
@@ -53,8 +56,8 @@ failure, none falling back to the CPU or to a plain version:
      version: fp32 and bf16 at the training shape (G = 1616, T = 641) and
      at T = 2561, a t_valid < T, a q_offset and a max_pos = 64 case, a
      t_valid = 1 case (dq, dk and dE are zero) and a max_pos = 1536 case
-     (a table too long for a block's shared memory); head dims 8, 32 and
-     64, fp32 and bf16; the wide backward at D 80, 100, 128, 256 and 320,
+     (a table of 3073 rows); head dims 8, 32 and 64, fp32 and bf16; the
+     wide backward at D 80, 100, 128, 256 and 320,
      and its kernels' device time with and without the dq kernel's dE
      writes; every case run twice, its dq, dk, dv and dE bitwise equal;
      the fp32 kernels' and plain versions' distance from float64; the
@@ -803,8 +806,8 @@ def ptxas_usage(nvcc_log: str):
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             mangled = entry.group(1)
-            base = re.search(r"\d(flash_rel_(?:wide_(?:fwd|bwd_q|bwd_k|delta|sum_partials)|fwd|bwd|delta"
-                             r"|sum_partials)"
+            base = re.search(r"\d(flash_rel_(?:wide_(?:fwd|bwd_q|bwd_k|delta|sum_partials)|fwd|bwd_kv"
+                             r"|bwd_q|bwd_prologue|bwd|delta|sum_partials)"
                              r"|layernorm_(?:regs|span|long))[IE]", mangled)
             dtype = "bf16" if "bfloat16" in mangled else "fp32"
             ints = re.findall(r"Li(\d+)E", mangled)
@@ -853,20 +856,22 @@ def build_all():
         log(f"[1] built {os.path.relpath(build.path, ROOT)} in {build.seconds:.2f} s")
         for kernel, usage in ptxas_usage(build.log):
             log(f"[1]   {kernel}: {usage}")
-    sass = sass_counts(futures[0].result().path)
-    log(f"[1] forward library ({fa.KERNEL}): {json.dumps(sass)} instructions in its SASS")
-    if not (sass["HGMMA"] and sass["UTMALDG"] + sass["UBLKCP"]):
-        raise AssertionError("the forward library has no wgmma or no TMA instruction")
+    for name, future in ((fa.KERNEL, futures[0]), (fa.BWD_KERNEL, futures[1])):
+        sass = sass_counts(future.result().path)
+        log(f"[1] {'forward' if name == fa.KERNEL else 'backward'} library ({name}): "
+            f"{json.dumps(sass)} instructions in its SASS")
+        if not (sass["HGMMA"] and sass["UTMALDG"] + sass["UBLKCP"]):
+            raise AssertionError(f"the library {name} has no wgmma or no TMA instruction")
     fwd_lib, bwd_lib = fa._kernel(), fa._bwd_kernel()
     for bf16 in (0, 1):
         for hd in fa.KERNEL_HEAD_DIMS:
-            log(f"[1] dynamic shared memory a block, {'bf16' if bf16 else 'fp32'}, head dim {hd}, "
-                f"max_pos 512: forward {fwd_lib.cmgan_flash_rel_attention_fwd_smem(bf16, hd)} B; "
-                f"backward dq/dE kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 0, 512)}"
-                f" B in {bwd_lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, hd, 1616, 641, 512)}"
-                f" persistent blocks at G 1616, T 641, a row of dE partial sums each ("
-                f"{bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 0, 1536)} B at max_pos "
-                f"1536), dk/dv kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 1, 512)} B")
+            log(f"[1] dynamic shared memory a block, {'bf16' if bf16 else 'fp32'}, head dim {hd}: "
+                f"forward {fwd_lib.cmgan_flash_rel_attention_fwd_smem(bf16, hd)} B; backward dq/dE "
+                f"kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 0, 512)} B, dk/dv "
+                f"kernel {bwd_lib.cmgan_flash_rel_attention_bwd_smem(bf16, hd, 1, 512)} B (one block "
+                f"an SM, at every max_pos); rows of the backward's scratch at G 1616, T 641, max_pos "
+                f"512 (a consumer warpgroup's partial sums of dE each, then the rows' statistics): "
+                f"{bwd_lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, hd, 1616, 641, 512)}")
     wide = fa._wide_kernel()
     wide.cmgan_flash_rel_attention_wide_slab.restype = ctypes.c_int
     for bf16 in (0, 1):
@@ -898,9 +903,8 @@ def head_dim_cases():
 
 
 def backward_head_dim_cases():
-    """[7] kernel #2 at head dims 8, 32 and 64, fp32 and bf16 (at 32 and 64 in
-    fp32, and at 64 in bf16, the table's gradient goes through global memory:
-    its block-wide buffer does not fit)."""
+    """[7] kernel #2 at head dims 8 (zero-padded to 16), 32 and 64, fp32 and
+    bf16 (fp32 at 64 runs one consumer warpgroup a block)."""
     return [check_backward_case(dt, 404, 641, 641, 641, 0, seed=30 + d, d=d)
             for d in (8, 32, 64) for dt in ("float32", "bfloat16")]
 
@@ -3229,7 +3233,8 @@ def backward_phase(m):
     """[7] with the functions of the chip_smoke module m (this file, or
     another checkout's with the same functions): kernel #2's cases, the wide
     backward's, their device profiles and the fp32 kernels against float64.
-    Returns (kernel #2's cases, the wide backward's cases)."""
+    Returns (kernel #2's cases, the wide backward's cases, kernel #2's device
+    ms by kernel at the G step's shape, by type)."""
     bwd_cases = [m.check_backward_case(dt, 1616, 641, 641, 641, 0, seed=7)
                  for dt in ("float32", "bfloat16")]
     bwd_cases += m.backward_head_dim_cases()
@@ -3242,16 +3247,15 @@ def backward_phase(m):
                                            chunk=16))
     for dt in ("float32", "bfloat16"):
         bwd_cases.append(m.check_backward_case(dt, 101, 641, 641, 1, 0, seed=15))  # one valid key
-        # a table too long for the block's shared memory: dE through global memory
+        # the longest table the kernels take (2 * 1536 + 1 rows)
         bwd_cases.append(m.check_backward_case(dt, 32, 2561, 2561, 2561, 0, seed=16, chunk=16,
                                                max_pos=1536))
     wide_bwd_cases = m.wide_backward_cases()
     for dt in ("float32", "bfloat16"):
         m.backward_profile(dt, g=404, d=128)
     m.check_against_float64()
-    for dt in ("float32", "bfloat16"):
-        m.backward_profile(dt)
-    return bwd_cases, wide_bwd_cases
+    profiles = {dt: m.backward_profile(dt) for dt in ("float32", "bfloat16")}
+    return bwd_cases, wide_bwd_cases, profiles
 
 
 def forward_phase(m):
@@ -3282,7 +3286,9 @@ def times(root: str, phase: str) -> int:
     """`--backward-times [ROOT]` / `--forward-times [ROOT]`: [1]'s builds and
     [7] (or kernel #1's cases) with the chip_smoke.py (and so the package) of
     the checkout at ROOT, then one JSON line of every case's shape, times and
-    bound (forward: and the library route at head dim 64)."""
+    bound, and the library route at head dim 64 in both types (backward:
+    also the device ms of each of kernel #2's kernels at the G step's
+    shape)."""
     import importlib.util
 
     import torch
@@ -3305,8 +3311,12 @@ def times(root: str, phase: str) -> int:
             "bound_ms", "bound_by", "bitwise", "max_abs_err", "lse_err")
     record = {"root": root, "card": smi}
     if phase == "backward":
-        bwd_cases, wide_cases = backward_phase(m)
+        bwd_cases, wide_cases, record["backward_profile"] = backward_phase(m)
         cases = bwd_cases + wide_cases
+        record["library_d64"] = [
+            {k: r[k] for k in ("dtype", "library_ms", "kernel_ms", "sdpa_bwd_ms", "bias_bwd_ms")}
+            for r in (library_route(dt, 404, 641, 641, 641, 0, seed=94, backward=True, d=64)
+                      for dt in ("float32", "bfloat16"))]
     else:
         cases = forward_phase(m)
         # [9]'s reading, at its own batch and two more
@@ -3483,7 +3493,7 @@ def main() -> int:
     lap("3-6 enhancement")
 
     # -- 7. the backward kernel against autograd through the plain version --
-    bwd_cases, wide_bwd_cases = backward_phase(sys.modules[__name__])
+    bwd_cases, wide_bwd_cases, _ = backward_phase(sys.modules[__name__])
     bwd_main = bwd_cases[0]  # fp32 at the training shape
 
     lap("7 backward kernel")

@@ -77,9 +77,6 @@ namespace {
 using namespace flash_rel;
 using namespace flash_rel::hopper;
 
-constexpr int WQ = 64;           // queries a consumer warpgroup
-constexpr float L2E = 1.4426950408889634f;
-
 // Ablations, for tools/forward_ablation.py alone (each a wrong result, timed
 // and nothing else): -DCMGAN_FWD_ABLATE=<bits>, 1 leaves out P . V, 2 takes
 // every tile pair as clipped (no R, no skew), 4 the softmax's exponentials
@@ -137,142 +134,6 @@ __device__ __forceinline__ bool block_needs_window(int i0, int q_offset, int j0,
 #pragma unroll
   for (int wg = 0; wg < NCW; ++wg) mixed |= clip_kind(base + WQ * wg, WQ, max_pos) == kMixed;
   return mixed;
-}
-
-__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t a, uint32_t b) {
-  asm volatile("st.shared.v2.b32 [%0], {%1, %2};" ::"r"(addr), "r"(a), "r"(b) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// fp32 producer: rows row0 .. row0 + ROWS - 1 of src ([limit, HD]) split into
-// three bf16 planes at dst, `plane` bytes apart, swizzled; rows outside
-// [0, limit) are zero. The 128 threads of the producer warpgroup share it.
-template <int HD, int ROWS>
-__device__ __forceinline__ void split_rows(uint32_t dst, int plane, const float* __restrict__ src,
-                                           int row0, int limit, int ptid) {
-  constexpr int C4 = HD / 4, RB = 2 * HD;            // 16-byte chunks of fp32 a row
-  constexpr int N = ROWS * C4 / 128;                  // chunks a thread
-  // loads in flight a thread: the most, up to 4, that divide the chunks
-  constexpr int B = N % 4 == 0 ? 4 : N % 3 == 0 ? 3 : N % 2 == 0 ? 2 : 1;
-  static_assert(ROWS * C4 % 128 == 0 && N % B == 0, "whole batches of chunks");
-#pragma unroll
-  for (int n0 = 0; n0 < N; n0 += B) {
-    float4 x[B];
-#pragma unroll
-    for (int i = 0; i < B; ++i) {
-      const int e = ptid + 128 * (n0 + i), row = row0 + e / C4;
-      x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row >= 0 && row < limit) {
-        x[i] = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(row) * HD) + e % C4);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B; ++i) {
-      const int e = ptid + 128 * (n0 + i);
-      uint32_t lo[3], hi[3];
-      split3(x[i].x, x[i].y, lo);
-      split3(x[i].z, x[i].w, hi);
-      const uint32_t o = swz<RB>((e / C4) * RB + 8 * (e % C4));
-#pragma unroll
-      for (int p = 0; p < 3; ++p) st_shared_v2(dst + p * plane + o, lo[p], hi[p]);
-    }
-  }
-}
-
-// The part products of an fp32 product, smallest first: (part of A, part of
-// B) for x = 0 .. 5; bf16 takes x = 5 alone.
-__host__ __device__ constexpr int part_a(int x) { return x == 0 || x == 3 ? 1 : x == 1 ? 2 : 0; }
-__host__ __device__ constexpr int part_b(int x) { return x == 0 || x == 4 ? 1 : x == 2 ? 2 : 0; }
-
-// bf16 producer: the window's rows row0 .. row0 + WIN - 1 of the table,
-// clipped to [0, 2*max_pos] (the rows of E[clip(base + c, +-max_pos) +
-// max_pos]), gathered by the 128 threads of the warpgroup into the swizzled
-// tile at dst
-template <int HD, int WIN>
-__device__ __forceinline__ void gather_window(uint32_t dst, const __nv_bfloat16* __restrict__ table,
-                                              int row0, int max_pos, int ptid) {
-  constexpr int RB = 2 * HD, CR = RB / 16;  // 16-byte chunks a row
-#pragma unroll
-  for (int i = 0; i < WIN * CR / 128; ++i) {
-    const int e = ptid + 128 * i, r = e / CR;
-    const int row = min(max(row0 + r, 0), 2 * max_pos);
-    const uint4 x = __ldg(reinterpret_cast<const uint4*>(table + static_cast<size_t>(row) * HD) + e % CR);
-    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(dst + swz<RB>(16 * e)), "r"(x.x),
-                 "r"(x.y), "r"(x.z), "r"(x.w)
-                 : "memory");
-  }
-}
-
-// fp32 producer: a key tile, its value tile and (win) the window's rows
-// row0 .. of the table into their planes at st, the loads of all three in
-// flight together (ten 16-byte loads a thread at head dim 16). Key rows
-// outside the tensors are zero; window rows are clipped to the table's.
-template <int HD, int WIN>
-__device__ __forceinline__ void split_tile(uint32_t st, const float* __restrict__ kg,
-                                           const float* __restrict__ vg,
-                                           const float* __restrict__ table, int j0, int Tk,
-                                           bool win, int row0, int rows, int ptid) {
-  constexpr int C4 = HD / 4, RB = 2 * HD;
-  constexpr int KPL = BK * RB, CK = BK * C4 / 128, CE = WIN * C4 / 128;  // chunks a thread
-  constexpr int N = 2 * CK + CE, B = N <= 12 ? N : N % 10 == 0 ? 10 : 8;
-  static_assert(N % B == 0, "whole batches of chunks");
-#pragma unroll
-  for (int n0 = 0; n0 < N; n0 += B) {
-    float4 x[B];
-#pragma unroll
-    for (int i = 0; i < B; ++i) {
-      const int n = n0 + i;  // K chunks, then V's, then E's
-      const int e = ptid + 128 * (n < CK ? n : n < 2 * CK ? n - CK : n - 2 * CK);
-      const float* src = n < CK ? kg : n < 2 * CK ? vg : table;
-      const int row = n < 2 * CK ? j0 + e / C4 : min(max(row0 + e / C4, 0), rows - 1);
-      x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (n < 2 * CK ? row < Tk : win) {
-        x[i] = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(row) * HD) + e % C4);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B; ++i) {
-      const int n = n0 + i;
-      if (n >= 2 * CK && !win) continue;
-      const int e = ptid + 128 * (n < CK ? n : n < 2 * CK ? n - CK : n - 2 * CK);
-      const uint32_t dst = st + (n < CK ? 0 : n < 2 * CK ? 3 * KPL : 6 * KPL);
-      const int plane = n < 2 * CK ? KPL : WIN * RB;
-      uint32_t lo[3], hi[3];
-      split3(x[i].x, x[i].y, lo);
-      split3(x[i].z, x[i].w, hi);
-      const uint32_t o = swz<RB>((e / C4) * RB + 8 * (e % C4));
-#pragma unroll
-      for (int p = 0; p < 3; ++p) st_shared_v2(dst + p * plane + o, lo[p], hi[p]);
-    }
-  }
-}
-
-// A product of the consumer warpgroup: d (64 x N) = A . B^T over the head dim,
-// A and B K-major staged tiles of P planes. fp32 (P = 3): the six part
-// products whose terms are above 2^-24 of the result, smallest first into the
-// one accumulator; bf16: the one product.
-template <int P, int HD, int N, int SBO, int LAYOUT>
-__device__ __forceinline__ void product(float (&d)[N / 2], uint32_t a, int a_plane, uint32_t b,
-                                        int b_plane) {
-  constexpr int first = P == 1 ? 5 : 0;
-#pragma unroll
-  for (int x = first; x < 6; ++x) {
-#pragma unroll
-    for (int kd = 0; kd < HD / 16; ++kd) {
-      const uint64_t da = smem_desc(a + part_a(x) * a_plane + 32 * kd, SBO, LAYOUT);
-      const uint64_t db = smem_desc(b + part_b(x) * b_plane + 32 * kd, SBO, LAYOUT);
-      if (x == first && kd == 0) {
-        wgmma_ss<N, true>(d, da, db);
-      } else {
-        wgmma_ss<N, false>(d, da, db);
-      }
-    }
-  }
 }
 
 // One consumer warpgroup: 64 queries against every key tile.

@@ -11,8 +11,8 @@ writes the row log-sum-exp, the backward recomputes the weights from it.
 
 Both kernels run their products on the tensor cores, tile pair by tile
 pair, with the position term read through a skew and whole clipped tile
-pairs served by two scalars a query (`csrc/flash_rel_common.cuh`). The
-forward is built for Hopper (`csrc/flash_rel_hopper.cuh`): a producer
+pairs served by two scalars a query (`csrc/flash_rel_common.cuh`). Both
+are built for Hopper (`csrc/flash_rel_hopper.cuh`). In the forward a producer
 warpgroup fills a ring of stages in shared memory (TMA copies in bf16;
 in fp32 its own loads, split into three bf16 parts), and two or three
 consumer warpgroups of 64 queries each run the products on `wgmma`. A
@@ -50,9 +50,15 @@ PyTorch.
 
 Every backward path sums the table's gradient in one fixed order, with no
 atomics, so two runs on the same inputs give the same bits: the kernel
-that owns the query tiles runs persistent blocks, each adding into rows of
-its own, and the rows are summed in block order (`_BlockRows` is that
-order in plain PyTorch).
+that owns the query tiles runs persistent blocks, each of whose row units
+(a consumer warpgroup of the tensor-core kernel, the whole block of the
+wide one) adds into a row of its own, and the rows are summed in order
+(`_BlockRows` is that order in plain PyTorch). The tensor-core backward
+(`csrc/flash_rel_attention_bwd.cu`) is built for Hopper as the forward is:
+a dq kernel whose consumer warpgroups own 64 queries and a dk/dv kernel
+whose consumer warpgroups own 64 keys (the wgmma rows), each fed by a
+producer warpgroup's ring; `tiled_attention_grads` is its walk and its
+order of the table's sums.
 """
 
 from __future__ import annotations
@@ -208,50 +214,65 @@ def _skew_index(nq: int, nk: int, tile: int, device):
 class _BlockRows:
     """The table's gradient [rows, d] summed as the backward kernels sum it.
 
-    Item (group, query tile) i is taken by the persistent block i % blocks,
-    which adds into rows of its own: each tile pair's window gradient, and
-    once an item its clipped pairs, per group of `warp` queries (a warp;
-    the wide kernel's whole tile) into that group's slot. After its items a
-    block adds its slots in order into rows 2*max_pos and 0; then the
-    blocks' rows are added in block order.
+    Items (group, `units` * `tile` queries) go to persistent blocks in turn
+    (item i to block i % blocks). Each of a block's `units` row units (a
+    consumer warpgroup of the tensor-core dq kernel, `tile` queries; the
+    wide dq kernel's whole block) owns a row of partial sums, into which
+    its window gradients are added (`add_window`, `add_rows`); the clipped
+    pairs are summed per query, and once an item each group of `warp`
+    queries adds them, times its queries, into a slot of its own. After
+    its items a unit adds its slots in order into rows 2*max_pos and 0;
+    then the rows are added in order (block, then unit).
     """
 
-    def __init__(self, blocks: int, tq: int, tile: int, warp: int, rows: int, d: int, device):
-        self.blocks, self.tile, self.warp = blocks, tile, warp
-        self.n_qtiles = -(-tq // tile)
-        self.rows = torch.zeros(blocks, rows, d, device=device)
-        self.hi = torch.zeros(blocks, tile // warp, d, device=device)
+    def __init__(self, blocks: int, tq: int, tile: int, warp: int, rows: int, d: int, device,
+                 units: int = 1):
+        self.blocks, self.tile, self.warp, self.units = blocks, tile, warp, units
+        self.n_items = -(-tq // (tile * units))
+        self.rows = torch.zeros(blocks * units, rows, d, device=device)
+        self.hi = torch.zeros(blocks * units, tile // warp, d, device=device)
         self.lo = torch.zeros_like(self.hi)
 
-    def _block(self, groups: int, qtile, device):
-        return (torch.arange(groups, device=device)[:, None] * self.n_qtiles + qtile) % self.blocks
+    def _row(self, groups: int, unit_index, device):
+        """Each group's row of the unit that owns query tile `unit_index`
+        (an int or a tensor of them): [groups] or [groups, n]."""
+        item, unit = unit_index // self.units, unit_index % self.units
+        groups = torch.arange(groups, device=device)
+        if torch.is_tensor(item):
+            groups = groups[:, None]
+        return ((groups * self.n_items + item) % self.blocks) * self.units + unit
+
+    def add_rows(self, i0: int, table_rows, values):
+        """values [G, n, d] into table rows `table_rows` [n] of each group's
+        unit that owns the queries from i0."""
+        groups, _, d = values.shape
+        index = self._row(groups, i0 // self.tile, values.device)[:, None] * self.rows.shape[1]
+        self.rows.view(-1, d).index_add_(0, (index + table_rows).reshape(-1), values.reshape(-1, d))
 
     def add_window(self, i0: int, window, dr, qt):
-        """Each group's dE_window = dR^T . Q into its block's rows."""
-        groups, _, d = qt.shape
-        de = torch.einsum("gac,gad->gcd", dr, qt)
-        index = self._block(groups, i0 // self.tile, qt.device) * self.rows.shape[1] + window
-        self.rows.view(-1, d).index_add_(0, index.reshape(-1), de.reshape(-1, d))
+        """Each group's dE_window = dR^T . Q, whole, into its unit's rows."""
+        self.add_rows(i0, window, torch.einsum("gac,gad->gcd", dr, qt))
 
     def add_clipped(self, c_hi, c_lo, qf):
         """Every item's per-query sums of its clipped pairs (c_hi, c_lo
-        [G, Tq]) times its queries, into the slots of the item's block."""
+        [G, Tq]) times its queries, into the slots of the unit that owns them."""
         groups, tq, d = qf.shape
-        items = self._block(groups, torch.arange(self.n_qtiles, device=qf.device), qf.device)
+        n_units = -(-tq // self.tile)
+        rows = self._row(groups, torch.arange(n_units, device=qf.device), qf.device)
         for c, slots in ((c_hi, self.hi), (c_lo, self.lo)):
-            x = F.pad(c[:, :, None] * qf, (0, 0, 0, self.n_qtiles * self.tile - tq))
-            per_slot = x.reshape(groups * self.n_qtiles, self.tile // self.warp, self.warp, d).sum(2)
-            slots.index_add_(0, items.reshape(-1), per_slot)
+            x = F.pad(c[:, :, None] * qf, (0, 0, 0, n_units * self.tile - tq))
+            per_slot = x.reshape(groups * n_units, self.tile // self.warp, self.warp, d).sum(2)
+            slots.index_add_(0, rows.reshape(-1), per_slot)
 
     def total(self):
-        """Each block's slots in order into its rows, then the rows in block order."""
+        """Each unit's slots in order into its rows, then the rows in order."""
         rows = self.rows.clone()
         for k in range(self.hi.shape[1]):
             rows[:, -1] += self.hi[:, k]
             rows[:, 0] += self.lo[:, k]
         out = torch.zeros_like(rows[0])
-        for b in range(self.blocks):
-            out += rows[b]
+        for r in range(rows.shape[0]):
+            out += rows[r]
         return out
 
 
@@ -304,25 +325,43 @@ def tiled_attention(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: in
 
 
 def tiled_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int, g,
-                          tile: int = 64, blocks: int = WALK_BLOCKS):
-    """The backward kernel's arithmetic in plain PyTorch: weights recomputed
-    per tile pair from the row log-sum-exp, ds written skewed into dR, the
-    table's gradient as dE_window = dR^T . Q added to its block's rows, the
-    clipped pairs (of clipped and of mixed tile pairs) by two sums a query,
-    added once an item per warp of 16 queries; the rows of `blocks`
-    persistent blocks summed in block order (`_BlockRows`). Returns (dq, dk,
-    dv, dtable) like `reference_attention_grads`; for tests and checks only.
+                          tile: int = 64, blocks: int = WALK_BLOCKS, units: int = 2):
+    """The backward kernels' arithmetic in plain PyTorch: weights recomputed
+    per tile pair from the row log-sum-exp, ds written skewed into dR (zero
+    where a pair's own distance is clipped), and the table's gradient as the
+    dq kernel sums it. A row unit of `tile` queries (a consumer warpgroup;
+    `units` of them an item: the kernel runs 3 for bf16 up to head dim 32,
+    2 otherwise and 1 for fp32 at 64) walks the key tiles; a mixed pair's dE_window
+    = dR^T . Q has two halves of `tile` rows, and half 0 waits (the carry)
+    for the next key tile's half 1, which covers the same distances, before
+    the sum is added into the unit's row of partial sums (a clipped pair,
+    or the walk's end, sends the carry alone). The clipped pairs go by two
+    sums a query, added once an item per warp of 16 queries; the rows of
+    `blocks` persistent blocks are summed in order (`_BlockRows`). Returns
+    (dq, dk, dv, dtable) like `reference_attention_grads`; for tests and
+    checks only.
     """
     out, lse = tiled_attention(q, k, v, rel_table, max_pos, t_valid, q_offset, tile, True)
     qf, kf, vf, table, gf = q.float(), k.float(), v.float(), rel_table.float(), g.float()
     groups, tq, _ = q.shape
     delta = (gf * out.float()).sum(dim=2)
     dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
-    de_rows = _BlockRows(blocks, tq, tile, min(16, tile), *table.shape, q.device)
+    de_rows = _BlockRows(blocks, tq, tile, min(16, tile), *table.shape, q.device, units)
     # ds summed over the pairs clipped to row 2*max_pos / row 0, per query
     c_hi = torch.zeros(groups, tq, device=q.device)
     c_lo = torch.zeros(groups, tq, device=q.device)
+
+    def leave(i0, dist0, values):
+        """window rows at distances dist0 + c into the unit's row; clipped ones hold zeros"""
+        dist = torch.arange(values.shape[1], device=q.device) + dist0
+        keep = dist.abs() < max_pos
+        de_rows.add_rows(i0, dist[keep] + max_pos, values[:, keep])
+
+    carry = None  # (i0, base, half 0 of the unit's last mixed pair's window gradient)
     for i0, nq, j0, nk, base, kind in _tile_pairs(tq, t_valid, q_offset, max_pos, tile):
+        if carry is not None and (kind != "mixed" or carry[0] != i0):
+            leave(*carry)
+            carry = None
         rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
         qt, kt = qf[:, rows], kf[:, keys]
         s = _tile_logits(qt, kt, table, max_pos, base, kind, tile)
@@ -339,14 +378,19 @@ def tiled_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offs
             c_hi[:, rows] += (ds * (dist >= max_pos)).sum(dim=2)
             c_lo[:, rows] += (ds * (dist <= -max_pos)).sum(dim=2)
             dr = torch.zeros(groups, nq, 2 * tile - 1, device=q.device)
-            # zero outside the parallelogram and on the window's clipped rows
             dr.scatter_(2, c.expand(groups, -1, -1), ds * (dist.abs() < max_pos))
             dq[:, rows] += dr @ table[window]
-            de_rows.add_window(i0, window, dr, qt)
+            de = torch.einsum("gac,gad->gcd", dr, qt)
+            # half 1 (and the window's padding row) over the carry's distances
+            half = F.pad(de[:, tile:], (0, 0, 0, 1))
+            leave(i0, base + tile, half if carry is None else carry[2] + half)
+            carry = (i0, base, de[:, :tile])
         elif kind == "high":
             c_hi[:, rows] += ds.sum(dim=2)
         else:
             c_lo[:, rows] += ds.sum(dim=2)
+    if carry is not None:
+        leave(*carry)
     dq += c_hi[:, :, None] * table[2 * max_pos] + c_lo[:, :, None] * table[0]
     de_rows.add_clipped(c_hi, c_lo, qf)
     dtable = de_rows.total()

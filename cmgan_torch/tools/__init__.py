@@ -1,6 +1,7 @@
 """The port's measuring tools, counterparts of the root `tools/`
-serving_bench.py, serve_e2e_bench.py and profile_dsp_share.py, and
-forward_ablation.py (kernel #1's phases by ablation); each runs as
+serving_bench.py, serve_e2e_bench.py and profile_dsp_share.py,
+forward_ablation.py (kernel #1's phases by ablation) and
+backward_ablation.py (kernel #2's dq/dE kernel's); each runs as
 `python3 -m cmgan_torch.tools.<name>` on one NVIDIA GPU, and the bench
 (`cmgan_torch.bench`) calls the first two for its serving cells. The
 helpers below are the measurement's own, shared by the tools and the

@@ -100,11 +100,14 @@ def test_tiled_matches_jax_kernels(rng, g, tq, tk, max_pos, t_valid, q_offset, t
     _assert_grads([x.numpy() for x in ours], ref)
 
 
-# tables whose gradient kernel #2 keeps in global memory, in rows of its own a
-# block: head dim 32 (in fp32 at any max_pos), and max_pos above 750 (head dim 16)
+# kernel #2 keeps the table's gradient in global memory, a row of partial
+# sums a consumer warpgroup, at every head dim and table length: head dim 32,
+# and tables longer than the models' (max_pos 800, and 1536, the longest
+# chip_smoke.py holds the kernel to)
 GLOBAL_DE_CASES = [
     pytest.param(2, 256, 40, 32, id="D32"),
     pytest.param(1, 900, 800, 16, id="max_pos-800"),
+    pytest.param(1, 1664, 1536, 16, id="max_pos-1536"),
 ]
 
 
@@ -120,15 +123,29 @@ def test_tiled_matches_jax_kernels_where_the_table_gradient_is_global(rng, g, t,
     _assert_grads([x.numpy() for x in ours], ref)
 
 
+@pytest.mark.parametrize("units", [1, 2, 3])
 @pytest.mark.parametrize("blocks", [1, 3, 132])
-def test_block_count_moves_only_the_table_sums_order(rng, blocks):
-    """The persistent blocks' rows change the order of the table's sums, and
-    nothing else: dq, dk and dv are bitwise those of one block."""
+def test_block_count_moves_only_the_table_sums_order(rng, blocks, units):
+    """The persistent blocks' rows (one a row unit: `units` of them a block)
+    change the order of the table's sums, and nothing else: dq, dk and dv
+    are bitwise those of one block of one unit."""
     q, k, v, table, cot = map(torch.from_numpy, _inputs(rng, 3, 200, 200, 8))
-    one = fa.tiled_attention_grads(q, k, v, table, 8, 187, 0, cot, tile=16, blocks=1)
-    ours = fa.tiled_attention_grads(q, k, v, table, 8, 187, 0, cot, tile=16, blocks=blocks)
+    one = fa.tiled_attention_grads(q, k, v, table, 8, 187, 0, cot, tile=16, blocks=1, units=1)
+    ours = fa.tiled_attention_grads(q, k, v, table, 8, 187, 0, cot, tile=16, blocks=blocks,
+                                    units=units)
     assert all(torch.equal(a, b) for a, b in zip(ours[:3], one[:3]))
     _assert_grads(ours, one)
+
+
+def test_backward_work_at_the_g_step_keeps_its_counts():
+    """The yardstick of kernel #2's rows in PERF.md: the work the gradient
+    needs at the G step's shape (G 1616, T 641, max_pos 512, D 16) is counted
+    from the function, not from any kernel, so a redesign leaves it as it was."""
+    fp32 = fa.attention_work(1616, 641, 641, 641, 0, 512, 16, 4, backward=True)
+    bf16 = fa.attention_work(1616, 641, 641, 641, 0, 512, 16, 2, backward=True)
+    assert fp32 == {"flop": 167378195456, "bytes": 534632896, "exps": 663983696,
+                    "near": 394111, "far": 16770}
+    assert bf16 == {**fp32, "bytes": 269420960}
 
 
 def test_tile_width_does_not_change_the_function(rng):
@@ -169,6 +186,11 @@ def test_library_path_follows_an_included_header(tmp_path, monkeypatch):
 # queries a block of the forward kernel owns: 64 a consumer warpgroup, three
 # warpgroups (bf16 at head dim 16) or two (`Cfg::NCW`, csrc/flash_rel_attention.cu)
 BLOCK_QUERIES = [pytest.param(128, id="block-128"), pytest.param(192, id="block-192")]
+# rows a block of each backward kernel owns (`consumer_warpgroups`,
+# csrc/flash_rel_attention_bwd.cu): consumer warpgroups of 64 rows, three
+# for bf16 up to head dim 32, two otherwise, one for fp32 at head dim 64
+BWD_BLOCK_ROWS = [pytest.param(64, id="block-64"), pytest.param(128, id="block-128"),
+                  pytest.param(192, id="block-192")]
 
 
 @pytest.mark.parametrize("block", BLOCK_QUERIES)
@@ -200,4 +222,44 @@ def test_every_mixed_window_is_a_slice_of_its_blocks_window(g, tq, tk, max_pos, 
                     mine = window[i0 - b0:i0 - b0 + 127]
                     assert torch.equal(mine, table[fa._window(table, base_w, max_pos, 64)])
                     seen += 1
+    assert seen > 0 and (boxes > 0 or max_pos < block)
+
+
+@pytest.mark.parametrize("owner", ["queries", "keys"])
+@pytest.mark.parametrize("block", BWD_BLOCK_ROWS)
+@pytest.mark.parametrize("g,tq,tk,max_pos,t_valid,q_offset,tile,kinds", CASES)
+def test_every_backward_window_is_a_slice_of_its_blocks_window(g, tq, tk, max_pos, t_valid,
+                                                                q_offset, tile, kinds, block, owner):
+    """The backward kernels stage one window of block + 64 table rows a block
+    and tile of the walk, row c being E[clip(row0 + c, +-max_pos) + max_pos].
+    The dq kernel's block owns `block` queries from b0 and walks key tiles
+    j0: its window starts at the distance of its first queries, and
+    warpgroup wg's (64 queries from b0 + 64 wg) at row 64 wg. The dk/dv
+    kernel's owns `block` keys from b0 and walks query tiles i0: its window
+    starts at the distance of its last keys, and warpgroup wg's (64 keys from
+    b0 + 64 wg) at row block - 64 - 64 wg. Each mixed pair's window (127
+    rows) is `_window`'s; where none of a block's rows is clipped, the window
+    is one slice of the table (the TMA box)."""
+    table = torch.arange((2 * max_pos + 1) * 4, dtype=torch.float32).reshape(-1, 4) + 1
+    pairs = {(i0, j0): (base, kind) for i0, _, j0, _, base, kind
+             in fa._tile_pairs(tq, t_valid, q_offset, max_pos, 64)}
+    seen = boxes = 0
+    for b0 in range(0, tq if owner == "queries" else t_valid, block):
+        for w0 in range(0, t_valid if owner == "queries" else tq, 64):
+            i0, j0 = (b0, w0) if owner == "queries" else (w0, b0)
+            base = i0 + q_offset - j0 - 63
+            row0 = base if owner == "queries" else base - (block - 64)
+            window = table[(torch.arange(block + 64) + row0).clamp(-max_pos, max_pos) + max_pos]
+            if row0 >= -max_pos and row0 + block + 63 <= max_pos:
+                start = row0 + max_pos
+                assert torch.equal(window, table[start:start + block + 64])
+                boxes += 1
+            for wg in range(block // 64):
+                i0w, j0w = (i0 + 64 * wg, j0) if owner == "queries" else (i0, j0 + 64 * wg)
+                if (i0w, j0w) not in pairs or pairs[(i0w, j0w)][1] != "mixed":
+                    continue
+                off = 64 * wg if owner == "queries" else block - 64 - 64 * wg
+                mine = window[off:off + 127]
+                assert torch.equal(mine, table[fa._window(table, pairs[(i0w, j0w)][0], max_pos, 64)])
+                seen += 1
     assert seen > 0 and (boxes > 0 or max_pos < block)
