@@ -8,8 +8,9 @@
 The second form runs only the builds and phase 7 with the chip_smoke.py
 and the package of the checkout at ROOT (default: this one), then prints
 one JSON line of every backward case's times, each backward kernel's
-device time at the G step's shape and the library route's backward at
-head dim 64 in both types: run it on two checkouts in one call to
+device time at the G step's shape and, for the wide backward, at G 404,
+T 641, D 128 and 320, and the library route's backward at head dims 64,
+128 and 320 in both types: run it on two checkouts in one call to
 compare their kernels on one card. The third does the same
 for kernel #1: the builds, then its cases at every shape of PERF.md's
 kernel table, fp32 and bf16, against the plain version, the library
@@ -28,8 +29,11 @@ failure, none falling back to the CPU or to a plain version:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and the build of every kernel source (started together) and of the
      host PESQ scorer; each kernel's registers and spills, and the count of
-     wgmma (HGMMA) and TMA (UTMALDG) instructions in the forward and the
-     backward library (each fails without them);
+     wgmma (HGMMA), TMA (UTMALDG) and mma.sync (HMMA) instructions in the
+     forward, the backward and the wide backward library (each fails
+     without wgmma and TMA, or with mma.sync); the wide plan against the
+     libraries: slabs, passes, how often each backward kernel computes a
+     tile pair's logits;
   2. the attention forward kernel against its plain PyTorch version on the
      card, fp32 and bf16, at the 4 s bucket (T = 641) and the 16 s segment
      (T = 2561), each type with a t_valid < T case, q_offset = 128 and
@@ -57,11 +61,13 @@ failure, none falling back to the CPU or to a plain version:
      at T = 2561, a t_valid < T, a q_offset and a max_pos = 64 case, a
      t_valid = 1 case (dq, dk and dE are zero) and a max_pos = 1536 case
      (a table of 3073 rows); head dims 8, 32 and 64, fp32 and bf16; the
-     wide backward at D 80, 100, 128, 256 and 320,
-     and its kernels' device time with and without the dq kernel's dE
-     writes; every case run twice, its dq, dk, dv and dE bitwise equal;
-     the fp32 kernels' and plain versions' distance from float64; the
-     backward's device time by kernel;
+     wide backward at D 80, 100, 128, 256 and 320, and at D 128 with an
+     offset and with one valid key, and its kernels' device time (D 128
+     and 320) with and without the dq kernel's dE writes; every case run
+     twice, its dq, dk, dv and dE bitwise equal; the fp32 kernels' and
+     plain versions' distance from float64 at D 16 and, for the wide
+     backward, D 128 (within WIDE_FLOAT64_FACTOR); the backward's device
+     time by kernel;
   8. the fused LayerNorm kernel against its plain version and against
      F.layer_norm at [1616*321, 64] and [5136*101, 64], and at the widths
      63, 65, 513 and 1024, fp32 and bf16, forward and gradient, with the
@@ -180,6 +186,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import inspect
 import json
 import logging
 import os
@@ -221,6 +228,11 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # distance: the kernels sum in another order and take exp by the fast unit
 # (both ~1x seen); a tensor-core accumulator chain would show as ~8x
 FLOAT64_FACTOR = 4.0
+# the wide backward at head dim 128 against float64: its gradients at most this
+# many times as far as the plain fp32 version's (its logits sum two depth
+# chunks, each from zero, in fp32; its products on dS, dR, P^T and dS^T are
+# fresh a tile and added in fp32)
+WIDE_FLOAT64_FACTOR = 1.25
 LN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (6.25e-2, 1.6e-2)}  # (atol, rtol); bf16: one ulp
 # G step, flash against dense, fp32, relative L2: the loss and all gradients
 # as one vector within GSTEP_REL, each parameter's gradient within
@@ -646,19 +658,20 @@ def check_backward_case(dtype_name, g, tq, tk, t_valid, q_offset, seed, chunk=PL
     return case
 
 
-def check_against_float64(seed=13):
+def check_against_float64(seed=13, d=16):
     """[7] what the fp32 route is worth: both kernels and their plain versions
     against the same function in float64, relative L2, at G 16, T 641. The
-    kernels may be at most FLOAT64_FACTOR times as far as the plain versions."""
+    kernels may be at most FLOAT64_FACTOR times as far as the plain versions;
+    at a wide head (d 128) the backward's gradients WIDE_FLOAT64_FACTOR times."""
     import torch
 
     from cmgan_torch.ops import flash_attention as fa
 
     g, t, max_pos = 16, 641, 512
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(g, t, 16, generator=gen, device="cuda") * 0.25
-    k, v, cot = (torch.randn(g, t, 16, generator=gen, device="cuda") for _ in range(3))
-    table = torch.randn(2 * max_pos + 1, 16, generator=gen, device="cuda")
+    q = torch.randn(g, t, d, generator=gen, device="cuda") * d ** -0.5
+    k, v, cot = (torch.randn(g, t, d, generator=gen, device="cuda") for _ in range(3))
+    table = torch.randn(2 * max_pos + 1, d, generator=gen, device="cuda")
 
     with float_means_double():  # the plain version widens with .float()
         wide = [x.double() for x in (q, k, v, table)]
@@ -677,8 +690,10 @@ def check_against_float64(seed=13):
     report, ok = {}, all(x.dtype == torch.float64 for x in truth)
     for name, a, b, c in zip(("out", "dq", "dk", "dv", "dE"), plain, kernel, truth):
         report[name] = {"plain": rel(a, c), "kernel": rel(b, c)}
-        ok = ok and report[name]["kernel"] <= FLOAT64_FACTOR * report[name]["plain"]
-    log(f"[7] fp32 against float64, rel L2, G {g} T {t}: {json.dumps(report)}")
+        factor = WIDE_FLOAT64_FACTOR if fa.wide_head_dim(d) and name != "out" else FLOAT64_FACTOR
+        report[name]["limit"] = factor * report[name]["plain"]
+        ok = ok and report[name]["kernel"] <= report[name]["limit"]
+    log(f"[7] fp32 against float64, rel L2, G {g} T {t} D {d}: {json.dumps(report)}")
     if not ok:
         raise AssertionError("the fp32 kernels are further from float64 than allowed")
 
@@ -719,7 +734,7 @@ def backward_profile(dtype_name, g=1616, t=641, max_pos=512, reps=3, d=16):
     for name, ms in with_writes.items():
         log(f"[7] backward {dtype_name} G {g} T {t} D {d}: {ms:.3f} ms a launch, {name}")
     if fa.wide_head_dim(d):
-        lib = fa._wide_kernel()
+        lib = fa._wide_bwd_kernel()
         lib.cmgan_flash_rel_attention_wide_de_writes(0)
         try:
             without = times()
@@ -806,7 +821,7 @@ def ptxas_usage(nvcc_log: str):
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             mangled = entry.group(1)
-            base = re.search(r"\d(flash_rel_(?:wide_(?:fwd|bwd_q|bwd_k|delta|sum_partials)|fwd|bwd_kv"
+            base = re.search(r"\d(flash_rel_(?:wide_(?:fwd|bwd_q|bwd_kv|bwd_prologue|bwd_split)|fwd|bwd_kv"
                              r"|bwd_q|bwd_prologue|bwd|delta|sum_partials)"
                              r"|layernorm_(?:regs|span|long))[IE]", mangled)
             dtype = "bf16" if "bfloat16" in mangled else "fp32"
@@ -823,14 +838,17 @@ def ptxas_usage(nvcc_log: str):
 
 
 def sass_counts(path: str) -> dict:
-    """Hopper instructions in a library's SASS (cuobjdump beside nvcc): HGMMA
-    (wgmma), UTMALDG (TMA tensor loads), UBLKCP (bulk copies)."""
+    """Instructions in a library's SASS (cuobjdump beside nvcc): HGMMA
+    (wgmma), UTMALDG (TMA tensor loads), UBLKCP (bulk copies), and HMMA
+    (mma.sync, the tensor-core route before Hopper's)."""
+    import re
+
     from cmgan_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
                           check=True).stdout
-    return {op: text.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+    return {op: len(re.findall(rf"\b{op}\b", text)) for op in ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")}
 
 
 def build_all():
@@ -845,10 +863,10 @@ def build_all():
     from cmgan_torch.ops import fused_norm
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:  # one nvcc a source, all started together
+    names = (fa.KERNEL, fa.BWD_KERNEL, fa.WIDE_KERNEL, fa.WIDE_BWD_KERNEL, fused_norm.KERNEL)
+    with ThreadPoolExecutor(max_workers=len(names) + 1) as pool:  # one nvcc a source, together
         pesq_build = pool.submit(pesq_native.build)
-        futures = [pool.submit(_build.build, name)
-                   for name in (fa.KERNEL, fa.BWD_KERNEL, fa.WIDE_KERNEL, fused_norm.KERNEL)]
+        futures = [pool.submit(_build.build, name) for name in names]
     failed = [str(f.exception()) for f in futures if f.exception() is not None]
     if failed:  # every source's errors, not only the first's
         raise RuntimeError("\n".join(failed))
@@ -856,12 +874,13 @@ def build_all():
         log(f"[1] built {os.path.relpath(build.path, ROOT)} in {build.seconds:.2f} s")
         for kernel, usage in ptxas_usage(build.log):
             log(f"[1]   {kernel}: {usage}")
-    for name, future in ((fa.KERNEL, futures[0]), (fa.BWD_KERNEL, futures[1])):
+    for name, future in zip(names, futures):
+        if name not in (fa.KERNEL, fa.BWD_KERNEL, fa.WIDE_BWD_KERNEL):
+            continue  # the wide forward stays on mma.sync; kernel #3 has no products
         sass = sass_counts(future.result().path)
-        log(f"[1] {'forward' if name == fa.KERNEL else 'backward'} library ({name}): "
-            f"{json.dumps(sass)} instructions in its SASS")
-        if not (sass["HGMMA"] and sass["UTMALDG"] + sass["UBLKCP"]):
-            raise AssertionError(f"the library {name} has no wgmma or no TMA instruction")
+        log(f"[1] library {name}: {json.dumps(sass)} instructions in its SASS")
+        if not (sass["HGMMA"] and sass["UTMALDG"] + sass["UBLKCP"]) or sass["HMMA"]:
+            raise AssertionError(f"the library {name} lacks wgmma or TMA, or keeps mma.sync")
     fwd_lib, bwd_lib = fa._kernel(), fa._bwd_kernel()
     for bf16 in (0, 1):
         for hd in fa.KERNEL_HEAD_DIMS:
@@ -872,24 +891,29 @@ def build_all():
                 f"an SM, at every max_pos); rows of the backward's scratch at G 1616, T 641, max_pos "
                 f"512 (a consumer warpgroup's partial sums of dE each, then the rows' statistics): "
                 f"{bwd_lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, hd, 1616, 641, 512)}")
-    wide = fa._wide_kernel()
-    wide.cmgan_flash_rel_attention_wide_slab.restype = ctypes.c_int
+    wide, wide_bwd = fa._wide_kernel(), fa._wide_bwd_kernel()
     for bf16 in (0, 1):
         log(f"[1] wide kernels' dynamic shared memory a block, {'bf16' if bf16 else 'fp32'}, any "
             f"head dim: forward {wide.cmgan_flash_rel_attention_fwd_smem(bf16, 128)} B; backward "
-            f"dq/dE kernel {wide.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 0, 512)} B, dk/dv "
-            f"kernel {wide.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 1, 512)} B; rows of dE "
-            f"partial sums at G 404, T 641, max_pos 512, D 128 / 320: "
-            f"{wide.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 128, 404, 641, 512)} / "
-            f"{wide.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 320, 404, 641, 512)}")
-    for hd in (80, 128, 256, 320):
+            f"dq/dE kernel {wide_bwd.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 0, 512)} B, "
+            f"dk/dv kernel {wide_bwd.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 1, 512)} B; "
+            f"rows of the backward's scratch (a dq/dE block's partial sums of dE each, then the "
+            f"rows' statistics) at G 404, T 641, max_pos 512, D 128 / 320: "
+            f"{wide_bwd.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 128, 404, 641, 512)} / "
+            f"{wide_bwd.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 320, 404, 641, 512)}")
+    for hd in (80, 100, 128, 256, 320):
         p = fa.plan(hd)
-        lib_slabs = [wide.cmgan_flash_rel_attention_wide_slab(hd, which) for which in range(3)]
-        log(f"[1] wide plan, head dim {hd}: (slabs, width) forward {p.slabs['fwd']}, dq "
-            f"{p.slabs['bwd_q']}, dk/dv {p.slabs['bwd_k']}; library's widths {lib_slabs}; "
-            f"{p.padded_columns} padded logit columns")
-        if lib_slabs != [p.slabs[n][1] for n in ("fwd", "bwd_q", "bwd_k")]:
-            raise AssertionError("ops.flash_attention.plan and the wide library disagree on slabs")
+        lib_slabs = [wide.cmgan_flash_rel_attention_wide_slab(hd, 0),
+                     *(wide_bwd.cmgan_flash_rel_attention_wide_slab(hd, w) for w in (1, 2))]
+        passes = [wide_bwd.cmgan_flash_rel_attention_wide_passes(hd, w) for w in (1, 2)]
+        log(f"[1] wide plan, head dim {hd}: (slabs, width) forward {p.slabs['fwd']}; backward "
+            f"(passes, columns a pass) dq/dE {p.slabs['bwd_q']}, dk/dv {p.slabs['bwd_k']}; the "
+            f"libraries' widths {lib_slabs}, passes {passes}: each backward kernel computes a "
+            f"tile pair's logits {passes[0]} times; {p.padded_columns} padded logit columns in "
+            f"the forward")
+        if (lib_slabs != [p.slabs[n][1] for n in ("fwd", "bwd_q", "bwd_k")]
+                or passes != [p.slabs[n][0] for n in ("bwd_q", "bwd_k")]):
+            raise AssertionError("ops.flash_attention.plan and the wide libraries disagree")
     log(f"[1] built {os.path.relpath(pesq_build.result(), ROOT)} (host PESQ scorer, g++); "
         f"all builds {time.perf_counter() - t0:.2f} s")
 
@@ -1011,10 +1035,13 @@ def wide_summary(cases, library):
 
 def wide_backward_cases():
     """[7] kernel #2's wide path at D 80, 100, 128, 256 and 320, fp32 and
-    bf16, and at D 128 with a query offset and masked keys."""
+    bf16, at D 128 with a query offset and masked keys, and at D 128 with one
+    valid key (every key tile but the first wholly masked), fp32 and bf16."""
     cases = [check_backward_case(dt, 404, 641, 641, 641, 0, seed=50 + d, d=d)
              for d in WIDE_HEAD_DIMS for dt in ("float32", "bfloat16")]
     cases.append(check_backward_case("float32", 404, 320, 641, 600, 128, seed=51, d=128))
+    cases += [check_backward_case(dt, 101, 641, 641, 1, 0, seed=52, d=128)
+              for dt in ("float32", "bfloat16")]
     return cases
 
 
@@ -3234,7 +3261,8 @@ def backward_phase(m):
     another checkout's with the same functions): kernel #2's cases, the wide
     backward's, their device profiles and the fp32 kernels against float64.
     Returns (kernel #2's cases, the wide backward's cases, kernel #2's device
-    ms by kernel at the G step's shape, by type)."""
+    ms by kernel at the G step's shape, by type, and under "wide_g404" the
+    wide backward's at G 404, T 641, D 128 and 320)."""
     bwd_cases = [m.check_backward_case(dt, 1616, 641, 641, 641, 0, seed=7)
                  for dt in ("float32", "bfloat16")]
     bwd_cases += m.backward_head_dim_cases()
@@ -3251,10 +3279,13 @@ def backward_phase(m):
         bwd_cases.append(m.check_backward_case(dt, 32, 2561, 2561, 2561, 0, seed=16, chunk=16,
                                                max_pos=1536))
     wide_bwd_cases = m.wide_backward_cases()
-    for dt in ("float32", "bfloat16"):
-        m.backward_profile(dt, g=404, d=128)
+    wide_profiles = {dt: {d: m.backward_profile(dt, g=404, d=d) for d in (128, 320)}
+                     for dt in ("float32", "bfloat16")}
     m.check_against_float64()
+    if "d" in inspect.signature(m.check_against_float64).parameters:
+        m.check_against_float64(d=128)
     profiles = {dt: m.backward_profile(dt) for dt in ("float32", "bfloat16")}
+    profiles["wide_g404"] = wide_profiles
     return bwd_cases, wide_bwd_cases, profiles
 
 
@@ -3286,9 +3317,10 @@ def times(root: str, phase: str) -> int:
     """`--backward-times [ROOT]` / `--forward-times [ROOT]`: [1]'s builds and
     [7] (or kernel #1's cases) with the chip_smoke.py (and so the package) of
     the checkout at ROOT, then one JSON line of every case's shape, times and
-    bound, and the library route at head dim 64 in both types (backward:
-    also the device ms of each of kernel #2's kernels at the G step's
-    shape)."""
+    bound, and the library route in both types: the forward's at head dim
+    64, the backward's at 64, 128 and 320 (backward: also the device ms of
+    each of kernel #2's kernels at the G step's shape and of the wide
+    backward's at G 404, T 641, D 128 and 320)."""
     import importlib.util
 
     import torch
@@ -3313,10 +3345,12 @@ def times(root: str, phase: str) -> int:
     if phase == "backward":
         bwd_cases, wide_cases, record["backward_profile"] = backward_phase(m)
         cases = bwd_cases + wide_cases
-        record["library_d64"] = [
-            {k: r[k] for k in ("dtype", "library_ms", "kernel_ms", "sdpa_bwd_ms", "bias_bwd_ms")}
-            for r in (library_route(dt, 404, 641, 641, 641, 0, seed=94, backward=True, d=64)
-                      for dt in ("float32", "bfloat16"))]
+        record["library"] = [
+            {k: r[k] for k in ("dtype", "D", "library_ms", "kernel_ms", "sdpa_bwd_ms",
+                               "bias_bwd_ms")}
+            for r in (library_route(dt, 404, 641, 641, 641, 0, seed=94 + d - 64, backward=True,
+                                    d=d)
+                      for d in (64, 128, 320) for dt in ("float32", "bfloat16"))]
     else:
         cases = forward_phase(m)
         # [9]'s reading, at its own batch and two more
@@ -3614,7 +3648,7 @@ def main() -> int:
     }, {
         "name": "flash_rel_attention_wide_bwd",
         "route": "cuda",
-        "source": "cmgan_torch/ops/csrc/flash_rel_attention_wide.cu",
+        "source": "cmgan_torch/ops/csrc/flash_rel_attention_wide_bwd.cu",
         "replaces": "cmgan_tpu/ops/flash_attention.py:250",
         "path": f"head dims over 64; one G step of the model {WIDE_MODEL}",
         "launches": wide_step_bwd,

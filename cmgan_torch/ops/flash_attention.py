@@ -36,24 +36,28 @@ The tensor-core kernels are built for head dims of 16, 32 and 64
 to the next of them: zero columns add nothing to q.k or q.E, q carries
 the softmax scale of the true head dim, and the padded columns of the
 output and of every gradient are sliced away, so the result is exact.
-A head wider than 64, of any width, takes the wide kernels
-(`csrc/flash_rel_attention_wide.cu`, the same C entries), unpadded. They
-run the same tensor-core tile products, but walk the head dim in chunks
-staged into shared memory (zero past the head dim, at most 15 padded
-columns computed) and split the output's columns into slabs of at most
-`WIDE_SLABS` columns, one block each, that recompute the logits: so
-nothing on the card grows with the head dim. `plan` says how a head of
-dim d runs; `wide_attention` and `wide_attention_grads` are the wide
-kernels' walk (chunks, slabs, logits recomputed per slab, the table's
-gradient added once a tile pair, window row and slab column) in plain
-PyTorch.
+A head wider than 64, of any width, takes the wide kernels, unpadded: the
+forward in `csrc/flash_rel_attention_wide.cu` (the same C entries) runs the
+same tensor-core tile products, but walks the head dim in chunks staged into
+shared memory (zero past the head dim, at most 15 padded columns computed)
+and splits the output's columns into slabs of at most `WIDE_SLABS['fwd']`
+columns, one block each, that recompute the logits. The backward in
+`csrc/flash_rel_attention_wide_bwd.cu` is built for Hopper as the one of
+heads up to 64: the head dim in chunks of 64 columns (`WIDE_BWD_CHUNK`),
+each consumer warpgroup of a block owning one chunk of the output columns
+in a pass and the two sharing a tile pair's logits, so a kernel computes
+them once a pass of 128 columns. `plan` says how a head of dim d runs;
+`wide_attention` and `wide_attention_grads` are the wide kernels' walks
+(chunks, slabs or passes, the table's gradient carried and added as the
+kernels add it) in plain PyTorch.
 
 Every backward path sums the table's gradient in one fixed order, with no
 atomics, so two runs on the same inputs give the same bits: the kernel
 that owns the query tiles runs persistent blocks, each of whose row units
 (a consumer warpgroup of the tensor-core kernel, the whole block of the
 wide one) adds into a row of its own, and the rows are summed in order
-(`_BlockRows` is that order in plain PyTorch). The tensor-core backward
+(`_BlockRows` and `wide_attention_grads` are those orders in plain
+PyTorch). The tensor-core backward
 (`csrc/flash_rel_attention_bwd.cu`) is built for Hopper as the forward is:
 a dq kernel whose consumer warpgroups own 64 queries and a dk/dv kernel
 whose consumer warpgroups own 64 keys (the wgmma rows), each fed by a
@@ -74,10 +78,14 @@ from cmgan_torch.ops import _build
 
 # head dims the tensor-core kernels are instantiated for (csrc/flash_rel_common.cuh)
 KERNEL_HEAD_DIMS = (16, 32, 64)
-# the wide kernels' widest slab of output columns (csrc/flash_rel_attention_wide.cu):
-# the forward's (128 up to D 128), dq's, and dk's and dv's (two accumulators a thread)
-WIDE_SLABS = {"fwd": 256, "bwd_q": 128, "bwd_k": 64}
-# head-dim columns the wide kernels stage a chunk, by type
+# the wide kernels' widest slab of output columns: the forward's (128 up to D
+# 128; csrc/flash_rel_attention_wide.cu); the backward kernels' pass, one chunk
+# of WIDE_BWD_CHUNK columns for each of their WIDE_BWD_GROUPS consumer
+# warpgroups (csrc/flash_rel_attention_wide_bwd.cu)
+WIDE_BWD_CHUNK, WIDE_BWD_GROUPS = 64, 2
+WIDE_SLABS = {"fwd": 256, "bwd_q": WIDE_BWD_CHUNK * WIDE_BWD_GROUPS,
+              "bwd_k": WIDE_BWD_CHUNK * WIDE_BWD_GROUPS}
+# head-dim columns the wide forward stages a chunk, by type
 WIDE_CHUNK = {torch.float32: 16, torch.bfloat16: 32}
 # persistent blocks of the backward kernel that sums the table's gradient in
 # the walks (`tiled_attention_grads`, `wide_attention_grads`; a slab's blocks in
@@ -86,6 +94,7 @@ WALK_BLOCKS = 8
 KERNEL = "flash_rel_attention"
 BWD_KERNEL = "flash_rel_attention_bwd"
 WIDE_KERNEL = "flash_rel_attention_wide"
+WIDE_BWD_KERNEL = "flash_rel_attention_wide_bwd"
 
 # Kernel launches; the wrapper adds one per launch. Callers reset to 0.
 launches = 0
@@ -398,12 +407,22 @@ def tiled_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offs
 
 
 def widest_slab(d: int, kernel: str) -> int:
-    """The widest slab of a wide kernel ('fwd', 'bwd_q', 'bwd_k') at head dim d."""
+    """The widest slab of a wide kernel ('fwd', 'bwd_q', 'bwd_k') at head dim d
+    (a backward kernel's slab is a pass)."""
     return 128 if kernel == "fwd" and d <= 128 else WIDE_SLABS[kernel]
 
 
+def _bwd_passes(d: int):
+    """The wide backward kernels' passes at head dim d: each the column chunks
+    (WIDE_BWD_CHUNK wide, the last narrower) of its consumer warpgroups."""
+    chunks = [slice(c, min(d, c + WIDE_BWD_CHUNK)) for c in range(0, d, WIDE_BWD_CHUNK)]
+    return [chunks[i:i + WIDE_BWD_GROUPS] for i in range(0, len(chunks), WIDE_BWD_GROUPS)]
+
+
 def _slabs(d: int, kernel: str):
-    """The column ranges of a wide kernel's slabs at head dim d."""
+    """The column ranges of a wide kernel's slabs (the backward's passes) at head dim d."""
+    if kernel != "fwd":
+        return [slice(p[0].start, p[-1].stop) for p in _bwd_passes(d)]
     width = slab_width(d, widest_slab(d, kernel))
     return [slice(s0, min(d, s0 + width)) for s0 in range(0, d, width)]
 
@@ -437,58 +456,94 @@ def wide_attention(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int
 
 def wide_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int, g,
                          blocks: int = WALK_BLOCKS):
-    """The wide backward kernels' walk in plain PyTorch: the dq kernel's
-    slabs (dq and the table's gradient in the slab's columns; per tile pair
-    the weights recomputed over the whole head dim, ds written skewed into
-    dR, dE_window = dR^T . Q added to the window's rows of the item's block,
-    and the clipped pairs by two sums a query, added once an item; each
-    slab's `blocks` blocks' rows summed in block order), then the dk/dv
-    kernel's slabs. Returns (dq, dk, dv, dtable) like
-    `reference_attention_grads`; for tests and checks."""
+    """The wide backward kernels' walk in plain PyTorch. For each pass (two
+    chunks of 64 output columns, `_bwd_passes`), the dq/dE kernel's units
+    (group, 64 queries) walk the key tiles: the logits over the whole head
+    dim in chunks of 64 (computed once a pass), ds written skewed into dR,
+    dq += dS . K + dR . E_w in the pass's columns, and dE_w = dR^T . Q in two
+    halves of 64 window rows, half 0 carried to the next key tile, whose half
+    1 is the same distances, and their sum added into the row of partial sums
+    of the unit's persistent block (unit u to block u % blocks); the clipped
+    pairs by two sums a query, added once a unit. The blocks' rows are summed
+    in block order. Then the dk/dv kernel's units (group, 64 keys) walk the
+    query tiles: dv += P^T . g, dk += dS^T . Q in the pass's columns. Returns
+    (dq, dk, dv, dtable) like `reference_attention_grads`; for tests and
+    checks."""
     out, lse = wide_attention(q, k, v, rel_table, max_pos, t_valid, q_offset, True)
     qf, kf, vf, table, gf = q.float(), k.float(), v.float(), rel_table.float(), g.float()
     groups, tq, d = q.shape
-    chunk = WIDE_CHUNK.get(q.dtype, 16)
     delta = (gf * out.float()).sum(dim=2)
     dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
-    dtable = torch.zeros_like(table)
+    n_rows = table.shape[0]
+    block_rows = torch.zeros(blocks, n_rows, d, device=q.device)
     pairs = list(_tile_pairs(tq, t_valid, q_offset, max_pos, 64))
+    passes = _bwd_passes(d)
+    n_qtiles = -(-tq // 64)
 
     def weights(i0, nq, j0, nk, base, kind):
         rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
-        s = _tile_logits(qf[:, rows], kf[:, keys], table, max_pos, base, kind, 64, chunk)
+        s = _tile_logits(qf[:, rows], kf[:, keys], table, max_pos, base, kind, 64, WIDE_BWD_CHUNK)
         p = torch.exp(s - lse[:, rows, None])
         return p, p * (gf[:, rows] @ vf[:, keys].transpose(1, 2) - delta[:, rows, None])
 
-    for cols in _slabs(d, "bwd_q"):
-        de_rows = _BlockRows(blocks, tq, 64, 64, table.shape[0], cols.stop - cols.start, q.device)
-        c_hi = torch.zeros(groups, tq, device=q.device)
-        c_lo = torch.zeros(groups, tq, device=q.device)
-        for i0, nq, j0, nk, base, kind in pairs:
-            rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
-            _, ds = weights(i0, nq, j0, nk, base, kind)
-            dq[:, rows, cols] += ds @ kf[:, keys, cols]
-            if kind == "mixed":
-                window = _window(table, base, max_pos, 64)
-                c = _skew_index(nq, nk, 64, q.device)
-                dist = base + c
-                c_hi[:, rows] += (ds * (dist >= max_pos)).sum(dim=2)
-                c_lo[:, rows] += (ds * (dist <= -max_pos)).sum(dim=2)
-                dr = torch.zeros(groups, nq, 127, device=q.device)
-                dr.scatter_(2, c.expand(groups, -1, -1), ds * (dist.abs() < max_pos))
-                dq[:, rows, cols] += dr @ table[window][:, cols]
-                # one add a window row and column of the slab
-                de_rows.add_window(i0, window, dr, qf[:, rows, cols])
-            elif kind == "high":
-                c_hi[:, rows] += ds.sum(dim=2)
-            else:
-                c_lo[:, rows] += ds.sum(dim=2)
-        dq[:, :, cols] += (c_hi[:, :, None] * table[2 * max_pos, cols]
-                           + c_lo[:, :, None] * table[0, cols])
-        de_rows.add_clipped(c_hi, c_lo, qf[:, :, cols])
-        dtable[:, cols] = de_rows.total()
-    for cols in _slabs(d, "bwd_k"):
-        for i0, nq, j0, nk, base, kind in pairs:
+    def leave(block, cols, dist0, values):
+        """values [G, n, cols] at distances dist0 + r into each group's block
+        row; clipped distances hold zeros and are skipped"""
+        dist = torch.arange(values.shape[1], device=q.device) + dist0
+        keep = dist.abs() < max_pos
+        index = (block[:, None] * n_rows + dist[keep] + max_pos).reshape(-1)
+        block_rows.view(-1, d)[:, cols].index_add_(0, index, values[:, keep].flatten(0, 1))
+
+    for pi, chunks in enumerate(passes):
+        cols = slice(chunks[0].start, chunks[-1].stop)
+        for i0 in range(0, tq, 64):
+            rows = slice(i0, min(tq, i0 + 64))
+            block = ((torch.arange(groups, device=q.device) * n_qtiles + i0 // 64) * len(passes)
+                     + pi) % blocks
+            c_hi = torch.zeros(groups, rows.stop - i0, device=q.device)
+            c_lo = torch.zeros_like(c_hi)
+            carry = None  # (base, half 0 of the last mixed pair's dE_w)
+            for pi0, nq, j0, nk, base, kind in pairs:
+                if pi0 != i0:
+                    continue
+                if carry is not None and kind != "mixed":
+                    leave(block, cols, *carry)
+                    carry = None
+                keys = slice(j0, j0 + nk)
+                _, ds = weights(i0, nq, j0, nk, base, kind)
+                dq[:, rows, cols] += ds @ kf[:, keys, cols]
+                if kind == "mixed":
+                    window = _window(table, base, max_pos, 64)
+                    c = _skew_index(nq, nk, 64, q.device)
+                    dist = base + c
+                    c_hi += (ds * (dist >= max_pos)).sum(dim=2)
+                    c_lo += (ds * (dist <= -max_pos)).sum(dim=2)
+                    dr = torch.zeros(groups, nq, 127, device=q.device)
+                    dr.scatter_(2, c.expand(groups, -1, -1), ds * (dist.abs() < max_pos))
+                    dq[:, rows, cols] += dr @ table[window][:, cols]
+                    de = torch.einsum("gac,gad->gcd", dr, qf[:, rows, cols])
+                    # half 1 (and the window's padding row) over the carry's distances
+                    half = F.pad(de[:, 64:], (0, 0, 0, 1))
+                    leave(block, cols, base + 64, half if carry is None else carry[1] + half)
+                    carry = (base, de[:, :64])
+                elif kind == "high":
+                    c_hi += ds.sum(dim=2)
+                else:
+                    c_lo += ds.sum(dim=2)
+            if carry is not None:
+                leave(block, cols, *carry)
+            dq[:, rows, cols] += (c_hi[:, :, None] * table[2 * max_pos, cols]
+                                  + c_lo[:, :, None] * table[0, cols])
+            ends = torch.tensor([2 * max_pos, 0], device=q.device)
+            sums = torch.stack([(c[:, :, None] * qf[:, rows, cols]).sum(1) for c in (c_hi, c_lo)], 1)
+            index = (block[:, None] * n_rows + ends).reshape(-1)
+            block_rows.view(-1, d)[:, cols].index_add_(0, index, sums.reshape(2 * groups, -1))
+    dtable = torch.zeros_like(table)
+    for b in range(blocks):
+        dtable += block_rows[b]
+    for chunks in passes:
+        cols = slice(chunks[0].start, chunks[-1].stop)
+        for i0, nq, j0, nk, base, kind in sorted(pairs, key=lambda x: (x[2], x[0])):
             rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
             p, ds = weights(i0, nq, j0, nk, base, kind)
             dv[:, keys, cols] += p.transpose(1, 2) @ gf[:, rows, cols]
@@ -527,8 +582,30 @@ def _bwd_kernel():
 
 @functools.lru_cache(maxsize=None)
 def _wide_kernel():
-    """The wide kernels' library: forward and backward, the same entries."""
-    return _bind(WIDE_KERNEL, forward=True, backward=True)
+    """The wide forward's library (kernel #1's entries)."""
+    return _bind(WIDE_KERNEL, forward=True, backward=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_bwd_kernel():
+    """The wide backward's library (kernel #2's entries)."""
+    lib = _bind(WIDE_BWD_KERNEL, forward=False, backward=True)
+    rows = lib.cmgan_flash_rel_attention_wide_bwd_rows
+    rows.argtypes, rows.restype = [ctypes.c_int] * 6, ctypes.c_int
+    return lib
+
+
+def backward_scratch_rows(lib, bf16: int, g: int, tq: int, tk: int, d: int, max_pos: int) -> int:
+    """Rows of (2*max_pos+1)*d floats that the backward library `lib` needs as
+    its `partials` scratch at these shapes (the wide one also for fp32's
+    planes); raises on a CUDA error."""
+    if wide_head_dim(d):
+        rows = lib.cmgan_flash_rel_attention_wide_bwd_rows(bf16, d, g, tq, tk, max_pos)
+    else:
+        rows = lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, d, g, tq, max_pos)
+    if rows < 0:
+        _raise_on(lib, -rows, "flash_rel_attention_bwd")
+    return rows
 
 
 def _fwd_lib(d: int):
@@ -536,7 +613,7 @@ def _fwd_lib(d: int):
 
 
 def _bwd_lib(d: int):
-    return _wide_kernel() if wide_head_dim(d) else _bwd_kernel()
+    return _wide_bwd_kernel() if wide_head_dim(d) else _bwd_kernel()
 
 
 def _raise_on(lib, rc: int, what: str):
@@ -607,12 +684,10 @@ def _launch_backward(q, k, v, rel_table, out, lse, grad_out, max_pos, t_valid, q
     dtable = torch.empty(rel_table.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         # the table's gradient arrives as rows of partial sums, one a persistent
-        # block of the kernel that sums it (the wide kernels' blocks fill a
-        # slab's width of a row each), which the library adds into dtable in
-        # block order: no atomics, the same bits on every run
-        rows = lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, d, g, tq, max_pos)
-        if rows < 0:
-            _raise_on(lib, -rows, "flash_rel_attention_bwd")
+        # block of the wide kernel that sums it or a consumer warpgroup of the
+        # tensor-core one, which the library adds into dtable in row order: no
+        # atomics, the same bits on every run
+        rows = backward_scratch_rows(lib, bf16, g, tq, k.shape[1], d, max_pos)
         partials = torch.empty(rows, rel_table.numel(), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.cmgan_flash_rel_attention_bwd(
@@ -666,6 +741,8 @@ class HeadPlan:
     width: int             # the head dim the kernels run at (zero-padded up to it)
     logit_columns: int     # head-dim columns a logit's products compute
     slabs: dict            # wide: kernel -> (number of slabs, slab width); else {}
+    #                        (the backward kernels' slabs are passes: each computes
+    #                        a tile pair's logits once)
 
     @property
     def padded_columns(self) -> int:
@@ -676,8 +753,9 @@ class HeadPlan:
 def plan(d: int) -> HeadPlan:
     """How the CUDA kernels run a head of dim d (any d >= 1): the
     tensor-core kernels at the least of KERNEL_HEAD_DIMS that holds it,
-    zero-padded; or the wide kernels unpadded, the logits over 16-column
-    depth steps and the output's columns in slabs (`WIDE_SLABS`)."""
+    zero-padded; or the wide kernels unpadded, the forward's logits over
+    16-column depth steps and the output's columns in slabs, the backward's
+    in passes of two 64-column chunks (`WIDE_SLABS`)."""
     if d < 1:
         raise ValueError(f"a head dim is at least 1; got {d}")
     if not wide_head_dim(d):
@@ -685,7 +763,7 @@ def plan(d: int) -> HeadPlan:
         return HeadPlan(d, "tensor_core", width, width, {})
     slabs = {}
     for name in WIDE_SLABS:
-        width = slab_width(d, widest_slab(d, name))
+        width = slab_width(d, widest_slab(d, name)) if name == "fwd" else WIDE_SLABS[name]
         slabs[name] = (-(-d // width), width)
     return HeadPlan(d, "wide", d, -(-d // 16) * 16, slabs)
 

@@ -1,22 +1,25 @@
 """Where kernel #2's dq/dE kernel spends its time, by ablation, on one NVIDIA GPU.
 
-A profiler sees each kernel whole; this tool builds copies of
-`ops/csrc/flash_rel_attention_bwd.cu` with one phase of the dq/dE kernel's
-mixed tile pairs left out (the source's `CMGAN_BWD_ABLATE` bits, given as
-`-D`) and times every kernel of a backward launch (torch.profiler's device
-time) beside the whole library on the same inputs, in one process on one
-card, at the G step's shape (G 1616, T 641, D 16), fp32 and bf16:
+A profiler sees each kernel whole; this tool builds copies of the backward
+library of the head dim asked for (`ops/csrc/flash_rel_attention_bwd.cu`
+up to 64, `ops/csrc/flash_rel_attention_wide_bwd.cu` past it) with one phase
+of the dq/dE kernel's mixed tile pairs left out (the source's
+`CMGAN_BWD_ABLATE` bits, given as `-D`) and times every kernel of a backward
+launch (torch.profiler's device time) beside the whole library on the same
+inputs, in one process on one card, fp32 and bf16: at the G step's shape (G
+1616, T 641, D 16) by default, at G 404, T 641 for a wide head:
 
     dr_writes     dR not written into shared memory
     dr_products   no dq += dR . E_w and no dE_w = dR^T . Q
     flush         no read-modify-write of the rows of partial sums
-    position      every tile pair taken as clipped (no R, no skew, no dR)
+    position      every tile pair taken as clipped (no R, no skew, no dR;
+                  in the wide library in its dk/dv kernel too)
 
 The time a copy saves is what that phase costs on the critical path, what
 the other warpgroups do not hide. The copies compute wrong results; they
 are timed and nothing else. Prints one JSON line.
 
-    python3 -m cmgan_torch.tools.backward_ablation
+    python3 -m cmgan_torch.tools.backward_ablation [--head-dim D]
 """
 
 from __future__ import annotations
@@ -39,13 +42,15 @@ from cmgan_torch.tools import nvidia_smi, require_cuda
 # what is left out -> the kernel's CMGAN_BWD_ABLATE bits (0: the whole kernel)
 ABLATIONS = {"dr_writes": 1, "dr_products": 2, "flush": 4, "position": 8}
 SHAPE = (1616, 641, 16)   # the G step's at cut_len 64000, batch 4
+WIDE_SHAPE = (404, 641)   # a wide head's: [2]'s 1-head model of 128 channels, 4 s bucket
 REPS = 5
 
 
-def build(root: str) -> dict:
-    """{name: the backward library built with its ablation bits}, the nvcc
-    runs started together."""
-    source = os.path.join(_build.CSRC, f"{fa.BWD_KERNEL}.cu")
+def build(root: str, d: int) -> dict:
+    """{name: the backward library of head dim d built with its ablation
+    bits}, the nvcc runs started together."""
+    name = fa.WIDE_BWD_KERNEL if fa.wide_head_dim(d) else fa.BWD_KERNEL
+    source = os.path.join(_build.CSRC, f"{name}.cu")
     bits = {"kernel": 0, **ABLATIONS}
     runs = {name: (os.path.join(root, f"{name}.so"),
                    subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS,
@@ -63,6 +68,11 @@ def build(root: str) -> dict:
         lib.cmgan_flash_rel_attention_bwd.restype = ctypes.c_int
         rows = lib.cmgan_flash_rel_attention_bwd_partial_rows
         rows.argtypes, rows.restype = [ctypes.c_int] * 5, ctypes.c_int
+        lib.cmgan_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cmgan_cuda_error_string.restype = ctypes.c_char_p
+        if fa.wide_head_dim(d):
+            rows = lib.cmgan_flash_rel_attention_wide_bwd_rows
+            rows.argtypes, rows.restype = [ctypes.c_int] * 6, ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -71,9 +81,7 @@ def launch(lib, q, k, v, table, out, lse, cot, max_pos: int):
     """One backward launch (its four kernels) of the library `lib`."""
     g, t, d = q.shape
     bf16 = int(q.dtype == torch.bfloat16)
-    rows = lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, d, g, t, max_pos)
-    if rows < 0:
-        raise RuntimeError(f"partial rows: CUDA error {-rows}")
+    rows = fa.backward_scratch_rows(lib, bf16, g, t, t, d, max_pos)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(g, t, dtype=torch.float32, device=q.device)
     dtable = torch.empty(table.shape, dtype=torch.float32, device=q.device)
@@ -102,13 +110,18 @@ def kernel_ms(fn, reps: int = REPS) -> dict:
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--head-dim", type=int, default=SHAPE[2],
+                        help="16, 32 or 64 (the tensor-core library) or any width over 64")
+    args = parser.parse_args(argv)
     require_cuda("backward_ablation")
     max_pos = 512
-    g, t, d = SHAPE
+    d = fa.kernel_head_dim(args.head_dim)
+    g, t = WIDE_SHAPE if fa.wide_head_dim(d) else SHAPE[:2]
+    dq_kernel = "flash_rel_wide_bwd_q" if fa.wide_head_dim(d) else "flash_rel_bwd_q"
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT if os.path.isdir(_build.BUILD_ROOT)
                                      else None) as root:
-        libs = build(root)
+        libs = build(root, d)
         cases = []
         gen = torch.Generator(device="cuda").manual_seed(0)
         for dtype in (torch.float32, torch.bfloat16):
@@ -120,7 +133,7 @@ def main(argv=None) -> int:
             ms = {name: kernel_ms(lambda lib=lib: launch(lib, q, k, v, table, out, lse, cot,
                                                          max_pos))
                   for name, lib in libs.items()}
-            dq_ms = {name: m["flash_rel_bwd_q"] for name, m in ms.items()}
+            dq_ms = {name: m[dq_kernel] for name, m in ms.items()}
             cases.append({"G": g, "T": t, "D": d, "dtype": str(dtype).split(".")[1],
                           "kernels_ms": ms["kernel"], "dq_kernel_ms": dq_ms,
                           "saved_ms": {name: dq_ms["kernel"] - dq_ms[name] for name in ABLATIONS}})

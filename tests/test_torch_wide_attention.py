@@ -1,11 +1,15 @@
-"""The wide kernels' walk (heads over 64) in plain PyTorch, on the CPU.
+"""The wide kernels' walks (heads over 64) in plain PyTorch, on the CPU.
 
-`wide_attention` and `wide_attention_grads` do what the wide CUDA kernels
-do (csrc/flash_rel_attention_wide.cu): the head dim in chunks, the output's
-columns in slabs that recompute the logits, the table's gradient added once
-a tile pair, window row and slab column. Here they are held against the
-dense plain versions, so the kernels' index work is checked without a card,
-and `plan` is checked at the widths where slabs and padding change.
+`wide_attention` does what the wide forward does
+(csrc/flash_rel_attention_wide.cu): the head dim in chunks, the output's
+columns in slabs that recompute the logits. `wide_attention_grads` does
+what the wide backward does (csrc/flash_rel_attention_wide_bwd.cu): passes
+of two 64-column chunks, one a consumer warpgroup, each computing a tile
+pair's logits once over the whole head dim; the table's gradient carried
+from one key tile to the next and added into the rows of persistent
+blocks. Here they are held against the dense plain versions, so the
+kernels' index work is checked without a card, and `plan` is checked at the
+widths where slabs, passes and padding change.
 
 Tolerances as in test_torch_attention.py and test_torch_attention_grad.py:
 atol 2e-5 / rtol 1e-4, the table's gradient 1e-5 of its largest entry
@@ -36,6 +40,8 @@ CASES = [
     pytest.param(80, 48, 96, 200, 180, 64, id="D80-one-slab"),
     pytest.param(100, 32, 100, 160, 150, 40, id="D100-padded-depth-step"),
     pytest.param(320, 32, 70, 140, 130, 50, id="D320-slabs-in-every-kernel"),
+    # one key tile valid: the dk/dv kernel's units of keys 64 .. are wholly masked
+    pytest.param(128, 48, 96, 200, 50, 60, id="D128-key-tiles-wholly-masked"),
 ]
 
 
@@ -76,6 +82,22 @@ def test_wide_walk_keeps_the_input_type(rng):
     assert out.dtype == torch.bfloat16 and all(x.dtype == torch.bfloat16 for x in grads)
     ref = fa.reference_attention(q, k, v, fa.make_rel_band(table, 70, 16), 70, 30)
     np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(), atol=8e-3, rtol=8e-3)
+
+
+@pytest.mark.parametrize("d", [65, 80, 100, 128, 200, 256, 257, 320, 512, 1000])
+def test_backward_passes_cover_the_head_once(d):
+    """The wide backward's passes: chunks of at most 64 columns, one for each
+    of at most two consumer warpgroups a pass, tiling the head dim once in
+    order; the passes, each computing a tile pair's logits once, are what
+    `plan` reports for both backward kernels."""
+    passes = fa._bwd_passes(d)
+    chunks = [c for p in passes for c in p]
+    assert all(1 <= len(p) <= fa.WIDE_BWD_GROUPS for p in passes)
+    assert [c.start for c in chunks] == list(range(0, d, fa.WIDE_BWD_CHUNK))
+    assert chunks[-1].stop == d and all(0 < c.stop - c.start <= fa.WIDE_BWD_CHUNK for c in chunks)
+    assert len(passes) == -(-d // (fa.WIDE_BWD_CHUNK * fa.WIDE_BWD_GROUPS))
+    p = fa.plan(d)
+    assert p.slabs["bwd_q"] == p.slabs["bwd_k"] == (len(passes), fa.WIDE_SLABS["bwd_q"])
 
 
 @pytest.mark.parametrize("d", [65, 80, 100, 128, 200, 256, 257, 320, 512, 1000])
