@@ -13,8 +13,10 @@ T 641, D 128 and 320, and the library route's backward at head dims 64,
 128 and 320 in both types: run it on two checkouts in one call to
 compare their kernels on one card. The third does the same
 for kernel #1: the builds, then its cases at every shape of PERF.md's
-kernel table, fp32 and bf16, against the plain version, the library
-route at head dim 64, and phase 9's G step against float64 at three
+kernel table, fp32 and bf16 (the wide heads' at D 80, 100, 128, 256 and
+320 and D 128's offset case among them), against the plain version, the
+128-channel 1-head model's enhance call and G step, the library route at
+head dims 64, 128 and 320, and phase 9's G step against float64 at three
 seeded batches.
 
 CMGAN at its full published width (64 channels, 4 TSCBs, 4 heads of dim
@@ -29,11 +31,12 @@ failure, none falling back to the CPU or to a plain version:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and the build of every kernel source (started together) and of the
      host PESQ scorer; each kernel's registers and spills, and the count of
-     wgmma (HGMMA), TMA (UTMALDG) and mma.sync (HMMA) instructions in the
-     forward, the backward and the wide backward library (each fails
-     without wgmma and TMA, or with mma.sync); the wide plan against the
-     libraries: slabs, passes, how often each backward kernel computes a
-     tile pair's logits;
+     wgmma (HGMMA), TMA (UTMALDG or UBLKCP) and mma.sync (HMMA)
+     instructions in each attention library, the forward, the backward and
+     the wide ones (each fails without wgmma and TMA, or with mma.sync);
+     the wide plan against the libraries: the forward's passes and the
+     columns a consumer warpgroup owns, the backward's passes, how often
+     each kernel computes a tile pair's logits;
   2. the attention forward kernel against its plain PyTorch version on the
      card, fp32 and bf16, at the 4 s bucket (T = 641) and the 16 s segment
      (T = 2561), each type with a t_valid < T case, q_offset = 128 and
@@ -44,10 +47,12 @@ failure, none falling back to the CPU or to a plain version:
      head dims 8 (zero-padded to 16), 32 and 64; the tile-by-tile plain
      versions against both kernels at one small shape; a tiny model of 2
      heads of dim 8 through kernel #1 against 'xla'; the wide kernels
-     (head dims over 64) at D 80, 100, 128, 256 and 320, their walk's plain
-     versions against them, the wide forward at D 64 beside kernel #1 (for
-     the record), a 1-TSCB model of 128 channels in 1 head, 'auto' against
-     'xla' on a 6 s track and one G step, and one of 320 channels in 1 head;
+     (head dims over 64) at D 80, 100, 128, 256 and 320, the forward also
+     at bf16 D 100 with masked keys and an offset (the producer's cp.async
+     copies) and at t_valid 1, their walk's plain versions against them, the
+     wide forward at D 64 beside kernel #1 (for the record), a 1-TSCB model
+     of 128 channels in 1 head, 'auto' against 'xla' on a 6 s track and one
+     G step, and one of 320 channels in 1 head;
   3. a 16 s track through Enhancer.enhance(mode='bucket') in fp32: exactly
      4 kernel launches, finite output of the input's length, agreement
      with attention_impl='xla', and the realtime factor;
@@ -249,7 +254,7 @@ GSTEP_TRUTH_FACTOR = 1.25
 TRAIN_BATCH = 4
 # the wide kernels' head dims in [2] / [7], and the models that run them: 128
 # channels in 1 head (head dim 128), one TSCB, with its G step's batch; 320
-# channels in 1 head (head dim 320, two slabs of the forward's output columns)
+# channels in 1 head (head dim 320: the forward's widest one-pass head)
 WIDE_HEAD_DIMS = (80, 100, 128, 256, 320)
 WIDE_MODEL = dict(num_channels=128, attn_heads=1, num_tscb_blocks=1)
 WIDE_STEP_BATCH = 2
@@ -821,7 +826,7 @@ def ptxas_usage(nvcc_log: str):
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             mangled = entry.group(1)
-            base = re.search(r"\d(flash_rel_(?:wide_(?:fwd|bwd_q|bwd_kv|bwd_prologue|bwd_split)|fwd|bwd_kv"
+            base = re.search(r"\d(flash_rel_(?:wide_(?:fwd|bwd_q|bwd_kv|bwd_prologue|split)|fwd|bwd_kv"
                              r"|bwd_q|bwd_prologue|bwd|delta|sum_partials)"
                              r"|layernorm_(?:regs|span|long))[IE]", mangled)
             dtype = "bf16" if "bfloat16" in mangled else "fp32"
@@ -874,9 +879,12 @@ def build_all():
         log(f"[1] built {os.path.relpath(build.path, ROOT)} in {build.seconds:.2f} s")
         for kernel, usage in ptxas_usage(build.log):
             log(f"[1]   {kernel}: {usage}")
+        for line in sorted({ln.strip() for ln in build.log.splitlines()
+                            if "warning" in ln or "(C75" in ln}):
+            log(f"[1]   ptxas: {line}")  # C7515 / C7512: wgmma serialized
     for name, future in zip(names, futures):
-        if name not in (fa.KERNEL, fa.BWD_KERNEL, fa.WIDE_BWD_KERNEL):
-            continue  # the wide forward stays on mma.sync; kernel #3 has no products
+        if name == fused_norm.KERNEL:
+            continue  # kernel #3 has no products
         sass = sass_counts(future.result().path)
         log(f"[1] library {name}: {json.dumps(sass)} instructions in its SASS")
         if not (sass["HGMMA"] and sass["UTMALDG"] + sass["UBLKCP"]) or sass["HMMA"]:
@@ -893,26 +901,28 @@ def build_all():
                 f"{bwd_lib.cmgan_flash_rel_attention_bwd_partial_rows(bf16, hd, 1616, 641, 512)}")
     wide, wide_bwd = fa._wide_kernel(), fa._wide_bwd_kernel()
     for bf16 in (0, 1):
-        log(f"[1] wide kernels' dynamic shared memory a block, {'bf16' if bf16 else 'fp32'}, any "
-            f"head dim: forward {wide.cmgan_flash_rel_attention_fwd_smem(bf16, 128)} B; backward "
+        fwd_smem = [wide.cmgan_flash_rel_attention_fwd_smem(bf16, d) for d in (128, 256, 320)]
+        log(f"[1] wide kernels' dynamic shared memory a block, {'bf16' if bf16 else 'fp32'}: forward "
+            f"at D 128 / 256 / 320 {fwd_smem} B; backward at any head dim "
             f"dq/dE kernel {wide_bwd.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 0, 512)} B, "
             f"dk/dv kernel {wide_bwd.cmgan_flash_rel_attention_bwd_smem(bf16, 128, 1, 512)} B; "
             f"rows of the backward's scratch (a dq/dE block's partial sums of dE each, then the "
             f"rows' statistics) at G 404, T 641, max_pos 512, D 128 / 320: "
             f"{wide_bwd.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 128, 404, 641, 512)} / "
             f"{wide_bwd.cmgan_flash_rel_attention_bwd_partial_rows(bf16, 320, 404, 641, 512)}")
-    for hd in (80, 100, 128, 256, 320):
+    for hd in (80, 100, 128, 256, 320, 512):
         p = fa.plan(hd)
         lib_slabs = [wide.cmgan_flash_rel_attention_wide_slab(hd, 0),
                      *(wide_bwd.cmgan_flash_rel_attention_wide_slab(hd, w) for w in (1, 2))]
-        passes = [wide_bwd.cmgan_flash_rel_attention_wide_passes(hd, w) for w in (1, 2)]
-        log(f"[1] wide plan, head dim {hd}: (slabs, width) forward {p.slabs['fwd']}; backward "
-            f"(passes, columns a pass) dq/dE {p.slabs['bwd_q']}, dk/dv {p.slabs['bwd_k']}; the "
-            f"libraries' widths {lib_slabs}, passes {passes}: each backward kernel computes a "
-            f"tile pair's logits {passes[0]} times; {p.padded_columns} padded logit columns in "
-            f"the forward")
+        passes = [wide.cmgan_flash_rel_attention_wide_passes(hd, 0),
+                  *(wide_bwd.cmgan_flash_rel_attention_wide_passes(hd, w) for w in (1, 2))]
+        log(f"[1] wide plan, head dim {hd}: forward (passes, columns a consumer warpgroup) "
+            f"{p.slabs['fwd']}; backward (passes, columns a pass) dq/dE {p.slabs['bwd_q']}, dk/dv "
+            f"{p.slabs['bwd_k']}; the libraries' columns {lib_slabs}, passes {passes}: the forward "
+            f"computes a tile pair's logits {passes[0]} times, each backward kernel {passes[1]}; "
+            f"{p.padded_columns} padded logit columns")
         if (lib_slabs != [p.slabs[n][1] for n in ("fwd", "bwd_q", "bwd_k")]
-                or passes != [p.slabs[n][0] for n in ("bwd_q", "bwd_k")]):
+                or passes != [p.slabs[n][0] for n in ("fwd", "bwd_q", "bwd_k")]):
             raise AssertionError("ops.flash_attention.plan and the wide libraries disagree")
     log(f"[1] built {os.path.relpath(pesq_build.result(), ROOT)} (host PESQ scorer, g++); "
         f"all builds {time.perf_counter() - t0:.2f} s")
@@ -935,19 +945,26 @@ def backward_head_dim_cases():
 
 def wide_head_dim_cases():
     """[2] kernel #1's wide path (head dims over 64) at D 80, 100, 128, 256 and
-    320, fp32 and bf16, at the 4 s bucket's shape, and at D 128 with a query
-    offset and masked keys."""
+    320, fp32 and bf16, at the 4 s bucket's shape; at D 128 with a query
+    offset and masked keys; bf16 at D 100 the same (rows of 200 bytes: the
+    producer's cp.async copies in place of TMA); and at D 128 with one valid
+    key, fp32 and bf16."""
     cases = [check_kernel_case(dt, 404, 641, 641, 641, 0, seed=40 + d, d=d)
              for d in WIDE_HEAD_DIMS for dt in ("float32", "bfloat16")]
     cases.append(check_kernel_case("float32", 404, 320, 641, 600, 128, seed=41, d=128))
+    cases.append(check_kernel_case("bfloat16", 404, 320, 641, 600, 128, seed=42, d=100))
+    cases += [check_kernel_case(dt, 101, 641, 641, 1, 0, seed=43, d=128)
+              for dt in ("float32", "bfloat16")]
     return cases
 
 
 def check_wide_walk_against_kernels(seed=4):
-    """[2] the wide kernels' walk in plain PyTorch (chunks, slabs, logits
-    recomputed per slab, dE a tile pair at a time) against the wide kernels
-    at one small shape where every kind of tile pair occurs, fp32, at D 100
-    (one slab, a padded depth step) and D 320 (two to five slabs a kernel)."""
+    """[2] the wide kernels' walk in plain PyTorch (64-column chunks, the
+    forward's one pass of two halves, the backward's passes, dE a tile pair
+    at a time) against the wide kernels at one small shape where every kind
+    of tile pair occurs, fp32, at D 100 (a padded depth step, rows TMA
+    cannot take) and D 320 (the forward's widest one-pass head, three passes
+    a backward kernel)."""
     import torch
 
     from cmgan_torch.ops import flash_attention as fa
@@ -982,8 +999,8 @@ def check_wide_walk_against_kernels(seed=4):
 
 def wide_kernel_at_64(smi: str):
     """[2] for the record: the wide forward at D 64 (the wrapper sends D 64 to
-    kernel #1), G 404, T 641, fp32 and bf16, against the plain version and
-    beside kernel #1's time in the same call."""
+    kernel #1) through its own entry, G 404, T 641, fp32 and bf16, against
+    the plain version and beside kernel #1's time in the same call."""
     import torch
 
     from cmgan_torch.ops import flash_attention as fa
@@ -999,10 +1016,7 @@ def wide_kernel_at_64(smi: str):
         out = torch.empty_like(q)
 
         def wide():
-            rc = lib.cmgan_flash_rel_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), out.data_ptr(), None,
-                g, t, t, d, max_pos, t, 0, int(dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
+            rc = fa.wide_forward(lib, q, k, v, table, out, None, max_pos, t, 0)
             if rc != 0:
                 raise RuntimeError(f"the wide forward at D 64 failed: CUDA error {rc}")
 
@@ -1095,10 +1109,60 @@ def wide_head_model():
     return enhance_launches, fwd_f, bwd_f
 
 
+def wide_model_times(reps: int = 5) -> dict:
+    """`--forward-times`: [2]'s 128-channel 1-head model (head dim 128)
+    through the checkout's package: ms a 6 s enhance call in bucket mode and
+    ms a G step at cut_len 64000, batch WIDE_STEP_BATCH (forward, loss and
+    the generator's gradients), each the mean of `reps` calls after one
+    warm-up, host clock around synchronised calls; with each one's
+    launches of kernels #1 and #2."""
+    import torch
+
+    from cmgan_torch.config import CMGANConfig, ModelConfig
+    from cmgan_torch.inference import Enhancer
+    from cmgan_torch.ops import flash_attention as fa
+    from cmgan_torch.train import init_train_state
+    from cmgan_torch.train import steps as tsteps
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    track = synthetic_track(6 * SR, seed=22)
+    enh = Enhancer(CMGANConfig(model=ModelConfig(**WIDE_MODEL)), device="cuda", seed=2)
+    fa.launches = 0
+    record = {"enhance_ms": ms(lambda: enh.enhance(track, mode="bucket")),
+              "enhance_launches": fa.launches / (reps + 1)}
+    del enh
+    cfg = train_config(FLASH_CUT, model=WIDE_MODEL)
+    state = init_train_state(cfg, seed=0, steps_per_epoch=1, device="cuda")
+    clean, noisy = (torch.from_numpy(a[:WIDE_STEP_BATCH]).cuda()
+                    for a in train_batch(FLASH_CUT, seed=42))
+
+    def g_step():
+        out = tsteps._generator_forward(state.gen, clean, noisy, cfg)
+        loss, _, _ = tsteps._generator_loss(state.disc, out, clean, cfg.train.loss_weights)
+        torch.autograd.grad(loss, list(state.gen.parameters()))
+
+    fa.launches = fa.backward_launches = 0
+    record["g_step_ms"] = ms(g_step)
+    record["g_step_launches"] = [fa.launches / (reps + 1), fa.backward_launches / (reps + 1)]
+    del state
+    torch.cuda.empty_cache()
+    log(f"[2] wide model {WIDE_MODEL} times: {json.dumps(record)}")
+    return record
+
+
 def widest_head_model():
-    """[2] a 1-TSCB model of 320 channels in 1 head (head dim 320: two
-    slabs of the wide forward) on a 6 s track in bucket mode: 'auto' against
-    'xla', one wide launch. Returns the launches."""
+    """[2] a 1-TSCB model of 320 channels in 1 head (head dim 320: the wide
+    forward's two consumer warpgroups own 160 columns each, one pass) on a
+    6 s track in bucket mode: 'auto' against 'xla', one wide launch. Returns
+    the launches."""
     import numpy as np
 
     from cmgan_torch.config import CMGANConfig, ModelConfig
@@ -3294,7 +3358,9 @@ def forward_phase(m):
     fp32 and bf16, with the functions of the chip_smoke module m (this file,
     or another checkout's with the same functions): the 16 s segment, the G
     step's shape, the streaming shapes, the 48 kHz segment, the four ranks of
-    its sequence split, head dims 8, 32 and 64."""
+    its sequence split, head dims 8, 32 and 64, the wide heads (D 80, 100,
+    128, 256 and 320 at G 404, T 641), and fp32 D 128 at Tq 320, t_valid 600,
+    q_offset 128."""
     from cmgan_torch.ops import seq_attention as sa
 
     t_loc = sa.local_block(SEQ_T, SEQ_RANKS)
@@ -3310,6 +3376,9 @@ def forward_phase(m):
                                              seed=60 + r))
         for d in (8, 32, 64):
             cases.append(m.check_kernel_case(dt, 404, 641, 641, 641, 0, seed=20 + d, d=d))
+        for d in WIDE_HEAD_DIMS:
+            cases.append(m.check_kernel_case(dt, 404, 641, 641, 641, 0, seed=40 + d, d=d))
+    cases.append(m.check_kernel_case("float32", 404, 320, 641, 600, 128, seed=41, d=128))
     return cases
 
 
@@ -3317,8 +3386,9 @@ def times(root: str, phase: str) -> int:
     """`--backward-times [ROOT]` / `--forward-times [ROOT]`: [1]'s builds and
     [7] (or kernel #1's cases) with the chip_smoke.py (and so the package) of
     the checkout at ROOT, then one JSON line of every case's shape, times and
-    bound, and the library route in both types: the forward's at head dim
-    64, the backward's at 64, 128 and 320 (backward: also the device ms of
+    bound, and the library route in both types at head dims 64, 128 and 320
+    (forward: also [2]'s 128-channel model's enhance call and G step;
+    backward: also the device ms of
     each of kernel #2's kernels at the G step's shape and of the wide
     backward's at G 404, T 641, D 128 and 320)."""
     import importlib.util
@@ -3352,13 +3422,15 @@ def times(root: str, phase: str) -> int:
                                     d=d)
                       for d in (64, 128, 320) for dt in ("float32", "bfloat16"))]
     else:
+        record["wide_model"] = wide_model_times()
         cases = forward_phase(m)
         # [9]'s reading, at its own batch and two more
         record["g_step_float64"] = [g_step_float64(seed, m) for seed in (40, 41, 42)]
-        record["library_d64"] = [
-            {k: r[k] for k in ("dtype", "library_ms", "kernel_ms", "bias_ms", "sdpa_ms")}
-            for r in (library_route(dt, 404, 641, 641, 641, 0, seed=84, backward=False, d=64)
-                      for dt in ("float32", "bfloat16"))]
+        record["library"] = [
+            {k: r[k] for k in ("dtype", "D", "library_ms", "kernel_ms", "bias_ms", "sdpa_ms")}
+            for r in (library_route(dt, 404, 641, 641, 641, 0, seed=84 + d - 64, backward=False,
+                                    d=d)
+                      for d in (64, 128, 320) for dt in ("float32", "bfloat16"))]
     record["cases"] = [{k: c.get(k) for k in keys} for c in cases]
     for case in record["cases"]:
         case["share_of_bound"] = case["bound_ms"] / case["ms"]

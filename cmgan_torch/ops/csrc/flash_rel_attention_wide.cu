@@ -1,628 +1,592 @@
 // Fused attention with Shaw relative positions for heads wider than 64,
-// forward, on Hopper's tensor cores (sm_90a).
+// forward, on Hopper (sm_90a).
 //
 // Replaces, for head dims over 64, the TPU kernel
-// cmgan_tpu/ops/flash_attention.py:_flash_kernel (:91), as
-// flash_rel_attention.cu does for head dims 16, 32 and 64. The function, the
-// arguments, the masks (t_valid, q_offset) and the fp32 row log-sum-exp are
-// its:
+// cmgan_tpu/ops/flash_attention.py:_flash_kernel (:91, launched by
+// _flash_forward at :201), as flash_rel_attention.cu does for head dims 16,
+// 32 and 64. The function, the arguments, the masks (t_valid, q_offset) and
+// the fp32 row log-sum-exp are its:
 //
 //   out[g,i] = sum_j softmax_j( q.k_j + q.E[clip(i + q_offset - j, +-max_pos) + max_pos] ) v_j
 //
-// This library exports the same C entries as that one, under the same names,
-// for any positive head dim; the wrapper (ops/flash_attention.py) sends it the
-// heads wider than 64. Their backward is flash_rel_attention_wide_bwd.cu.
+// for any head dim D (the wrapper, ops/flash_attention.py, sends it the heads
+// wider than 64). Its backward is flash_rel_attention_wide_bwd.cu.
 //
-// What bounds it on an H100 SXM (700 W part): its products. At G 404, T 641,
-// D 128 the forward needs 1.3e11 FLOP: 0.13 ms at the 989 TFLOP/s of the bf16
-// tensor cores. The fp32 route below runs six bf16 products for each, so its
-// bound is six times that. The bytes (inputs read once, outputs written once)
-// take a tenth of it.
+// What bounds it, on an NVIDIA H100 80GB HBM3 at 700 W (989 TFLOP/s of bf16
+// tensor products, 3.35 TB/s): its products, three of 2*D FLOP a near
+// query-key pair (two a clipped one); at G 404, T 641, D 128 0.127 ms in bf16
+// and six times that in fp32 (six bf16 part products a product). The bytes
+// (each input read once, the output written once) take five eighths of that
+// in bf16, a fifth in fp32.
 //
-// The design. Every product runs on the tensor cores as mma.sync.m16n8k16
-// tiles with fp32 accumulators (flash_rel_common.cuh): a bf16 input is one
-// operand; an fp32 input is carried as three bf16 parts, and each product as
-// the six part products whose terms reach 2^-24 of the result, summed
-// smallest first outside the truncating accumulator (TF32 stood 2e-3 from
-// float64 and misses the 1e-4 limit). What differs from the D <= 64 kernel
-// is where the head dim lives:
+// The design (the pieces it shares with the wide backward are in
+// flash_rel_hopper.cuh, namespace wide). Launches on the caller's stream: for
+// fp32, a split of q, k, v and the table into three bf16 planes, x = x0 + x1
+// + x2, once (TMA cannot split, and each row is read by many tile pairs), into
+// the caller's scratch, each row padded to a multiple of 8 columns so that TMA
+// takes every row; then the kernel, persistent blocks of a producer warpgroup
+// and two consumer warpgroups, walking units of (group, 64-query tile, pass).
 //
-// - Nothing on the card grows with the head dim. A block walks items: a
-//   chunk of the head dim's columns (32 bf16 / 16 fp32; the logits) or a
-//   chunk of its slab's output columns. An item's rows are copied into shared
-//   memory by 16-byte cp.async while the block computes the item before:
-//   bf16 rows are the operands as they land (two slots in turns); fp32 rows
-//   land in one slot and each thread splits the granules it copied into three
-//   bf16 planes, read by ldmatrix. Columns past the head dim are zero-filled
-//   and a chunk runs only the 16-column depth steps it needs: at most 15
-//   padded columns, nothing padded in device memory. A row that is not a
-//   whole number of 16-byte groups is copied 8 bytes at a time (bf16 rows of
-//   whole 8-byte groups, D 100) or element by element.
-// - A block owns a tile of 64 queries and one slab of output columns; the
-//   grid's fastest index walks the slabs. Each slab block computes the logits
-//   over the whole head dim and accumulates the output for its slab only, in
-//   registers: slabs of at most 128 columns up to D 128, 256 past it, equal
-//   widths rounded up to 8. Past one slab the logits are recomputed once a
-//   slab, so no D is too wide.
-// - The position term goes through the skew of kernel #1: a warp's 16
-//   queries meet window rows 16w .. 16w + 78; R = Q_w . E_window^T is added
-//   chunk by chunk through a per-warp scratch to the logits at R[r][r - b +
-//   63]. A tile pair whose every distance is clipped stages no window: its
-//   position logit is q_a . E[2 max_pos] or q_a . E[0].
+// - The producer fills a ring of stages, each 128 rows of one 64-column
+//   chunk in the 128-byte swizzle: Q_c and K_c, the window of the table (a
+//   mixed pair), or two tiles of V (one a consumer warpgroup, each at its own
+//   columns); by TMA where a row is a whole number of 16-byte groups (fp32's
+//   planes, bf16 D a multiple of 8) and the window has no clipped row, else
+//   by its own cp.async copies (bf16 rows of 200 bytes at D 100). Columns
+//   past D are zero and not computed.
+// - The logits once a tile pair: warpgroup w computes S for keys 32w .. 32w
+//   + 31 and R = Q . E_window^T for window rows 64w .. 64w + 63 over the depth
+//   chunks. bf16 accumulates both over the chunks in the tensor cores and
+//   writes R into the band in shared memory once a tile; fp32 computes each
+//   chunk's products from zero, its part products smallest first, and adds
+//   them in fp32, R in the band (its cells read before any is written: a
+//   read-modify-write chain cost the first version most of its time). The
+//   row maxima cross between the two warpgroups once a tile; each keeps its
+//   own share of the row sums, crossed once a unit. P (bf16, or three bf16
+//   planes for fp32) is written once into shared memory as wgmma's A operand.
+// - The output's columns are split, not recomputed: each warpgroup owns half
+//   of a pass's columns (at most HALF, in 64-column sub-chunks, the last of
+//   an instantiation of 160 only 32 wide) and accumulates O += P . V there in
+//   registers (bf16 straight onto O; fp32 each tile's product from zero and
+//   added). One pass covers every D up to 2 * HALF = 320, so the logits are
+//   computed once a tile pair there; past it the kernel takes passes of equal
+//   widths and computes the logits once a pass.
+// - A pair whose every distance is clipped stages no window: its position
+//   logit is q_a . E[2 max_pos] or q_a . E[0], computed once a unit.
 //
-// Softmax in fp32; the output is written in the input type. What this
-// version leaves: the logits recomputed per slab past D 128, one item in
-// flight (two block syncs an item), mma.sync where wgmma would take fewer
-// instructions, the skew's round trip through shared memory once a chunk.
+// Softmax in fp32 (exp2 on the special-function unit); the output is written
+// in the input type, the lse by warpgroup 0 of the first pass. What this
+// version leaves: the two consumer warpgroups meet two or three times a tile
+// (band, maxima, P), so the tensor cores idle through the softmax; fp32
+// spills about 1.2 KB a thread. Times: PERF.md.
 
 #include "flash_rel_common.cuh"
+#include "flash_rel_hopper.cuh"
 
 namespace {
 
 using namespace flash_rel;
+using namespace flash_rel::hopper;
+using namespace flash_rel::hopper::wide;
 
-constexpr int NW = 4;            // warps a block
-constexpr int NT = 32 * NW;
-constexpr int BQ = 16 * NW;      // queries a tile (keys: BK = 64)
-constexpr int WIN = BQ + BK;     // window rows staged (WIN - 1 used)
-constexpr int SLAB_FWD = 256;    // widest slab of output columns (128 up to D 128)
-constexpr int VH = 64;           // columns of V a forward item stages (half the widest slab)
+// Ablations, for tools/forward_ablation.py alone (each a wrong result, timed
+// and nothing else): -DCMGAN_FWD_ABLATE=<bits>, 1 leaves out P . V (and its
+// stages of V), 2 takes every tile pair as clipped (no window, no R, no
+// band), 4 the softmax's exponentials
+#ifndef CMGAN_FWD_ABLATE
+#define CMGAN_FWD_ABLATE 0
+#endif
+constexpr int kAblate = CMGAN_FWD_ABLATE;
+constexpr int kNoValues = 1, kNoPosition = 2, kNoExp = 4;
 
-// Head-dim columns an item stages: 32 for bf16, 16 for fp32 (whose rows are
-// staged twice: as fp32 where they land, then split into three bf16 planes),
-// so that two blocks fit a multiprocessor
-template <typename T> __host__ __device__ constexpr int dc() { return sizeof(T) == 2 ? 32 : 16; }
-// elements a row of staged input holds beyond its columns: 16 bytes, so that
-// rows stay 16-byte aligned for cp.async and ldmatrix spreads over the banks
-template <typename T> __host__ __device__ constexpr int row_pad() {
-  return 16 / static_cast<int>(sizeof(T));
+constexpr int HALF = 160;  // output columns a consumer warpgroup accumulates, at most, a pass
+
+// The passes at head dim d: the fewest of at most 2 * HALF columns; each of
+// equal width rounded up to 16, half of it a consumer warpgroup's
+// (ops/flash_attention.py:_fwd_passes mirrors these)
+__host__ __device__ constexpr int fwd_passes(int d) { return (d + 2 * HALF - 1) / (2 * HALF); }
+__host__ __device__ constexpr int fwd_half(int d) {
+  return ((d + fwd_passes(d) - 1) / fwd_passes(d) + 15) / 16 * 8;
+}
+// the instantiation's accumulator columns a warpgroup for that half
+__host__ __device__ constexpr int acc_cols(int half) { return half <= 64 ? 64 : half <= 128 ? 128 : HALF; }
+
+// the tile pair's kind (kNoPosition: every pair taken as clipped)
+__device__ __forceinline__ int pair_kind(int base, int max_pos) {
+  const int kind = clip_kind(base, WQ, max_pos);
+  return (kAblate & kNoPosition) && kind == kMixed ? kHigh : kind;
 }
 
-// The slab width for a head dim and a widest slab: the fewest slabs, equal
-// widths rounded up to 8 columns (ops/flash_attention.py:slab_width mirrors it).
-__host__ __device__ constexpr int slab_width(int hd, int widest) {
-  return ((hd + (hd + widest - 1) / widest - 1) / ((hd + widest - 1) / widest) + 7) / 8 * 8;
-}
-__host__ __device__ constexpr int n_slabs(int hd, int slab) { return (hd + slab - 1) / slab; }
+template <typename T, int NO>
+struct Cfg {
+  static constexpr int P = Parts<T>::N;
+  static constexpr int STAGE = P * PLANE;
+  static constexpr int PT = P * TILE;          // P: 64 queries x 64 keys, P planes
+  static constexpr int XCH = 2 * NCW * 64 * 4; // each warpgroup's row maxima, then its row sums
+  static constexpr int FIT = (MAX_SMEM - 1024 - PT - BAND - XCH) / (STAGE + 16);
+  static constexpr int STAGES = FIT < 12 ? FIT : 12;
+  static_assert(STAGES >= 3, "a tile holds two stages at once, and the producer one more");
+  static constexpr int PT_OFF = STAGES * STAGE;
+  static constexpr int BAND_OFF = PT_OFF + PT;
+  static constexpr int XCH_OFF = BAND_OFF + BAND;
+  static constexpr int BAR_OFF = XCH_OFF + XCH;
+  static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;  // 1024: the base's alignment
+  static_assert(BYTES <= MAX_SMEM, "a block's shared memory");
+  // the output's accumulators: FULL sub-chunks of 64 columns, then one of LAST
+  static constexpr int FULL = (NO - 1) / CH;
+  static constexpr int LAST = NO - CH * FULL;
+  static constexpr int SUBS = FULL + 1;
+};
 
-// x, hidden from the optimiser: indices and addresses derived from it are
-// computed where they are used, not hoisted out of the loops over items
-// (kept live across them, they would take the registers the accumulators
-// need)
-__device__ __forceinline__ int opaque(int x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
+// A warpgroup's output columns: rows 16wp + g (+ 8), columns 8n + 2t4 (+ 1)
+// of sub-chunk s in full[s][4n + 2rr + e] (s < FULL) or last[...]
+template <int FULL, int LAST>
+struct Out {
+  float full[FULL > 0 ? FULL : 1][32];
+  float last[LAST / 2];
+};
 
-__device__ __forceinline__ int window_row(int base, int r, int max_pos) {
-  return min(max(base + r, -max_pos), max_pos) + max_pos;
-}
-
-// ---- staging. A block walks items (a chunk of the head dim's columns for
-// the logits, or a chunk of the slab's columns), each a set of rows copied
-// into shared memory in the input type by 16-byte cp.async that land while
-// the block computes the item before. bf16 rows are the products' operands
-// as they land (two slots, in turns); fp32 rows land in one slot and each
-// thread splits the granules it copied into three bf16 planes. ----
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  // the clobber keeps the thread's reads of what it staged before (the fp32
-  // split) ahead of the copy that overwrites it
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 8 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Bytes a cp.async moves for rows hd wide: 16 where rows are whole 16-byte
-// groups; 8 for bf16 rows of whole 8-byte groups (fp32 rows are split a
-// 16-byte granule a thread); else 0: element by element.
-template <typename T>
-__device__ __forceinline__ int copy_bytes(int hd) {
-  if (hd % row_pad<T>() == 0) return 16;
-  return sizeof(T) == 2 && hd % 4 == 0 ? 8 : 0;
-}
-
-// Rows r < ROWS are row_of(r) of src (negative: a zero row), columns c0 ..
-// c0 + COLS - 1 (zero at or past lim), into dst [ROWS][STRIDE], a 16-byte
-// granule a thread and step: by cp.async of `copy` bytes (copy_bytes), in
-// flight until the thread's next wait, or element by element (copy 0), done
-// on return.
-template <typename T, int ROWS, int COLS, int STRIDE, typename RowOf>
-__device__ __forceinline__ void fetch(T* dst, const T* __restrict__ src, RowOf row_of, int hd,
-                                      int c0, int lim, int tid, int copy) {
-  constexpr int E = 16 / sizeof(T), G = COLS / E, PER = ROWS * G / NT;
-  static_assert(COLS % E == 0 && ROWS * G % NT == 0, "whole 16-byte groups, whole rounds");
-  tid = opaque(tid);
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int e = tid + i * NT;
-    const int r = e / G, c = c0 + (e % G) * E;
-    const int row = row_of(r);
-    const bool ok = row >= 0 && c < lim;
-    const T* s = ok ? src + static_cast<size_t>(row) * hd + c : src;
-    T* d = dst + r * STRIDE + (e % G) * E;
-    if (copy == 16) {
-      cp_async16(d, s, ok);
-    } else if (copy == 8) {
-      const bool ok2 = row >= 0 && c + E / 2 < lim;  // implies ok
-      cp_async8(d, s, ok);
-      cp_async8(d + E / 2, ok2 ? s + E / 2 : src, ok2);
-    } else {
-#pragma unroll
-      for (int u = 0; u < E; ++u) narrow(ok && c + u < lim ? widen(s[u]) : 0.f, d + u);
-    }
+// acc (+)= P . V over the 64 keys, N columns of V: V MN-major from v, P
+// K-major at p_s; bf16 straight onto acc, fp32 from zero (its part products
+// smallest first) and added in fp32
+template <int P, int N>
+__device__ __forceinline__ void values(float (&acc)[N / 2], uint32_t p_s, uint32_t v) {
+  if constexpr (P == 1) {
+    wgmma_fence();
+    chain<N, P, 4, 0, 1, true>(acc, KMaj{opaque(p_s), TILE}, MMaj{v, PLANE});
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  } else {
+    float x[N / 2];
+    wgmma_fence();
+    chain<N, P, 4, 0, 1>(x, KMaj{opaque(p_s), TILE}, MMaj{v, PLANE});
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    add_into(acc, x, false);
   }
 }
 
-// The fp32 granules this thread fetched (the same rows and columns) from src
-// [ROWS][SSTRIDE] into three bf16 planes [ROWS][DSTRIDE], `plane` apart. The
-// one slot is refilled right after a thread's split, with no block sync: so
-// every item fetches rows of RST elements, COLS = DC, from rows a multiple of
-// 32 apart, and each address of the slot has one owner thread whatever the
-// item.
-template <int ROWS, int COLS, int SSTRIDE, int DSTRIDE>
-__device__ __forceinline__ void split_rows(bf16* dst, int plane, const float* src, int tid) {
-  constexpr int G = COLS / 4, PER = ROWS * G / NT;
-  tid = opaque(tid);
+// acc's columns c0 + 8n + 2t4 + e, below c_end, divided by the rows' sums
+template <int N, typename T>
+__device__ __forceinline__ void write_out(const float (&acc)[N / 2], T* orow0, T* orow1, const float (&inv)[2],
+                                          int c0, int c_end, int t4) {
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int e = tid + i * NT, r = e / G, c = 4 * (e % G);
-    const float4 x = *reinterpret_cast<const float4*>(src + r * SSTRIDE + c);
-    uint32_t lo[3], hi[3];
-    split3(x.x, x.y, lo);
-    split3(x.z, x.w, hi);
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      *reinterpret_cast<uint2*>(dst + p * plane + r * DSTRIDE + c) = make_uint2(lo[p], hi[p]);
-    }
-  }
-}
-
-// c += a . b. With fp32 operands and TWO set, the five small part products
-// run as two chains (three and two long) in place of one of five: the same
-// terms, summed smallest first into each chain, with less latency between
-// dependent tensor-core products, for the forward, which has the registers
-template <bool TWO>
-__device__ __forceinline__ void mma_w(float* c, const FragA<1>& a, const FragB<1>& b) {
-  mma(c, a, b);
-}
-template <bool TWO>
-__device__ __forceinline__ void mma_w(float* c, const FragA<3>& a, const FragB<3>& b) {
-  if (!TWO) {
-    mma(c, a, b);
-    return;
-  }
-  float big[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_bf16(s1, a.r[1], b.r[1]);
-  mma_bf16(s2, a.r[2], b.r[0]);
-  mma_bf16(s1, a.r[0], b.r[2]);
-  mma_bf16(s2, a.r[1], b.r[0]);
-  mma_bf16(s1, a.r[0], b.r[1]);
-  mma_bf16(big, a.r[0], b.r[0]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += big[i] + (s1[i] + s2[i]);
-}
-
-// ---- the logits of one warp over one staged chunk ----
-
-// s[nb] (16 queries x 64 keys) += Q_c . K_c^T and, for a mixed tile pair,
-// the chunk's position logits R_c = Q_c . E_c^T through the skew. qs, ks, es:
-// the chunk's rows of Q, K and the window as P bf16 planes `plane` apart, CS
-// elements a row; `ksteps` of its 16-column depth steps hold the head dim.
-template <int P, int DC, bool TWO = false>
-__device__ __forceinline__ void chunk_logits(float (*s)[4], const bf16* qs, const bf16* ks,
-                                             const bf16* es, int plane, float* rt, int kind,
-                                             int ksteps, int w, int lane) {
-  constexpr int CS = DC + 8;
-  lane = opaque(lane);
-  const int g = lane >> 2, t = lane & 3;
-  FragA<P> qa[DC / 16];
-#pragma unroll
-  for (int kd = 0; kd < DC / 16; ++kd) {
-    if (kd < ksteps) load_a<P>(qa[kd], qs, plane, CS, 16 * w, 16 * kd, lane);
-  }
-#pragma unroll
-  for (int nb = 0; nb < BK / 8; ++nb) {
-#pragma unroll
-    for (int kd = 0; kd < DC / 16; ++kd) {
-      if (kd < ksteps) {
-        FragB<P> kb;
-        load_b<P>(kb, ks, plane, CS, 8 * nb, 16 * kd, lane);
-        mma_w<TWO>(s[nb], qa[kd], kb);
-      }
-    }
-  }
-  if (kind != kMixed) return;
-  __syncwarp();  // the scratch's earlier readers are done
-#pragma unroll
-  for (int nb = 0; nb < RCOLS / 8; ++nb) {
-    float r[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kd = 0; kd < DC / 16; ++kd) {
-      if (kd < ksteps) {
-        FragB<P> eb;
-        load_b<P>(eb, es, plane, CS, 16 * w + 8 * nb, 16 * kd, lane);
-        mma_w<TWO>(r, qa[kd], eb);
-      }
-    }
-    const int c = 8 * nb + 2 * t;
-    rt[c * RS + g] = r[0];
-    rt[(c + 1) * RS + g] = r[1];
-    rt[c * RS + g + 8] = r[2];
-    rt[(c + 1) * RS + g + 8] = r[3];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int nb = 0; nb < BK / 8; ++nb) {
+  for (int n = 0; n < N / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int c = g - (8 * nb + 2 * t + e) + BK - 1;  // row g meets this key at column c
-      s[nb][e] += rt[c * RS + g];
-      s[nb][2 + e] += rt[(c + 8) * RS + g + 8];
+      const int col = c0 + 8 * n + 2 * t4 + e;
+      if (col >= c_end) continue;
+      if (orow0 != nullptr) narrow(acc[4 * n + e] * inv[0], orow0 + col);
+      if (orow1 != nullptr) narrow(acc[4 * n + 2 + e] * inv[1], orow1 + col);
     }
   }
 }
 
-// q_a . E[2 max_pos] and q_a . E[0] for the warp's rows g and g + 8 (rows at or
-// past Tq: 0), from device memory, over the whole head dim
-template <typename T>
-__device__ __forceinline__ void clipped_scalars(float* pos_hi, float* pos_lo, const T* qg,
-                                                const T* __restrict__ table, int row0, int Tq,
-                                                int hd, int max_pos, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = row0 + g + 8 * rr;
-    float hi = 0.f, lo = 0.f;
-    if (row < Tq) {
-#pragma unroll 1
-      for (int d = t; d < hd; d += 4) {
-        const float x = widen(qg[static_cast<size_t>(row) * hd + d]);
-        hi = fmaf(x, widen(table[static_cast<size_t>(2 * max_pos) * hd + d]), hi);
-        lo = fmaf(x, widen(table[d]), lo);
-      }
-    }
-    pos_hi[rr] = quad_sum(hi);
-    pos_lo[rr] = quad_sum(lo);
-  }
-}
-
-// s += the clipped pair's position logit, one scalar a row
-__device__ __forceinline__ void add_rows(float (*s)[4], float p0, float p1) {
-#pragma unroll
-  for (int nb = 0; nb < BK / 8; ++nb) {
-    s[nb][0] += p0;
-    s[nb][1] += p0;
-    s[nb][2] += p1;
-    s[nb][3] += p1;
-  }
-}
-
-// Where a block's items land and are read: ROWS rows of COLS columns a slot
-// (RS_T elements of T a row), bf16 operands of CS elements a row and P planes
-// `plane` apart (bf16: the slot itself)
-template <typename T, int ROWS, int COLS>
-struct Staging {
-  static constexpr int P = Parts<T>::N, CS = COLS + 8, RST = COLS + row_pad<T>();
-  static constexpr int SLOTS = P == 1 ? 2 : 1;
-  static constexpr int SLOT = ROWS * RST;             // elements of T
-  static constexpr int PLANE = ROWS * CS;             // bf16 elements
-  static constexpr int slots_bytes = SLOTS * SLOT * static_cast<int>(sizeof(T));
-  static constexpr int planes_bytes = P == 1 ? 0 : 3 * PLANE * 2;
-  static constexpr int bytes = slots_bytes + planes_bytes;
-  static_assert(P == 1 ? RST == CS : true, "bf16 rows are read where they land");
-};
-
-// ---- forward ----
-
-// Items: for each key tile, the head dim's chunks (rows of Q, K and, for a
-// mixed pair, the window: the logits), then the slab's columns of V in one
-// or two halves (P . V).
-template <typename T>
-struct FwdLayout {
-  static constexpr int DC = dc<T>();
-  using S = Staging<T, BQ + BK + WIN, DC>;
-  static constexpr int VST = VH + row_pad<T>(), VCS = VH + 8;  // a half slab of V
-  // bf16 lands as [BK][VST]; fp32 as VH / DC blocks [BK][RST] of DC columns
-  static_assert(BK * VST <= S::SLOT && BK * VH / DC * S::RST <= S::SLOT && BK * VCS <= S::PLANE,
-                "a half slab of V fits");
-  static constexpr int rt = S::bytes;  // NW x [RCOLS][RS] fp32
-  static constexpr int bytes = rt + NW * RCOLS * RS * 4;
-};
-
-// SLAB: the widest slab the instantiation holds in registers, 128 (with the
-// fp32 products in two chains) or 256
-template <typename T, int SLAB>
+template <typename T, int NO>
 __global__ void __launch_bounds__(NT, 1)
-flash_rel_wide_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ table, T* __restrict__ out, float* __restrict__ lse,
-                   int Tq, int Tk, int hd, int n_qtiles, int slab, int max_pos, int t_valid,
-                   int q_offset) {
-  using L = FwdLayout<T>;
-  using S = typename L::S;
-  constexpr int P = S::P, DC = L::DC, RST = S::RST, CS = S::CS, VST = L::VST, VCS = L::VCS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* slots = reinterpret_cast<T*>(smem);
-  bf16* planes = reinterpret_cast<bf16*>(smem + S::slots_bytes);
+flash_rel_wide_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_e,
+                   const Planes pl, const T* __restrict__ q, const T* __restrict__ table,
+                   T* __restrict__ out, float* __restrict__ lse, int G, int Tq, int Tk, int D,
+                   int max_pos, int t_valid, int q_offset, int vw, int tma) {
+  using C = Cfg<T, NO>;
+  constexpr int P = C::P;
+  using RingT = Ring<C::STAGE, C::STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t full = base + C::BAR_OFF, empty = full + 8 * C::STAGES;
 
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  float* rt = reinterpret_cast<float*>(smem + L::rt) + w * RCOLS * RS;
-  const int slabs = n_slabs(hd, slab);
-  const int item = blockIdx.x / slabs;
-  // the slab's first column, its end, its 8-column tiles: computed where used
-  auto s0 = [=] { return opaque(static_cast<int>(blockIdx.x) % slabs) * slab; };
-  auto s_end = [=] { return min(hd, s0() + slab); };
-  auto nn = [=] { return (s_end() - s0() + 7) / 8; };
-  const int grp = item / n_qtiles;
-  const int i0 = (item % n_qtiles) * BQ;
-  // the group's rows, addressed where they are used
-  auto qg = [=] { return q + static_cast<size_t>(opaque(grp)) * Tq * hd; };
-  auto kg = [=] { return k + static_cast<size_t>(opaque(grp)) * Tk * hd; };
-  auto vg = [=] { return v + static_cast<size_t>(opaque(grp)) * Tk * hd; };
-  const int copy = copy_bytes<T>(hd);
+  // warpgroup and warp indices read from lane 0: uniform for the compiler
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int nch = chunks_of(D), passes = fwd_passes(D), half = fwd_half(D);
+  const int subs = (half + CH - 1) / CH;               // stages of V a tile
+  const int ks_last = (D - CH * (nch - 1) + 15) / 16;  // depth steps of the last chunk
+  const int n_qtiles = (Tq + WQ - 1) / WQ, n_tiles = (t_valid + BK - 1) / BK;
+  const long long n_units = static_cast<long long>(G) * n_qtiles * passes;
 
-  float acc[SLAB / 8][4];  // out rows g, g+8; columns s0 + 8n + 2t, +1
-#pragma unroll
-  for (int n = 0; n < SLAB / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
-  float s[BK / 8][4];
+  if (tid == 0) init_bars(full, empty, C::STAGES);
+  __syncthreads();
 
-  const int nc = (hd + DC - 1) / DC;
-  const int per_tile = nc + (s_end() - s0() + VH - 1) / VH;
-  const int total = (t_valid + BK - 1) / BK * per_tile;
-  auto q_row = [=](int r) { return i0 + r < Tq ? i0 + r : -1; };
-  auto slot_of = [=](int it) { return slots + (S::SLOTS == 2 ? (it & 1) * S::SLOT : 0); };
-  auto issue = [=](int it) {
-    const int j0 = it / per_tile * BK, sub = it % per_tile;
-    const int base = i0 + q_offset - j0 - (BK - 1);
-    T* slot = slot_of(it);
-    auto k_row = [=](int r) { return j0 + r < Tk ? j0 + r : -1; };
-    if (sub < nc) {
-      const int d0 = sub * DC;
-      fetch<T, BQ, DC, RST>(slot, qg(), q_row, hd, d0, hd, tid, copy);
-      fetch<T, BK, DC, RST>(slot + BQ * RST, kg(), k_row, hd, d0, hd, tid, copy);
-      if (clip_kind(base, BQ, max_pos) == kMixed) {
-        auto e_row = [=](int r) { return window_row(base, r, max_pos); };
-        fetch<T, WIN, DC, RST>(slot + (BQ + BK) * RST, table, e_row, hd, d0, hd, tid, copy);
-      }
-    } else if constexpr (P == 3) {
-      // fp32: as blocks of DC columns, so that every address of the slot is
-      // copied (and split) by the same thread whatever the item
-#pragma unroll
-      for (int b = 0; b < VH / DC; ++b) {
-        fetch<T, BK, DC, RST>(slot + b * BK * RST, vg(), k_row, hd, s0() + (sub - nc) * VH + b * DC,
-                              s_end(), tid, copy);
-      }
-    } else {
-      fetch<T, BK, VH, VST>(slot, vg(), k_row, hd, s0() + (sub - nc) * VH, s_end(), tid, copy);
-    }
-    cp_async_commit();
-  };
-  // fp32: the granules this thread copied for item it, into the planes
-  auto split = [=](int it) {
-    if constexpr (P == 3) {
-      const int j0 = it / per_tile * BK, sub = it % per_tile;
-      const float* slot = reinterpret_cast<const float*>(slot_of(it));
-      if (sub < nc) {
-        split_rows<BQ + BK, DC, RST, CS>(planes, S::PLANE, slot, tid);
-        if (clip_kind(i0 + q_offset - j0 - (BK - 1), BQ, max_pos) == kMixed) {
-          split_rows<WIN, DC, RST, CS>(planes + (BQ + BK) * CS, S::PLANE, slot + (BQ + BK) * RST,
-                                       tid);
+  if (wgi == 0) {
+    // ---- producer: a unit's key tiles, each: the logits' chunks, then V's sub-chunks ----
+    Producer<P, RingT> pr;
+    init_producer(pr, base, full, empty, &map_e, pl, D, max_pos, vw, tma, tid);
+    for (long long u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int pass = static_cast<int>(u % passes);
+      const int i0 = static_cast<int>((u / passes) % n_qtiles) * WQ;
+      pr.grp = static_cast<int>(u / (static_cast<long long>(passes) * n_qtiles));
+      const size_t qo = static_cast<size_t>(pr.grp) * Tq * pl.ld, ko = static_cast<size_t>(pr.grp) * Tk * pl.ld;
+      using Src = typename Producer<P, RingT>::Src;
+      const Src sq{&map_q, pl.q + qo, pl.q_plane, Tq}, sk{&map_k, pl.k + ko, pl.k_plane, Tk},
+          sv{&map_v, pl.v + ko, pl.k_plane, Tk};
+      const int c0 = 2 * half * pass, c1 = c0 + half;  // the warpgroups' first columns
+      for (int t = 0; t < n_tiles; ++t) {
+        const int j0 = t * BK, base_t = i0 + q_offset - j0 - (BK - 1);
+        const bool mixed = pair_kind(base_t, max_pos) == kMixed;
+        for (int c = 0; c < nch; ++c) {
+          pr.pair(sq, i0, CH * c, sk, j0, CH * c);
+          if (mixed) pr.window(base_t + max_pos, CH * c);
         }
-      } else {
-#pragma unroll
-        for (int b = 0; b < VH / DC; ++b) {
-          split_rows<BK, DC, RST, VCS>(planes + b * DC, S::PLANE, slot + b * BK * RST, tid);
+        if (kAblate & kNoValues) continue;
+        for (int s = 0; s < subs; ++s) {
+          // warpgroup 1's sub-chunk only where it holds columns
+          const int x1 = c1 + CH * s;
+          pr.pair(sv, j0, c0 + CH * s, sv, j0, x1 < D ? x1 : -1);
         }
       }
     }
-  };
+    pr.settle();
+    return;
+  }
 
-  issue(0);
-#pragma unroll 1
-  for (int it = 0; it < total; ++it) {
-    const int j0 = it / per_tile * BK, sub = it % per_tile;
-    const int base = i0 + q_offset - j0 - (BK - 1);
-    const int kind = clip_kind(base, BQ, max_pos);
-    __syncthreads();  // the item before is consumed
-    if constexpr (P == 3) {
-      cp_async_wait<0>();
-      split(it);  // then the slot takes the next item
-      if (it + 1 < total) issue(it + 1);
-    } else {
-      if (it + 1 < total) {
-        issue(it + 1);  // into the other slot
-      } else {
-        cp_async_commit();
-      }
-      cp_async_wait<1>();
-    }
-    __syncthreads();  // this item's operands are in
-    const bf16* ops = P == 1 ? reinterpret_cast<const bf16*>(slot_of(it)) : planes;
-    const int ln = opaque(lane);
+  // ---- consumers ----
+  RingT ring;
+  ring.stages = base;
+  ring.full = full;
+  ring.empty = empty;
+  const Lane l0{wgi - 1, warp & 3, lane >> 2, lane & 3}, &l = l0;
+  const uint32_t p_s = base + C::PT_OFF;
+  float* band = reinterpret_cast<float*>(sbase + C::BAND_OFF);
+  float* xmax = reinterpret_cast<float*>(sbase + C::XCH_OFF);  // [warpgroup][query]
+  float* xsum = xmax + NCW * 64;
 
-    if (sub < nc) {
-      if (sub == 0) {
-#pragma unroll
-        for (int nb = 0; nb < BK / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-      }
-      const int ksteps = min(DC / 16, (hd - sub * DC + 15) / 16);
-      chunk_logits<P, DC, SLAB == 128>(s, ops, ops + BQ * CS, ops + (BQ + BK) * CS, S::PLANE, rt, kind,
-                                ksteps, w, ln);
-      if (sub < nc - 1) continue;
-      // the tile pair's logits are whole: the clipped scalars, the mask, the online softmax
-      if (kind != kMixed) {
-        float pos_hi[2], pos_lo[2];
-        clipped_scalars(pos_hi, pos_lo, qg(), table, i0 + 16 * w, Tq, hd, max_pos, lane);
-        add_rows(s, kind == kHigh ? pos_hi[0] : pos_lo[0], kind == kHigh ? pos_hi[1] : pos_lo[1]);
-      }
-      const int nk = t_valid - j0;  // keys at or past nk are masked
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (8 * nb + 2 * t + e >= nk) s[nb][e] = s[nb][2 + e] = -CUDART_INF_F;
-          mx[0] = fmaxf(mx[0], s[nb][e]);
-          mx[1] = fmaxf(mx[1], s[nb][2 + e]);
-        }
-      }
-      float corr[2];
+  for (long long u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int pass = static_cast<int>(u % passes);
+    const int i0 = static_cast<int>((u / passes) % n_qtiles) * WQ;
+    const int grp = static_cast<int>(u / (static_cast<long long>(passes) * n_qtiles));
+    const int col0 = 2 * half * pass + half * l.w;           // this warpgroup's first column
+    const int col_end = min(D, col0 + half);
+    const int live = col_end > col0 ? (col_end - col0 + CH - 1) / CH : 0;  // its sub-chunks with columns
+
+    // q . E[2*max_pos] and q . E[0] of rows 16wp + g (+ 8), where a tile of the
+    // unit is clipped (the first tile has the unit's largest distances, the
+    // last its least), a quarter of the head dim a lane
+    float sh_hi[2] = {0.f, 0.f}, sh_lo[2] = {0.f, 0.f};
+    const int base0 = i0 + q_offset - (BK - 1);
+    if (pair_kind(base0, max_pos) != kMixed || pair_kind(base0 - (n_tiles - 1) * BK, max_pos) != kMixed) {
+      const Lane l = fresh(l0);
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
-        const float m_new = fmaxf(m[rr], quad_max(mx[rr]));  // finite: key j0 is valid
-        corr[rr] = __expf(m[rr] - m_new);
-        m[rr] = m_new;
-        l[rr] *= corr[rr];
+        const int row = i0 + 16 * l.wp + l.g + 8 * rr;
+        float hi = 0.f, lo = 0.f;
+        if (row < Tq) {
+          const T* qr = q + (static_cast<size_t>(grp) * Tq + row) * D;
+          const T* er = table + static_cast<size_t>(2 * max_pos) * D;
+          for (int d = l.t4; d < D; d += 4) {
+            const float x = widen(qr[d]);
+            hi = fmaf(x, widen(er[d]), hi);
+            lo = fmaf(x, widen(table[d]), lo);
+          }
+        }
+        sh_hi[rr] = quad_sum(hi);
+        sh_lo[rr] = quad_sum(lo);
       }
+    }
+
+    Out<C::FULL, C::LAST> o;
 #pragma unroll
-      for (int n = 0; n < SLAB / 8; ++n) {
-        acc[n][0] *= corr[0];
-        acc[n][1] *= corr[0];
-        acc[n][2] *= corr[1];
-        acc[n][3] *= corr[1];
+    for (int s = 0; s < C::FULL; ++s) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o.full[s][i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < C::LAST / 2; ++i) o.last[i] = 0.f;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, lsum[2] = {0.f, 0.f};
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int j0 = t * BK, bw = i0 + q_offset - j0 - (BK - 1);
+      const int kind = pair_kind(bw, max_pos);
+      const bool mixed = kind == kMixed;
+
+      // S (keys 32w ..) and R (window rows 64w ..) over the depth chunks: bf16
+      // straight onto both in the tensor cores, R into the band once a tile;
+      // fp32 each chunk from zero, added in fp32 (R in the band)
+      float s_acc[16], r_acc[32];
+      if constexpr (P == 1) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) s_acc[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) r_acc[i] = 0.f;
       }
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[nb][e] = __expf(s[nb][e] - m[0]);
-          s[nb][2 + e] = __expf(s[nb][2 + e] - m[1]);
-          l[0] += s[nb][e];
-          l[1] += s[nb][2 + e];
+      for (int c = 0; c < nch; ++c) {
+        const uint32_t a = opaque(ring.acquire());  // Q_c | K_c
+        const int ks = c == nch - 1 ? ks_last : 4;
+        if constexpr (P == 1) {
+          if (mixed) {
+            const uint32_t e = opaque(ring.acquire());  // the window, chunk c
+            logits_product<P, true>(ks, r_acc, KMaj{a, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE}, s_acc,
+                                    KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+            ring.release();
+            ring.release();
+          } else {
+            chunk_product<32, P, true>(ks, s_acc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+            ring.release();
+          }
+        } else {
+          if (mixed) {
+            const uint32_t e = opaque(ring.acquire());  // the window, chunk c
+            chunk_product<64, P, false>(ks, r_acc, KMaj{a, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE});
+            band_put(band, l, r_acc, c == 0);
+          }
+          float sc[16];
+          chunk_product<32, P, false>(ks, sc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+          ring.release();
+          if (mixed) ring.release();
+          add_into(s_acc, sc, c == 0);
         }
       }
-      continue;
-    }
-    // O += P . V over a half slab: columns s0 + VH h ..
-    const int h = sub - nc, n_tiles = nn();
+      if (mixed) {
+        if constexpr (P == 1) band_put(band, l, r_acc, true);
+        consumers_sync();  // the band is whole
+      }
+
+      // the position term, the mask, and the row maxima over this warpgroup's keys
+      const int nk = t_valid - j0;  // keys at or past nk are masked
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+      {
+        const Lane l = fresh(l0);
 #pragma unroll
-    for (int hh = 0; hh < SLAB / VH; ++hh) {
-      if (hh != h) continue;  // uniform: the accumulators' indices stay static
+        for (int n = 0; n < 4; ++n) {
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const float pv[8] = {s[2 * kk][0], s[2 * kk][1], s[2 * kk][2], s[2 * kk][3],
-                             s[2 * kk + 1][0], s[2 * kk + 1][1], s[2 * kk + 1][2], s[2 * kk + 1][3]};
-        FragA<P> pa;
-        frag_from(pa, pv);
+          for (int e = 0; e < 2; ++e) {
+            const int b = 32 * l.w + 8 * n + 2 * l.t4 + e;
 #pragma unroll
-        for (int n = 0; n < VH / 8; ++n) {
-          if (hh * (VH / 8) + n < n_tiles) {
-            FragB<P> vb;
-            load_b_trans<P>(vb, ops, S::PLANE, VCS, 8 * n, 16 * kk, ln);
-            mma_w<SLAB == 128>(acc[hh * (VH / 8) + n], pa, vb);
+            for (int rr = 0; rr < 2; ++rr) {
+              const int i = 4 * n + 2 * rr + e, a = 16 * l.wp + l.g + 8 * rr;
+              const float pos = mixed ? band[a * SKS + BK - 1 - b] : kind == kHigh ? sh_hi[rr] : sh_lo[rr];
+              s_acc[i] = b < nk ? s_acc[i] + pos : -CUDART_INF_F;
+              mx[rr] = fmaxf(mx[rr], s_acc[i]);
+            }
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          mx[rr] = quad_max(mx[rr]);
+          if (l.t4 == 0) xmax[64 * l.w + 16 * l.wp + l.g + 8 * rr] = mx[rr];
+        }
+      }
+      consumers_sync();  // both warpgroups' maxima are in
+
+      // the online softmax on the shared maxima (finite: key j0 is valid and
+      // warpgroup 0's); P into shared memory, keys 32w .. of its rows
+      float corr[2];
+      {
+        const Lane l = fresh(l0);
+        float ml[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int a = 16 * l.wp + l.g + 8 * rr;
+          const float m_new = fmaxf(m[rr], fmaxf(xmax[a], xmax[64 + a]));
+          corr[rr] = ex2((m[rr] - m_new) * L2E);
+          m[rr] = m_new;
+          ml[rr] = m_new * L2E;
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int rr = (i >> 1) & 1;
+          const float x = fmaf(s_acc[i], L2E, -ml[rr]);
+          s_acc[i] = (kAblate & kNoExp) ? x : ex2(x);
+          ls[rr] += s_acc[i];
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) lsum[rr] = lsum[rr] * corr[rr] + ls[rr];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int a = 16 * l.wp + l.g + 8 * rr, b0 = 32 * l.w + 8 * n + 2 * l.t4;
+            uint32_t u[P];
+            parts_of<P>(s_acc[4 * n + 2 * rr], s_acc[4 * n + 2 * rr + 1], u);
+            const uint32_t at = swz<128>(a * 128 + 2 * b0);
+#pragma unroll
+            for (int p = 0; p < P; ++p) st_shared_b32(p_s + p * TILE + at, u[p]);
           }
         }
       }
-    }
-  }
+      fence_proxy_async();
+      // the output rescaled to the new maxima
+#pragma unroll
+      for (int s = 0; s < C::FULL; ++s) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o.full[s][i] *= corr[(i >> 1) & 1];
+      }
+#pragma unroll
+      for (int i = 0; i < C::LAST / 2; ++i) o.last[i] *= corr[(i >> 1) & 1];
+      consumers_sync();  // P is whole
 
+      // O += P . V over this warpgroup's sub-chunks (a stage each, both warpgroups')
+      if (!(kAblate & kNoValues)) {
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = i0 + 16 * w + g + 8 * rr;
-    const float sum = quad_sum(l[rr]);
-    if (row < Tq) {
-      const float inv = 1.f / sum;
-      const int c0 = s0(), c_end = s_end(), n_tiles = nn();
-      T* o = out + (static_cast<size_t>(grp) * Tq + row) * hd;
-#pragma unroll
-      for (int n = 0; n < SLAB / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int d = c0 + 8 * n + 2 * t + e;
-          if (n < n_tiles && d < c_end) narrow(acc[n][2 * rr + e] * inv, o + d);
+        for (int s = 0; s < C::SUBS; ++s) {
+          if (s >= subs) break;  // uniform
+          const uint32_t v = opaque(ring.acquire()) + TILE * l.w;
+          if (s < live) {
+            if (s < C::FULL) {
+              values<P, CH>(o.full[s < C::FULL ? s : 0], p_s, v);  // (an index in range where dead)
+            } else {
+              values<P, C::LAST>(o.last, p_s, v);
+            }
+          }
+          ring.release();
         }
       }
-      if (lse != nullptr && c0 == 0 && t == 0) {
-        lse[static_cast<size_t>(grp) * Tq + row] = m[rr] + __logf(sum);
+    }
+
+    // the row sums: each warpgroup's share, crossed once a unit
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float sum = quad_sum(lsum[rr]);
+      if (l.t4 == 0) xsum[64 * l.w + 16 * l.wp + l.g + 8 * rr] = sum;
+    }
+    consumers_sync();
+    {
+      const Lane l = fresh(l0);
+      T* orow[2];
+      float inv[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int a = 16 * l.wp + l.g + 8 * rr, row = i0 + a;
+        const float sum = xsum[a] + xsum[64 + a];
+        inv[rr] = 1.f / sum;
+        orow[rr] = row < Tq ? out + (static_cast<size_t>(grp) * Tq + row) * D : nullptr;
+        if (lse != nullptr && row < Tq && pass == 0 && l.w == 0 && l.t4 == 0) {
+          lse[static_cast<size_t>(grp) * Tq + row] = m[rr] + __logf(sum);
+        }
       }
+#pragma unroll
+      for (int s = 0; s < C::FULL; ++s) {
+        write_out<CH>(o.full[s], orow[0], orow[1], inv, col0 + CH * s, col_end, l.t4);
+      }
+      write_out<C::LAST>(o.last, orow[0], orow[1], inv, col0 + CH * C::FULL, col_end, l.t4);
     }
   }
 }
 
-// ---- launches ----
+// ================================ launches ================================
 
-// the forward's slab width: its widest slab is 128 up to D 128 (its
-// instantiation then keeps 128 accumulators a thread, not 256) and SLAB_FWD
-// past it
-int slab_of(int hd) { return slab_width(hd, hd <= 128 ? 128 : SLAB_FWD); }
+struct Args {
+  const void *q, *k, *v, *table;
+  void *out, *lse, *scratch;
+  long long scratch_bytes;
+  int G, Tq, Tk, D, max_pos, t_valid, q_offset;
+  cudaStream_t stream;
+};
 
-template <typename K>
-int allow(K kernel, int bytes) {
-  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+// fp32's planes in the scratch, in bf16 elements: q, k, v and the table,
+// each three planes of rows of ld = D rounded up to 8 columns (zero past D),
+// so that every row is a whole number of 16-byte groups and TMA takes it
+struct Layout {
+  int ld;
+  long long q_plane, k_plane, e_plane, elems;
+};
+Layout layout(int G, int Tq, int Tk, int D, int max_pos) {
+  Layout l{};
+  l.ld = (D + 7) / 8 * 8;
+  l.q_plane = static_cast<long long>(G) * Tq * l.ld;
+  l.k_plane = static_cast<long long>(G) * Tk * l.ld;
+  l.e_plane = static_cast<long long>(2 * max_pos + 1) * l.ld;
+  l.elems = 3 * (l.q_plane + 2 * l.k_plane + l.e_plane);
+  return l;
 }
 
-// blocks of a grid over `tiles` tiles of each of G groups and the slabs, or -1
-long long grid_blocks(int G, int tiles, int hd, int slab) {
-  const long long blocks = static_cast<long long>(G) * tiles * n_slabs(hd, slab);
-  return blocks > 0x7fffffffLL ? -1 : blocks;
+template <typename T, int NO>
+int launch_kernel(const CUtensorMap (&m)[5], const Planes& pl, const Args& a, int vw, bool tma) {
+  using C = Cfg<T, NO>;
+  int err = static_cast<int>(
+      cudaFuncSetAttribute(flash_rel_wide_fwd<T, NO>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES));
+  if (err != 0) return err;
+  const long long per_group = static_cast<long long>((a.Tq + WQ - 1) / WQ) * fwd_passes(a.D);
+  int grid = 0;
+  if ((err = persistent_grid(per_group, a.G * per_group, &grid)) != 0) return err;
+  flash_rel_wide_fwd<T, NO><<<static_cast<unsigned>(grid), NT, C::BYTES, a.stream>>>(
+      m[0], m[2], m[3], m[4], pl, static_cast<const T*>(a.q), static_cast<const T*>(a.table),
+      static_cast<T*>(a.out), static_cast<float*>(a.lse), a.G, a.Tq, a.Tk, a.D, a.max_pos, a.t_valid,
+      a.q_offset, vw, tma ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, const void* table, void* out, void* lse,
-               int G, int Tq, int Tk, int hd, int max_pos, int t_valid, int q_offset,
-               cudaStream_t s) {
-  constexpr int bytes = FwdLayout<T>::bytes;
-  auto kernel = hd <= 128 ? flash_rel_wide_fwd<T, 128> : flash_rel_wide_fwd<T, SLAB_FWD>;
-  int err = allow(kernel, bytes);
-  if (err != 0) return err;
-  const int n_qtiles = (Tq + BQ - 1) / BQ, slab = slab_of(hd);
-  const long long blocks = grid_blocks(G, n_qtiles, hd, slab);
-  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), NT, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(table), static_cast<T*>(out), static_cast<float*>(lse), Tq, Tk, hd,
-      n_qtiles, slab, max_pos, t_valid, q_offset);
-  return static_cast<int>(cudaGetLastError());
+int launch(const Args& a) {
+  constexpr int P = Parts<T>::N;
+  using bf16_t = __nv_bfloat16;
+  // the producer's sources: bf16 as they are; fp32 split into planes
+  Planes pl{};
+  if constexpr (P == 1) {
+    pl = {static_cast<const bf16_t*>(a.q), static_cast<const bf16_t*>(a.k), static_cast<const bf16_t*>(a.v),
+          nullptr, static_cast<const bf16_t*>(a.table), 0, 0, 0, a.D};
+  } else {
+    const Layout l = layout(a.G, a.Tq, a.Tk, a.D, a.max_pos);
+    if (a.scratch == nullptr || a.scratch_bytes < 2 * l.elems) return static_cast<int>(cudaErrorInvalidValue);
+    bf16_t* dst = static_cast<bf16_t*>(a.scratch);
+    bf16_t* dk = dst + 3 * l.q_plane;
+    bf16_t* dv = dk + 3 * l.k_plane;
+    bf16_t* de = dv + 3 * l.k_plane;
+    const Split sp = {{static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+                       static_cast<const float*>(a.v), static_cast<const float*>(a.table), nullptr},
+                      {dst, dk, dv, de, nullptr},
+                      {static_cast<long long>(a.G) * a.Tq, static_cast<long long>(a.G) * a.Tk,
+                       static_cast<long long>(a.G) * a.Tk, 2LL * a.max_pos + 1, 0},
+                      {l.q_plane, l.k_plane, l.k_plane, l.e_plane, 0},
+                      a.D, l.ld};
+    const int err = split_planes<4>(sp, a.stream);
+    if (err != 0) return err;
+    pl = {dst, dk, dv, nullptr, de, static_cast<size_t>(l.q_plane), static_cast<size_t>(l.k_plane),
+          static_cast<size_t>(l.e_plane), l.ld};
+  }
+  // TMA takes rows of whole 16-byte groups: fp32's padded planes always,
+  // bf16 where D is a multiple of 8; else the producer's own copies
+  const bool tma = P == 3 || a.D % 8 == 0;
+  CUtensorMap m[5] = {};
+  if (tma) {
+    const int err = make_maps(pl, P, a.G, a.Tq, a.Tk, a.D, a.max_pos, m);
+    if (err != 0) return err;
+  }
+  const int vw = load_width(pl.ld);
+  switch (acc_cols(fwd_half(a.D))) {
+    case 64: return launch_kernel<T, 64>(m, pl, a, vw, tma);
+    case 128: return launch_kernel<T, 128>(m, pl, a, vw, tma);
+    default: return launch_kernel<T, HALF>(m, pl, a, vw, tma);
+  }
+}
+
+int smem_of(int is_bf16, int head_dim) {
+  switch (acc_cols(fwd_half(head_dim))) {
+    case 64: return is_bf16 ? Cfg<__nv_bfloat16, 64>::BYTES : Cfg<float, 64>::BYTES;
+    case 128: return is_bf16 ? Cfg<__nv_bfloat16, 128>::BYTES : Cfg<float, 128>::BYTES;
+    default: return is_bf16 ? Cfg<__nv_bfloat16, HALF>::BYTES : Cfg<float, HALF>::BYTES;
+  }
 }
 
 }  // namespace
 
-// Plain C entries for ctypes, with the names and arguments of
-// flash_rel_attention.cu's. Each launches on `stream` and returns the first
-// CUDA error (0 on success) without synchronising; cudaErrorInvalidValue (1)
-// for a head dim below 1.
-
-extern "C" int cmgan_flash_rel_attention_fwd(
-    const void* q, const void* k, const void* v, const void* table, void* out,
-    void* lse, int G, int Tq, int Tk, int head_dim, int max_pos, int t_valid, int q_offset,
-    int is_bf16, void* stream) {
-  if (G <= 0 || Tq <= 0 || t_valid <= 0 || t_valid > Tk || max_pos < 0 || head_dim < 1) {
+// Plain C entries for ctypes. The forward at any head dim of 1 or more:
+// arguments as flash_rel_attention.cu's cmgan_flash_rel_attention_fwd, and a
+// scratch of scratch_bytes bytes (16-byte aligned, not zeroed) at least what
+// cmgan_flash_rel_attention_wide_fwd_scratch gives (fp32's planes; bf16
+// needs none: null and 0). Launches on `stream` and returns the first CUDA
+// error (0 on success) without synchronising.
+extern "C" int cmgan_flash_rel_attention_wide_fwd(
+    const void* q, const void* k, const void* v, const void* table, void* out, void* lse,
+    void* scratch, long long scratch_bytes, int G, int Tq, int Tk, int head_dim, int max_pos,
+    int t_valid, int q_offset, int is_bf16, void* stream) {
+  if (G <= 0 || Tq <= 0 || t_valid <= 0 || t_valid > Tk || max_pos < 0 || head_dim < 1 || q_offset < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_fwd<__nv_bfloat16>(q, k, v, table, out, lse, G, Tq, Tk, head_dim,
-                                             max_pos, t_valid, q_offset, s)
-                 : launch_fwd<float>(q, k, v, table, out, lse, G, Tq, Tk, head_dim, max_pos,
-                                     t_valid, q_offset, s);
+  const Args a = {q, k, v, table, out, lse, scratch, scratch_bytes, G, Tq, Tk, head_dim, max_pos,
+                  t_valid, q_offset, static_cast<cudaStream_t>(stream)};
+  return is_bf16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
 }
 
-// Dynamic shared memory, in bytes, of one block of the forward, or -1: the
-// same at every head dim.
+// Bytes of scratch the forward needs at these shapes (fp32: the three bf16
+// planes of q, k, v and the table; bf16: 0), or -1.
+extern "C" long long cmgan_flash_rel_attention_wide_fwd_scratch(int is_bf16, int head_dim, int G, int Tq,
+                                                                int Tk, int max_pos) {
+  if (G <= 0 || Tq <= 0 || Tk <= 0 || max_pos < 0 || head_dim < 1) return -1;
+  return is_bf16 ? 0 : 2 * layout(G, Tq, Tk, head_dim, max_pos).elems;
+}
+
+// Dynamic shared memory, in bytes, of one block of the forward at this head
+// dim, or -1.
 extern "C" int cmgan_flash_rel_attention_fwd_smem(int is_bf16, int head_dim) {
-  if (head_dim < 1) return -1;
-  return is_bf16 ? FwdLayout<__nv_bfloat16>::bytes : FwdLayout<float>::bytes;
+  return head_dim < 1 ? -1 : smem_of(is_bf16, head_dim);
 }
 
-// The forward's slab width at this head dim (which 0), or -1;
-// ops/flash_attention.py:plan computes the same.
+// The output columns each consumer warpgroup owns in a pass of the forward
+// (which 0), or -1; ops/flash_attention.py:plan computes the same.
 extern "C" int cmgan_flash_rel_attention_wide_slab(int head_dim, int which) {
   if (head_dim < 1 || which != 0) return -1;
-  return slab_of(head_dim);
+  return fwd_half(head_dim);
+}
+
+// The forward's passes (which 0) at this head dim: how many times it computes
+// a tile pair's logits; or -1.
+extern "C" int cmgan_flash_rel_attention_wide_passes(int head_dim, int which) {
+  if (head_dim < 1 || which != 0) return -1;
+  return fwd_passes(head_dim);
 }

@@ -22,8 +22,10 @@
 // and six times that in fp32 (six bf16 part products a product). The bytes
 // take a tenth of it.
 //
-// The design. Launches on the caller's stream: a prologue (each query row's
-// statistics {lse, delta, q.E[2*max_pos], q.E[0]}); for fp32, a split of q,
+// The design (the pieces it shares with the wide forward are in
+// flash_rel_hopper.cuh, namespace wide). Launches on the caller's stream: a
+// prologue (each query row's statistics {lse, delta, q.E[2*max_pos],
+// q.E[0]}); for fp32, a split of q,
 // g, k, v and the table into three bf16 planes, x = x0 + x1 + x2, once (TMA
 // cannot split, and each row is read by many tile pairs); the dq/dE kernel
 // (queries own); the sum of its blocks' rows of dE; the dk/dv kernel (keys
@@ -78,8 +80,6 @@
 // flash_rel_sum_partials then adds the blocks' rows in block order. Two runs
 // on the same inputs give the same bits.
 
-#include <numeric>
-
 #include "flash_rel_common.cuh"
 #include "flash_rel_hopper.cuh"
 
@@ -87,6 +87,7 @@ namespace {
 
 using namespace flash_rel;
 using namespace flash_rel::hopper;
+using namespace flash_rel::hopper::wide;
 
 // Ablations, for tools/backward_ablation.py alone (each a wrong result, timed
 // and nothing else): -DCMGAN_BWD_ABLATE=<bits>; in the dq/dE kernel 1 leaves
@@ -100,48 +101,11 @@ using namespace flash_rel::hopper;
 constexpr int kAblate = CMGAN_BWD_ABLATE;
 constexpr int kNoDrWrites = 1, kNoDrProducts = 2, kNoFlush = 4, kNoPosition = 8;
 
-constexpr int CH = 64;                   // head-dim columns a chunk: a 128-byte bf16 row
-constexpr int NCW = 2;                   // consumer warpgroups, each one chunk of a pass
-constexpr int PASS = NCW * CH;           // output columns a pass
-constexpr int NT = 128 * (NCW + 1);      // the producer warpgroup, then the consumers
-constexpr int CONSUMERS = 128 * NCW;
-constexpr int TILE = 64 * 128;           // bytes a 64-row chunk tile (a bf16 plane)
-constexpr int PLANE = 2 * TILE;          // bytes a plane of a stage: 128 rows
-constexpr int SBO = 1024;                // 8 rows of 128 bytes
-constexpr int LAYOUT = 1;                // the 128-byte swizzle
-constexpr int SKS = 68;                  // floats a row of the band
-constexpr int BAND = 64 * SKS * 4;       // R[a][a + x], x in [0, 64): a query a row
+constexpr int PASS = NCW * CH;           // output columns a pass: one chunk a consumer warpgroup
 constexpr int CSUM = NCW * 64 * 2 * 4;   // dq/dE kernel: each warpgroup's clipped sums a query
 constexpr int QSTATS = 64 * 16;          // dk/dv kernel: a query tile's statistics
-constexpr int CONSUMER_BAR = 5;          // the consumers' named barrier (1 .. 2: warpgroups')
 
-__host__ __device__ constexpr int chunks_of(int d) { return (d + CH - 1) / CH; }
 __host__ __device__ constexpr int passes_of(int d) { return (chunks_of(d) + NCW - 1) / NCW; }
-
-// the 256 consumer threads meet, their shared-memory writes visible to each other
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync %0, %1;" ::"n"(CONSUMER_BAR), "n"(CONSUMERS) : "memory");
-}
-
-__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
-}
-// no memory clobber: ordered by the fence and the barrier that follow
-__device__ __forceinline__ void st_shared_u16(uint32_t addr, uint32_t v) {
-  asm volatile("{\n.reg .b16 h;\ncvt.u16.u32 h, %1;\nst.shared.b16 [%0], h;\n}\n" ::"r"(addr), "r"(v));
-}
-
-// x, which the compiler may not take for loop-invariant: descriptors made
-// from it are made where they are used, not held in registers over the walk
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
-__device__ __forceinline__ int opaque_i(int x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
 
 // the tile pair's kind (kNoPosition: every pair taken as clipped)
 __device__ __forceinline__ int pair_kind(int base, int max_pos) {
@@ -149,226 +113,15 @@ __device__ __forceinline__ int pair_kind(int base, int max_pos) {
   return (kAblate & kNoPosition) && kind == kMixed ? kHigh : kind;
 }
 
-// ---- descriptors of 128-byte-row tiles ----
-
-// K-major: rows along M or N, the 64 columns along the depth (16 a step)
-__device__ __forceinline__ uint64_t kdesc(uint32_t a, int kk) { return smem_desc(a + 32 * kk, SBO, LAYOUT); }
-// MN-major: rows along the depth (16 a step), the 64 columns along M or N
-__device__ __forceinline__ uint64_t mdesc(uint32_t a, int kk) { return smem_desc(a + 2048 * kk, SBO, LAYOUT); }
-
-// (the base passes through opaque() at each use, so that a chain's
-// descriptors are made as it issues them, not all held in registers first)
-struct KMaj {  // a tile of planes `pl` bytes apart, K-major
-  uint32_t a;
-  int pl;
-  __device__ __forceinline__ uint64_t operator()(int p, int kk) const { return kdesc(opaque(a) + p * pl, kk); }
-};
-struct MMaj {  // ... MN-major
-  uint32_t a;
-  int pl;
-  __device__ __forceinline__ uint64_t operator()(int p, int kk) const { return mdesc(opaque(a) + p * pl, kk); }
-};
-struct DrK {  // dR, K-major over its 128 window rows: step kk in half kk / 4
+// dR as A, K-major over its 128 window rows: step kk in half kk / 4
+struct DrK {
   uint32_t a;
   __device__ __forceinline__ uint64_t operator()(int p, int kk) const {
     return kdesc(opaque(a) + p * 2 * TILE + (kk >> 2) * TILE, kk & 3);
   }
 };
 
-// d (64 x N) = A . B over K16 depth steps (ACC: d += A . B): the part
-// products of P planes, smallest first (all steps of a part before the
-// next), from zero
-template <int N, int P, int K16, int TA, int TB, bool ACC = false, typename FA, typename FB>
-__device__ __forceinline__ void chain(float (&d)[N / 2], FA da, FB db) {
-  constexpr int X0 = P == 1 ? 5 : 0;
-#pragma unroll
-  for (int x = X0; x < 6; ++x) {
-#pragma unroll
-    for (int kk = 0; kk < K16; ++kk) {
-      const uint64_t a = da(part_a(x), kk), b = db(part_b(x), kk);
-      if (!ACC && x == X0 && kk == 0) {
-        wgmma_ss<N, true, TA, TB>(d, a, b);
-      } else {
-        wgmma_ss<N, false, TA, TB>(d, a, b);
-      }
-    }
-  }
-}
-
-// d = A . B (ACC: d += A . B) over the first ks depth steps of a chunk (4,
-// or fewer in the last chunk of a head dim that is no multiple of 64: the
-// zero columns past D are not computed), in a fence-to-wait span of its own
-// in each case; with R, also r = Q . E_w^T (N 64, from zero) in that span
-template <int N, int P, bool ACC, typename FA, typename FB>
-__device__ __forceinline__ void product(int ks, float (&d)[N / 2], FA da, FB db) {
-  switch (ks) {
-    case 1:
-      wgmma_fence();
-      chain<N, P, 1, 0, 0, ACC>(d, da, db);
-      wgmma_commit();
-      wgmma_wait<0>();
-      break;
-    case 2:
-      wgmma_fence();
-      chain<N, P, 2, 0, 0, ACC>(d, da, db);
-      wgmma_commit();
-      wgmma_wait<0>();
-      break;
-    case 3:
-      wgmma_fence();
-      chain<N, P, 3, 0, 0, ACC>(d, da, db);
-      wgmma_commit();
-      wgmma_wait<0>();
-      break;
-    default:
-      wgmma_fence();
-      chain<N, P, 4, 0, 0, ACC>(d, da, db);
-      wgmma_commit();
-      wgmma_wait<0>();
-      break;
-  }
-  fence_regs(d);
-}
-template <int P, typename FA, typename FB, typename FC, typename FD>
-__device__ __forceinline__ void product_rs(int ks, float (&r)[32], FA ra, FB rb, float (&d)[16], FC da,
-                                           FD db) {
-  switch (ks) {
-    case 1:
-      wgmma_fence();
-      chain<64, P, 1, 0, 0>(r, ra, rb);
-      chain<32, P, 1, 0, 0, true>(d, da, db);
-      wgmma_commit();
-      wgmma_wait<0>();
-      break;
-    case 2:
-      wgmma_fence();
-      chain<64, P, 2, 0, 0>(r, ra, rb);
-      chain<32, P, 2, 0, 0, true>(d, da, db);
-      wgmma_commit();
-      wgmma_wait<0>();
-      break;
-    case 3:
-      wgmma_fence();
-      chain<64, P, 3, 0, 0>(r, ra, rb);
-      chain<32, P, 3, 0, 0, true>(d, da, db);
-      wgmma_commit();
-      wgmma_wait<0>();
-      break;
-    default:
-      wgmma_fence();
-      chain<64, P, 4, 0, 0>(r, ra, rb);
-      chain<32, P, 4, 0, 0, true>(d, da, db);
-      wgmma_commit();
-      wgmma_wait<0>();
-      break;
-  }
-  fence_regs(r);
-  fence_regs(d);
-}
-
-// ---- the producer's own loads ----
-
-// Rows of a bf16 source of P planes (`plane` elements apart; rows of D
-// elements) that a stage takes: rows row0 .. of each plane, read where 0 <=
-// row < limit, else zero; with clip, rows clamped into [0, limit) instead, so
-// that the table's end rows repeat
-struct Seg {
-  const __nv_bfloat16* src;
-  size_t plane;
-  int row0, limit;
-  bool clip;
-};
-
-// NSEG segments of ROWS rows (segment s at dst + s * ROWS * 128, plane p
-// PLANE bytes on), columns col0 .. col0 + 63 (zero past D), swizzled, where D
-// is odd (a row is no whole number of 4 bytes, so no cp.async takes it):
-// loaded and stored here, 2 bytes at a time, by the 128 threads of the
-// producer warpgroup, a plane of one segment a batch, its loads in flight
-// before the first store
-template <int ROWS, int NSEG, int P>
-__device__ __forceinline__ void load_u16(uint32_t dst, const Seg (&seg)[NSEG], int D, int col0,
-                                         int ptid) {
-  constexpr int PER = ROWS * CH / 128;
-  ptid = opaque_i(ptid);
-  const int r0 = ptid / CH, k = ptid % CH;  // this thread's first row and its column
-  const bool col_ok = col0 + k < D;
-#pragma unroll
-  for (int sp = 0; sp < NSEG * P; ++sp) {
-    const int sn = sp % NSEG, pn = sp / NSEG;
-    const unsigned short* src =
-        reinterpret_cast<const unsigned short*>(seg[sn].src + pn * seg[sn].plane + col0 + k);
-    unsigned short x[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      int row = seg[sn].row0 + r0 + 2 * i;
-      if (seg[sn].clip) row = min(max(row, 0), seg[sn].limit - 1);
-      x[i] = col_ok && row >= 0 && row < seg[sn].limit ? __ldg(src + static_cast<size_t>(row) * D) : 0;
-    }
-    const uint32_t d = dst + sn * ROWS * 128 + pn * PLANE;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) st_shared_u16(d + swz<128>((r0 + 2 * i) * 128 + 2 * k), x[i]);
-  }
-}
-
-// The same rows by cp.async of VW * 2 bytes (VW 2, 4 or 8), zero-filled
-// where a load is invalid: the copies land while the producer goes on (one
-// commit group a stage, committed by the caller), and the stage is published
-// once they are done (publish_stage)
-template <int VW, int ROWS, int NSEG, int P>
-__device__ __forceinline__ void async_load(uint32_t dst, const Seg (&seg)[NSEG], int D, int col0,
-                                           int ptid) {
-  constexpr int GR = CH / VW, PER = ROWS * GR / 128;
-  constexpr int RSTEP = 128 / GR;  // rows between a thread's loads
-  ptid = opaque_i(ptid);
-  // this thread's first row and its column, the same for every row it loads
-  const int r0 = ptid / GR, k = (ptid % GR) * VW;
-  const bool col_ok = col0 + k < D;
-#pragma unroll
-  for (int sp = 0; sp < NSEG * P; ++sp) {
-    const int sn = sp % NSEG, pn = sp / NSEG;
-    const __nv_bfloat16* src = seg[sn].src + pn * seg[sn].plane + col0 + k;
-    const uint32_t d = dst + sn * ROWS * 128 + pn * PLANE;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int r = r0 + RSTEP * i;
-      int row = seg[sn].row0 + r;
-      if (seg[sn].clip) row = min(max(row, 0), seg[sn].limit - 1);
-      const bool ok = col_ok && row >= 0 && row < seg[sn].limit;
-      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d + swz<128>(r * 128 + 2 * k)),
-                   "l"(ok ? src + static_cast<size_t>(row) * D : src), "n"(2 * VW), "r"(ok ? 2 * VW : 0)
-                   : "memory");
-    }
-  }
-}
-
-// own loads of a stage: asynchronous where a load is 4 bytes or more (true
-// returned: the stage waits for publish_stage), else loaded and stored here
-template <int ROWS, int NSEG, int P>
-__device__ __forceinline__ bool own_load(int vw, uint32_t dst, const Seg (&seg)[NSEG], int D,
-                                            int col0, int ptid) {
-  if (vw == 8) {
-    async_load<8, ROWS, NSEG, P>(dst, seg, D, col0, ptid);
-  } else if (vw == 4) {
-    async_load<4, ROWS, NSEG, P>(dst, seg, D, col0, ptid);
-  } else if (vw == 2) {
-    async_load<2, ROWS, NSEG, P>(dst, seg, D, col0, ptid);
-  } else {
-    load_u16<ROWS, NSEG, P>(dst, seg, D, col0, ptid);
-    return false;
-  }
-  return true;
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ---- shared memory and the ring ----
+// ---- shared memory ----
 
 template <typename T, bool OWNS_Q>
 struct Cfg {
@@ -392,223 +145,6 @@ struct Cfg {
   static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;  // 1024: the base's alignment
   static_assert(BYTES <= MAX_SMEM, "a block's shared memory");
 };
-
-// The ring of stages: the producer fills them in order, both consumer
-// warpgroups read every one (a warpgroup may only wait and release one it
-// has no product on), and each is released in the order it was taken.
-template <int STAGE, int N>
-struct Ring {
-  static constexpr int SLOTS = N;
-  uint32_t stages, full, empty;
-  int head = 0, tail = 0;
-  __device__ __forceinline__ uint32_t acquire() {
-    const int s = head % N;
-    mbar_wait(full + 8 * s, (head / N) & 1);
-    ++head;
-    return stages + s * STAGE;
-  }
-  __device__ __forceinline__ void release() {
-    mbar_arrive(empty + 8 * (tail % N));
-    ++tail;
-  }
-  // producer: wait until the next stage is free; its address and full barrier
-  __device__ __forceinline__ uint32_t begin() {
-    mbar_wait(empty + 8 * (head % N), ((head / N) & 1) ^ 1);
-    return stages + (head % N) * STAGE;
-  }
-  __device__ __forceinline__ uint32_t full_bar() const { return full + 8 * (head % N); }
-  __device__ __forceinline__ void end() {
-    fence_proxy_async();
-    mbar_arrive(full + 8 * (head % N));
-    ++head;
-  }
-};
-
-// publish stage i of the ring (full barrier `full`) whose copies this
-// thread's cp.async groups carry: wait until at most KEEP groups are in
-// flight (the stages after it), make the landed rows visible to wgmma, arrive
-template <int KEEP, int N>
-__device__ __forceinline__ void publish_stage(uint32_t full, int i) {
-  asm volatile("cp.async.wait_group %0;" ::"n"(KEEP) : "memory");
-  fence_proxy_async();
-  mbar_arrive(full + 8 * (i % N));
-}
-
-template <typename C>
-__device__ __forceinline__ void init_bars(uint32_t full, uint32_t empty) {
-  for (int s = 0; s < C::STAGES; ++s) {
-    mbar_init(full + 8 * s, 128);
-    mbar_init(empty + 8 * s, CONSUMERS);
-  }
-  mbar_fence_init();
-}
-
-// The producer warpgroup's stages, from bf16 sources of P planes (fp32: the
-// three planes the split wrote): tiles of q, k, v and g by TMA (rows of D a
-// multiple of 8) or by its own loads; windows of the table by TMA where no
-// row is clipped, else gathered.
-template <int P, typename R>
-struct Producer {
-  R ring;
-  const CUtensorMap* map_e;
-  const __nv_bfloat16* table;  // plane 0
-  size_t table_plane;
-  int D, max_pos, vw, ptid, grp;
-  bool tma;
-  struct Src {
-    const CUtensorMap* map;
-    const __nv_bfloat16* rows;  // the group's rows, plane 0
-    size_t plane;
-    int limit;
-  };
-
-  // A stage of own loads in flight is published when the next stage of own
-  // loads has been issued (so that two are in flight), or before a TMA stage,
-  // or at the end: never more than one behind, so the ring never waits on it.
-  int pending = -1;  // that stage's index in the ring, or -1
-  __device__ __forceinline__ void settle() {
-    if (pending >= 0) publish_stage<0, R::SLOTS>(ring.full, pending);
-    pending = -1;
-  }
-  // after a stage's own loads: publish the last pending stage, this one pends
-  // (async) or is published now
-  __device__ __forceinline__ void after_own(bool async) {
-    if (async) {
-      asm volatile("cp.async.commit_group;" ::: "memory");  // the stage's copies, one group
-      if (pending >= 0) publish_stage<1, R::SLOTS>(ring.full, pending);
-      pending = ring.head++;
-    } else {
-      settle();
-      ring.end();
-    }
-  }
-
-  // x0's rows r0 of chunk c0 as the stage's tile 0, x1's rows r1 of chunk c1
-  // (none where c1 < 0) as its tile 1
-  __device__ __forceinline__ void pair(const Src& x0, int r0, int c0, const Src& x1, int r1, int c1) {
-    if (tma) {
-      settle();
-      const uint32_t st = ring.begin(), bar = ring.full_bar();
-      if (ptid == 0) {
-        mbar_expect_tx(bar, (c1 >= 0 ? 2 : 1) * P * TILE);
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          tma_load_4d(st + p * PLANE, x0.map, bar, CH * c0, r0, grp, p);
-          if (c1 >= 0) tma_load_4d(st + TILE + p * PLANE, x1.map, bar, CH * c1, r1, grp, p);
-        }
-      }
-      ring.end();
-      return;
-    }
-    const uint32_t st = ring.begin();
-    bool async;
-    if (c0 == c1) {
-      const Seg seg[2] = {{x0.rows, x0.plane, r0, x0.limit, false},
-                          {x1.rows, x1.plane, r1, x1.limit, false}};
-      async = own_load<64, 2, P>(vw, st, seg, D, CH * c0, ptid);
-    } else {
-      const Seg s0[1] = {{x0.rows, x0.plane, r0, x0.limit, false}};
-      async = own_load<64, 1, P>(vw, st, s0, D, CH * c0, ptid);
-      if (c1 >= 0) {
-        const Seg s1[1] = {{x1.rows, x1.plane, r1, x1.limit, false}};
-        own_load<64, 1, P>(vw, st + TILE, s1, D, CH * c1, ptid);
-      }
-    }
-    after_own(async);
-  }
-  // the 128 window rows from table row row0 (clipped rows repeat the ends), chunk c
-  __device__ __forceinline__ void window(int row0, int c) {
-    if (tma && row0 >= 0 && row0 + 127 <= 2 * max_pos) {
-      settle();
-      const uint32_t st = ring.begin(), bar = ring.full_bar();
-      if (ptid == 0) {
-        mbar_expect_tx(bar, P * PLANE);
-#pragma unroll
-        for (int p = 0; p < P; ++p) tma_load_3d(st + p * PLANE, map_e, bar, CH * c, row0, p);
-      }
-      ring.end();
-      return;
-    }
-    const uint32_t st = ring.begin();
-    const Seg seg[1] = {{table, table_plane, row0, 2 * max_pos + 1, true}};
-    after_own(own_load<128, 1, P>(vw, st, seg, D, CH * c, ptid));
-  }
-};
-
-// The producer's sources: plane 0 of q, k, v, g and the table, bf16 (fp32:
-// the planes the split wrote), and the elements a plane of each
-struct Planes {
-  const __nv_bfloat16 *q, *k, *v, *g, *e;
-  size_t q_plane, k_plane, e_plane;
-};
-
-template <int P, typename R>
-__device__ __forceinline__ void init_producer(Producer<P, R>& pr, uint32_t base, uint32_t full,
-                                              uint32_t empty, const CUtensorMap* map_e,
-                                              const Planes& pl, int D, int max_pos, int vw,
-                                              int tma, int ptid) {
-  pr.ring.stages = base;
-  pr.ring.full = full;
-  pr.ring.empty = empty;
-  pr.map_e = map_e;
-  pr.table = pl.e;
-  pr.table_plane = pl.e_plane;
-  pr.D = D, pr.max_pos = max_pos, pr.vw = vw, pr.ptid = ptid;
-  pr.tma = tma != 0;
-}
-
-// ---- the consumers' shared steps ----
-
-// A consumer thread's place: warpgroup w, warp wp of it, lane (g, t4)
-struct Lane {
-  int w, wp, g, t4;
-};
-
-// the same place, which the compiler may not take for loop-invariant: the
-// many indices and shared addresses made from it (the band's cells, dS's and
-// dR's, the rows of partial sums) are made where they are used, a phase at a
-// time, not held in registers (or spilled) over the walk
-__device__ __forceinline__ Lane fresh(const Lane& l) {
-  return {opaque_i(l.w), opaque_i(l.wp), opaque_i(l.g), opaque_i(l.t4)};
-}
-
-// R (64 x 64: rows a, columns 64w + 8n + 2t4 + e of the window) into the
-// band at [a][c - a] where c - a is in [0, 64): stored (first chunk) or added
-__device__ __forceinline__ void band_put(float* band, const Lane& l0, const float (&r)[32], bool first) {
-  const Lane l = fresh(l0);
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int a = 16 * l.wp + l.g + 8 * rr;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int x = 64 * l.w + 8 * n + 2 * l.t4 + e - a;
-        if (x >= 0 && x < 64) {
-          float* cell = band + a * SKS + x;
-          *cell = first ? r[4 * n + 2 * rr + e] : *cell + r[4 * n + 2 * rr + e];
-        }
-      }
-    }
-  }
-}
-
-// s (+)= t
-template <int R>
-__device__ __forceinline__ void add_into(float (&s)[R], const float (&t)[R], bool first) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) s[i] = first ? t[i] : s[i] + t[i];
-}
-
-// the bf16 parts of two neighbouring values
-template <int P>
-__device__ __forceinline__ void parts_of(float x, float y, uint32_t (&u)[P]) {
-  if constexpr (P == 1) {
-    u[0] = pack_bf16(x, y);
-  } else {
-    split3(x, y, u);
-  }
-}
 
 // ============================ the dq / dE kernel ============================
 
@@ -640,7 +176,7 @@ flash_rel_wide_bwd_q(const __grid_constant__ CUtensorMap map_q, const __grid_con
   const long long n_units = static_cast<long long>(G) * n_qtiles * passes;
   const long long row_floats = static_cast<long long>(2 * max_pos + 1) * D;
 
-  if (tid == 0) init_bars<C>(full, empty);
+  if (tid == 0) init_bars(full, empty, C::STAGES);
   __syncthreads();
 
   if (wgi == 0) {
@@ -655,16 +191,17 @@ flash_rel_wide_bwd_q(const __grid_constant__ CUtensorMap map_q, const __grid_con
       using Src = typename Producer<P, RingT>::Src;
       const Src sq{&map_q, pl.q + qo, pl.q_plane, Tq}, sg{&map_g, pl.g + qo, pl.q_plane, Tq},
           sk{&map_k, pl.k + ko, pl.k_plane, Tk}, sv{&map_v, pl.v + ko, pl.k_plane, Tk};
-      const int c0 = NCW * pass, c1 = c0 + 1 < nch ? c0 + 1 : -1;
+      // the pass's columns: chunk NCW * pass, and the next where there is one
+      const int c0 = CH * NCW * pass, c1 = NCW * pass + 1 < nch ? c0 + CH : -1;
       for (int t = 0; t < n_tiles; ++t) {
         const int j0 = t * BK, base_t = i0 + q_offset - j0 - (BK - 1);
         const bool mixed = pair_kind(base_t, max_pos) == kMixed;
         const int row0 = base_t + max_pos;
         for (int c = 0; c < nch; ++c) {
-          pr.pair(sq, i0, c, sk, j0, c);
-          if (mixed) pr.window(row0, c);
+          pr.pair(sq, i0, CH * c, sk, j0, CH * c);
+          if (mixed) pr.window(row0, CH * c);
         }
-        for (int c = 0; c < nch; ++c) pr.pair(sg, i0, c, sv, j0, c);
+        for (int c = 0; c < nch; ++c) pr.pair(sg, i0, CH * c, sv, j0, CH * c);
         pr.pair(sk, j0, c0, sk, j0, c1);
         if (mixed) {
           pr.window(row0, c0);
@@ -779,24 +316,24 @@ flash_rel_wide_bwd_q(const __grid_constant__ CUtensorMap map_q, const __grid_con
           if (mixed) {
             const uint32_t e = opaque(ring.acquire());  // the window, chunk c
             float rc[32];
-            product_rs<P>(ks, rc, KMaj{a, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE}, s_acc, KMaj{a, PLANE},
+            logits_product<P>(ks, rc, KMaj{a, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE}, s_acc, KMaj{a, PLANE},
                           KMaj{a + TILE + 32 * 128 * l.w, PLANE});
             band_put(band, l, rc, c == 0);
             ring.release();
             ring.release();
           } else {
-            product<32, P, true>(ks, s_acc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+            chunk_product<32, P, true>(ks, s_acc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
             ring.release();
           }
         } else {
           if (mixed) {
             const uint32_t e = opaque(ring.acquire());  // the window, chunk c
             float rc[32];
-            product<64, P, false>(ks, rc, KMaj{a, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE});
+            chunk_product<64, P, false>(ks, rc, KMaj{a, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE});
             band_put(band, l, rc, c == 0);
           }
           float sc[16];
-          product<32, P, false>(ks, sc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+          chunk_product<32, P, false>(ks, sc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
           ring.release();
           if (mixed) ring.release();
           add_into(s_acc, sc, c == 0);
@@ -807,10 +344,10 @@ flash_rel_wide_bwd_q(const __grid_constant__ CUtensorMap map_q, const __grid_con
         const uint32_t a = opaque(ring.acquire());  // g_c | V_c
         const int ks = c == nch - 1 ? ks_last : 4;
         if constexpr (P == 1) {
-          product<32, P, true>(ks, dp_acc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+          chunk_product<32, P, true>(ks, dp_acc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
         } else {
           float pc[16];
-          product<32, P, false>(ks, pc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+          chunk_product<32, P, false>(ks, pc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
           add_into(dp_acc, pc, c == 0);
         }
         ring.release();
@@ -1050,7 +587,7 @@ flash_rel_wide_bwd_kv(const __grid_constant__ CUtensorMap map_q, const __grid_co
   const int n_ktiles = (Tk + BK - 1) / BK, n_qtiles = (Tq + WQ - 1) / WQ;
   const long long n_units = static_cast<long long>(G) * n_ktiles * passes;
 
-  if (tid == 0) init_bars<C>(full, empty);
+  if (tid == 0) init_bars(full, empty, C::STAGES);
   __syncthreads();
 
   if (wgi == 0) {
@@ -1066,15 +603,16 @@ flash_rel_wide_bwd_kv(const __grid_constant__ CUtensorMap map_q, const __grid_co
       using Src = typename Producer<P, RingT>::Src;
       const Src sq{&map_q, pl.q + qo, pl.q_plane, Tq}, sg{&map_g, pl.g + qo, pl.q_plane, Tq},
           sk{&map_k, pl.k + ko, pl.k_plane, Tk}, sv{&map_v, pl.v + ko, pl.k_plane, Tk};
-      const int c0 = NCW * pass, c1 = c0 + 1 < nch ? c0 + 1 : -1;
+      // the pass's columns: chunk NCW * pass, and the next where there is one
+      const int c0 = CH * NCW * pass, c1 = NCW * pass + 1 < nch ? c0 + CH : -1;
       for (int t = 0; t < n_qtiles; ++t) {
         const int i0 = t * WQ, base_t = i0 + q_offset - j0 - (BK - 1);
         const bool mixed = pair_kind(base_t, max_pos) == kMixed;
         for (int c = 0; c < nch; ++c) {
-          pr.pair(sk, j0, c, sq, i0, c);
-          if (mixed) pr.window(base_t + max_pos, c);
+          pr.pair(sk, j0, CH * c, sq, i0, CH * c);
+          if (mixed) pr.window(base_t + max_pos, CH * c);
         }
-        for (int c = 0; c < nch; ++c) pr.pair(sv, j0, c, sg, i0, c);
+        for (int c = 0; c < nch; ++c) pr.pair(sv, j0, CH * c, sg, i0, CH * c);
         pr.pair(sg, i0, c0, sg, i0, c1);
         pr.pair(sq, i0, c0, sq, i0, c1);
       }
@@ -1127,24 +665,24 @@ flash_rel_wide_bwd_kv(const __grid_constant__ CUtensorMap map_q, const __grid_co
           if (mixed) {
             const uint32_t e = opaque(ring.acquire());
             float rc[32];
-            product_rs<P>(ks, rc, KMaj{a + TILE, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE}, s_acc,
+            logits_product<P>(ks, rc, KMaj{a + TILE, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE}, s_acc,
                           KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
             band_put(band, l, rc, c == 0);
             ring.release();
             ring.release();
           } else {
-            product<32, P, true>(ks, s_acc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+            chunk_product<32, P, true>(ks, s_acc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
             ring.release();
           }
         } else {
           if (mixed) {
             const uint32_t e = opaque(ring.acquire());
             float rc[32];
-            product<64, P, false>(ks, rc, KMaj{a + TILE, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE});
+            chunk_product<64, P, false>(ks, rc, KMaj{a + TILE, PLANE}, KMaj{e + 64 * 128 * l.w, PLANE});
             band_put(band, l, rc, c == 0);
           }
           float sc[16];
-          product<32, P, false>(ks, sc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+          chunk_product<32, P, false>(ks, sc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
           ring.release();
           if (mixed) ring.release();
           add_into(s_acc, sc, c == 0);
@@ -1155,10 +693,10 @@ flash_rel_wide_bwd_kv(const __grid_constant__ CUtensorMap map_q, const __grid_co
         const uint32_t a = opaque(ring.acquire());  // V_c | g_c
         const int ks = c == nch - 1 ? ks_last : 4;
         if constexpr (P == 1) {
-          product<32, P, true>(ks, dp_acc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+          chunk_product<32, P, true>(ks, dp_acc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
         } else {
           float pc[16];
-          product<32, P, false>(ks, pc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
+          chunk_product<32, P, false>(ks, pc, KMaj{a, PLANE}, KMaj{a + TILE + 32 * 128 * l.w, PLANE});
           add_into(dp_acc, pc, c == 0);
         }
         ring.release();
@@ -1298,42 +836,6 @@ __global__ void flash_rel_wide_bwd_prologue(const T* __restrict__ out, const T* 
   }
 }
 
-// fp32 rows split once into three bf16 planes, x = x0 + x1 + x2, for the
-// producers' loads (TMA cannot split); tensor blockIdx.y of up to five, its
-// planes `plane` elements apart
-struct Split {
-  const float* src[5];
-  __nv_bfloat16* dst[5];
-  long long n[5], plane[5];
-};
-__global__ void flash_rel_wide_bwd_split(const Split s) {
-  const int t = blockIdx.y;
-  const float* src = s.src[t];
-  __nv_bfloat16* dst = s.dst[t];
-  const long long n = s.n[t], plane = s.plane[t];
-  const long long step = 4LL * gridDim.x * blockDim.x;
-  for (long long e = 4LL * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x); e < n;
-       e += step) {
-    if (e + 4 <= n) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(src + e));
-      uint32_t lo[3], hi[3];
-      split3(x.x, x.y, lo);
-      split3(x.z, x.w, hi);
-#pragma unroll
-      for (int p = 0; p < 3; ++p) *reinterpret_cast<uint2*>(dst + p * plane + e) = make_uint2(lo[p], hi[p]);
-    } else {
-      for (long long i = e; i < n; ++i) {
-        uint32_t v[3];
-        split3(src[i], 0.f, v);
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          *reinterpret_cast<unsigned short*>(dst + p * plane + i) = static_cast<unsigned short>(v[p]);
-        }
-      }
-    }
-  }
-}
-
 // dE[e] = the sum over the blocks' rows of partial sums, in block order
 __global__ void flash_rel_sum_partials(const float* __restrict__ partials, float* __restrict__ dtable,
                                        int n_rows, long long n) {
@@ -1355,22 +857,6 @@ struct Args {
 
 // the dq kernel writes the table's gradient (off only to time it without those writes)
 int g_de_writes = 1;
-
-// persistent blocks, at most one an SM, block b taking units b, b + grid, ...:
-// a grid with no factor in common with the units a group, so that no block
-// takes only one tile position
-int persistent_grid(long long per_group, long long n_units, int* grid) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = sms;
-  while (blocks > 1 && std::gcd(static_cast<long long>(blocks), per_group) != 1) --blocks;
-  *grid = static_cast<int>(n_units < blocks ? n_units : blocks);
-  return *grid >= 1 ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-__host__ __device__ constexpr long long round_up(long long x, long long m) { return (x + m - 1) / m * m; }
 
 // Where a launch's scratch lies in `partials`, in floats from its start: the
 // dq kernel's blocks' rows of partial sums (`grid` rows of n floats), the
@@ -1397,45 +883,6 @@ int rows_of(long long floats, long long n) {
   const long long rows = (floats + n - 1) / n;
   return rows > 0x7fffffffLL ? -static_cast<int>(cudaErrorInvalidValue) : static_cast<int>(rows);
 }
-
-// A map of a bf16 tensor of `rank` dims (innermost first; rows of 128 bytes
-// a box, `strides` in bytes for dims 1 ..), boxes of `box`, in the 128-byte
-// swizzle; elements outside the tensor read as zero. 0, or a CUDA error code.
-int make_map_n(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-               const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the tensor maps of the producers' sources: q and g, k and v [P][G][T][D]
-// in boxes of 64 rows of one chunk and one plane, the table [P][rows][D] in
-// boxes of 128 rows
-int make_maps(const Args& a, const Planes& pl, int P, CUtensorMap* m) {
-  const cuuint64_t row = 2ull * a.D, D = static_cast<cuuint64_t>(a.D);
-  const cuuint64_t dq[4] = {D, static_cast<cuuint64_t>(a.Tq), static_cast<cuuint64_t>(a.G),
-                            static_cast<cuuint64_t>(P)};
-  const cuuint64_t dk[4] = {D, static_cast<cuuint64_t>(a.Tk), static_cast<cuuint64_t>(a.G),
-                            static_cast<cuuint64_t>(P)};
-  const cuuint64_t de[3] = {D, static_cast<cuuint64_t>(2 * a.max_pos + 1), static_cast<cuuint64_t>(P)};
-  const cuuint64_t sq[3] = {row, row * a.Tq, 2ull * (P > 1 ? pl.q_plane : static_cast<size_t>(a.G) * a.Tq * a.D)};
-  const cuuint64_t sk[3] = {row, row * a.Tk, 2ull * (P > 1 ? pl.k_plane : static_cast<size_t>(a.G) * a.Tk * a.D)};
-  const cuuint64_t se[2] = {row, 2ull * (P > 1 ? pl.e_plane : static_cast<size_t>(2 * a.max_pos + 1) * a.D)};
-  const cuuint32_t box[4] = {CH, 64, 1, 1}, be[3] = {CH, 128, 1};
-  int rc = make_map_n(&m[0], pl.q, 4, dq, sq, box);
-  if (rc == 0) rc = make_map_n(&m[1], pl.g, 4, dq, sq, box);
-  if (rc == 0) rc = make_map_n(&m[2], pl.k, 4, dk, sk, box);
-  if (rc == 0) rc = make_map_n(&m[3], pl.v, 4, dk, sk, box);
-  if (rc == 0) rc = make_map_n(&m[4], pl.e, 3, de, se, be);
-  return rc;
-}
-
-// bf16 elements a load of the producer's own: the widest that divides a row
-int load_width(int D) { return D % 8 == 0 ? 8 : D % 4 == 0 ? 4 : D % 2 == 0 ? 2 : 1; }
 
 template <typename T>
 int launch(const Args& a) {
@@ -1466,27 +913,26 @@ int launch(const Args& a) {
   Planes pl{};
   if constexpr (P == 1) {
     pl = {static_cast<const bf16_t*>(a.q), static_cast<const bf16_t*>(a.k), static_cast<const bf16_t*>(a.v),
-          static_cast<const bf16_t*>(a.gout), static_cast<const bf16_t*>(a.table), 0, 0, 0};
+          static_cast<const bf16_t*>(a.gout), static_cast<const bf16_t*>(a.table), 0, 0, 0, a.D};
   } else {
     bf16_t* base = reinterpret_cast<bf16_t*>(partials + l.planes_at);
     bf16_t* dst[5] = {base, base + 3 * l.q_plane, base + 6 * l.q_plane, base + 6 * l.q_plane + 3 * l.k_plane,
                       base + 6 * l.q_plane + 6 * l.k_plane};
-    const long long nq = static_cast<long long>(a.G) * a.Tq * a.D, nk = static_cast<long long>(a.G) * a.Tk * a.D;
+    const long long rq = static_cast<long long>(a.G) * a.Tq, rk = static_cast<long long>(a.G) * a.Tk;
     const Split sp = {{static_cast<const float*>(a.q), static_cast<const float*>(a.gout),
                        static_cast<const float*>(a.k), static_cast<const float*>(a.v),
                        static_cast<const float*>(a.table)},
                       {dst[0], dst[1], dst[2], dst[3], dst[4]},
-                      {nq, nq, nk, nk, l.n},
-                      {l.q_plane, l.q_plane, l.k_plane, l.k_plane, l.e_plane}};
-    const long long most = (nq > nk ? nq : nk) / 4 / 256 + 1;
-    flash_rel_wide_bwd_split<<<dim3(static_cast<unsigned>(most < 2048 ? most : 2048), 5), 256, 0, a.stream>>>(sp);
-    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+                      {rq, rq, rk, rk, 2LL * a.max_pos + 1},
+                      {l.q_plane, l.q_plane, l.k_plane, l.k_plane, l.e_plane},
+                      a.D, a.D};
+    if ((err = split_planes<5>(sp, a.stream)) != 0) return err;
     pl = {dst[0], dst[2], dst[3], dst[1], dst[4], static_cast<size_t>(l.q_plane),
-          static_cast<size_t>(l.k_plane), static_cast<size_t>(l.e_plane)};
+          static_cast<size_t>(l.k_plane), static_cast<size_t>(l.e_plane), a.D};
   }
   const bool tma = a.D % 8 == 0;
   CUtensorMap m[5] = {};
-  if (tma && (err = make_maps(a, pl, P, m)) != 0) return err;
+  if (tma && (err = make_maps(pl, P, a.G, a.Tq, a.Tk, a.D, a.max_pos, m)) != 0) return err;
   const int vw = load_width(a.D);
 
   // dq and the table's gradient (the statistics above first: same stream)

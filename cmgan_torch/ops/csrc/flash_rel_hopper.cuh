@@ -1,7 +1,8 @@
 // Hopper building blocks of the attention kernels (flash_rel_attention.cu,
-// the forward, and flash_rel_attention_bwd.cu, the backward), written as
-// inline PTX so that nvcc builds each library in seconds: no CUTLASS or CuTe
-// header.
+// the forward, and flash_rel_attention_bwd.cu, the backward, for head dims up
+// to 64; flash_rel_attention_wide{,_bwd}.cu past it, whose shared pieces are
+// the namespace `wide` at the end), written as inline PTX so that nvcc builds
+// each library in seconds: no CUTLASS or CuTe header.
 //
 //   mbarrier    a barrier in shared memory that counts arrivals and the bytes
 //               a TMA copy delivers; a waiter spins on one phase's parity
@@ -36,6 +37,8 @@
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is reached through the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <numeric>
 
 #include "flash_rel_common.cuh"
 
@@ -605,6 +608,644 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
+
+
+// ============ the wide kernels' pieces (flash_rel_attention_wide{,_bwd}.cu) ============
+//
+// Heads wider than 64, of any width, in chunks of 64 columns: a chunk tile is
+// 64 rows of 128 bytes of bf16 (fp32: three planes, x = x0 + x1 + x2, split
+// once by flash_rel_wide_split), in the 128-byte swizzle, so every product is
+// wgmma with the descriptors of a 64-wide head. Columns past D are zero in
+// shared memory and not computed. A block is a producer warpgroup and two
+// consumer warpgroups; the producer fills a ring of stages, each 128 rows of
+// one chunk: two 64-row tiles, each from its own rows and columns, or the
+// 128-row window of the table; by TMA where a row is a multiple of 16 bytes (D
+// a multiple of 8) and the window has no clipped row; else by its own cp.async
+// copies (rows of 200 bytes at D 100; a window's clipped rows repeat the
+// table's ends), one stage kept in flight while it issues the next. The two
+// consumer warpgroups share a tile pair's logits: warpgroup w computes S for
+// keys 32w .. 32w + 31 and R = Q . E_window^T for window rows 64w .. 64w + 63,
+// R through a band in shared memory, R[a][a + x] at [a][x].
+
+namespace wide {
+
+constexpr int CH = 64;                   // head-dim columns a chunk: a 128-byte bf16 row
+constexpr int NCW = 2;                   // consumer warpgroups
+constexpr int NT = 128 * (NCW + 1);      // the producer warpgroup, then the consumers
+constexpr int CONSUMERS = 128 * NCW;
+constexpr int TILE = 64 * 128;           // bytes a 64-row chunk tile (a bf16 plane)
+constexpr int PLANE = 2 * TILE;          // bytes a plane of a stage: 128 rows
+constexpr int SBO = 1024;                // 8 rows of 128 bytes
+constexpr int LAYOUT = 1;                // the 128-byte swizzle
+constexpr int SKS = 68;                  // floats a row of the band
+constexpr int BAND = 64 * SKS * 4;       // R[a][a + x], x in [0, 64): a query a row
+constexpr int CONSUMER_BAR = 5;          // the consumers' named barrier (1 .. 2: warpgroups')
+
+__host__ __device__ constexpr int chunks_of(int d) { return (d + CH - 1) / CH; }
+
+// the 256 consumer threads meet, their shared-memory writes visible to each other
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;" ::"n"(CONSUMER_BAR), "n"(CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+// no memory clobber: ordered by the fence and the barrier that follow
+__device__ __forceinline__ void st_shared_u16(uint32_t addr, uint32_t v) {
+  asm volatile("{\n.reg .b16 h;\ncvt.u16.u32 h, %1;\nst.shared.b16 [%0], h;\n}\n" ::"r"(addr), "r"(v));
+}
+
+// x, which the compiler may not take for loop-invariant: descriptors made
+// from it are made where they are used, not held in registers over the walk
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ int opaque_i(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// ---- descriptors of 128-byte-row tiles ----
+
+// K-major: rows along M or N, the 64 columns along the depth (16 a step)
+__device__ __forceinline__ uint64_t kdesc(uint32_t a, int kk) { return smem_desc(a + 32 * kk, SBO, LAYOUT); }
+// MN-major: rows along the depth (16 a step), the 64 columns along M or N
+__device__ __forceinline__ uint64_t mdesc(uint32_t a, int kk) { return smem_desc(a + 2048 * kk, SBO, LAYOUT); }
+
+// (the base passes through opaque() at each use, so that a chain's
+// descriptors are made as it issues them, not all held in registers first)
+struct KMaj {  // a tile of planes `pl` bytes apart, K-major
+  uint32_t a;
+  int pl;
+  __device__ __forceinline__ uint64_t operator()(int p, int kk) const { return kdesc(opaque(a) + p * pl, kk); }
+};
+struct MMaj {  // ... MN-major
+  uint32_t a;
+  int pl;
+  __device__ __forceinline__ uint64_t operator()(int p, int kk) const { return mdesc(opaque(a) + p * pl, kk); }
+};
+
+// d (64 x N) = A . B over K16 depth steps (ACC: d += A . B): the part
+// products of P planes, smallest first (all steps of a part before the
+// next), from zero
+template <int N, int P, int K16, int TA, int TB, bool ACC = false, typename FA, typename FB>
+__device__ __forceinline__ void chain(float (&d)[N / 2], FA da, FB db) {
+  constexpr int X0 = P == 1 ? 5 : 0;
+#pragma unroll
+  for (int x = X0; x < 6; ++x) {
+#pragma unroll
+    for (int kk = 0; kk < K16; ++kk) {
+      const uint64_t a = da(part_a(x), kk), b = db(part_b(x), kk);
+      if (!ACC && x == X0 && kk == 0) {
+        wgmma_ss<N, true, TA, TB>(d, a, b);
+      } else {
+        wgmma_ss<N, false, TA, TB>(d, a, b);
+      }
+    }
+  }
+}
+
+// d = A . B (ACC: d += A . B), both K-major, over the first ks depth steps
+// of a chunk (4, or fewer in the last chunk of a head dim that is no
+// multiple of 64: the zero columns past D are not computed), in a
+// fence-to-wait span of its own in each case
+template <int N, int P, bool ACC, typename FA, typename FB>
+__device__ __forceinline__ void chunk_product(int ks, float (&d)[N / 2], FA da, FB db) {
+  switch (ks) {
+    case 1:
+      wgmma_fence();
+      chain<N, P, 1, 0, 0, ACC>(d, da, db);
+      wgmma_commit();
+      wgmma_wait<0>();
+      break;
+    case 2:
+      wgmma_fence();
+      chain<N, P, 2, 0, 0, ACC>(d, da, db);
+      wgmma_commit();
+      wgmma_wait<0>();
+      break;
+    case 3:
+      wgmma_fence();
+      chain<N, P, 3, 0, 0, ACC>(d, da, db);
+      wgmma_commit();
+      wgmma_wait<0>();
+      break;
+    default:
+      wgmma_fence();
+      chain<N, P, 4, 0, 0, ACC>(d, da, db);
+      wgmma_commit();
+      wgmma_wait<0>();
+      break;
+  }
+  fence_regs(d);
+}
+// A mixed pair's chunk in one span (bf16): r = Q . E_w^T (N 64; RACC: r +=)
+// and d += Q . K^T (N 32)
+template <int P, bool RACC = false, typename FA, typename FB, typename FC, typename FD>
+__device__ __forceinline__ void logits_product(int ks, float (&r)[32], FA ra, FB rb, float (&d)[16], FC da,
+                                               FD db) {
+  switch (ks) {
+    case 1:
+      wgmma_fence();
+      chain<64, P, 1, 0, 0, RACC>(r, ra, rb);
+      chain<32, P, 1, 0, 0, true>(d, da, db);
+      wgmma_commit();
+      wgmma_wait<0>();
+      break;
+    case 2:
+      wgmma_fence();
+      chain<64, P, 2, 0, 0, RACC>(r, ra, rb);
+      chain<32, P, 2, 0, 0, true>(d, da, db);
+      wgmma_commit();
+      wgmma_wait<0>();
+      break;
+    case 3:
+      wgmma_fence();
+      chain<64, P, 3, 0, 0, RACC>(r, ra, rb);
+      chain<32, P, 3, 0, 0, true>(d, da, db);
+      wgmma_commit();
+      wgmma_wait<0>();
+      break;
+    default:
+      wgmma_fence();
+      chain<64, P, 4, 0, 0, RACC>(r, ra, rb);
+      chain<32, P, 4, 0, 0, true>(d, da, db);
+      wgmma_commit();
+      wgmma_wait<0>();
+      break;
+  }
+  fence_regs(r);
+  fence_regs(d);
+}
+
+// ---- the producer's own loads ----
+
+// Rows of a bf16 source of P planes (`plane` elements apart; rows of D
+// elements) that a stage takes: rows row0 .. of each plane, read where 0 <=
+// row < limit, else zero; with clip, rows clamped into [0, limit) instead, so
+// that the table's end rows repeat
+struct Seg {
+  const __nv_bfloat16* src;
+  size_t plane;
+  int row0, limit;
+  bool clip;
+};
+
+// NSEG segments of ROWS rows (ld elements apart; segment s at dst + s * ROWS
+// * 128, plane p PLANE bytes on), columns col0 .. col0 + 63 (zero past D),
+// swizzled, where ld is odd (a row is no whole number of 4 bytes, so no
+// cp.async takes it):
+// loaded and stored here, 2 bytes at a time, by the 128 threads of the
+// producer warpgroup, a plane of one segment a batch, its loads in flight
+// before the first store
+template <int ROWS, int NSEG, int P>
+__device__ __forceinline__ void load_u16(uint32_t dst, const Seg (&seg)[NSEG], int D, int ld, int col0,
+                                         int ptid) {
+  constexpr int PER = ROWS * CH / 128;
+  ptid = opaque_i(ptid);
+  const int r0 = ptid / CH, k = ptid % CH;  // this thread's first row and its column
+  const bool col_ok = col0 + k < D;
+#pragma unroll
+  for (int sp = 0; sp < NSEG * P; ++sp) {
+    const int sn = sp % NSEG, pn = sp / NSEG;
+    const unsigned short* src =
+        reinterpret_cast<const unsigned short*>(seg[sn].src + pn * seg[sn].plane + col0 + k);
+    unsigned short x[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      int row = seg[sn].row0 + r0 + 2 * i;
+      if (seg[sn].clip) row = min(max(row, 0), seg[sn].limit - 1);
+      x[i] = col_ok && row >= 0 && row < seg[sn].limit ? __ldg(src + static_cast<size_t>(row) * ld) : 0;
+    }
+    const uint32_t d = dst + sn * ROWS * 128 + pn * PLANE;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) st_shared_u16(d + swz<128>((r0 + 2 * i) * 128 + 2 * k), x[i]);
+  }
+}
+
+// The same rows by cp.async of VW * 2 bytes (VW 2, 4 or 8), zero-filled
+// where a load is invalid: the copies land while the producer goes on (one
+// commit group a stage, committed by the caller), and the stage is published
+// once they are done (publish_stage)
+template <int VW, int ROWS, int NSEG, int P>
+__device__ __forceinline__ void async_load(uint32_t dst, const Seg (&seg)[NSEG], int D, int ld, int col0,
+                                           int ptid) {
+  constexpr int GR = CH / VW, PER = ROWS * GR / 128;
+  constexpr int RSTEP = 128 / GR;  // rows between a thread's loads
+  ptid = opaque_i(ptid);
+  // this thread's first row and its column, the same for every row it loads
+  const int r0 = ptid / GR, k = (ptid % GR) * VW;
+  const bool col_ok = col0 + k < D;
+#pragma unroll
+  for (int sp = 0; sp < NSEG * P; ++sp) {
+    const int sn = sp % NSEG, pn = sp / NSEG;
+    const __nv_bfloat16* src = seg[sn].src + pn * seg[sn].plane + col0 + k;
+    const uint32_t d = dst + sn * ROWS * 128 + pn * PLANE;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int r = r0 + RSTEP * i;
+      int row = seg[sn].row0 + r;
+      if (seg[sn].clip) row = min(max(row, 0), seg[sn].limit - 1);
+      const bool ok = col_ok && row >= 0 && row < seg[sn].limit;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d + swz<128>(r * 128 + 2 * k)),
+                   "l"(ok ? src + static_cast<size_t>(row) * ld : src), "n"(2 * VW), "r"(ok ? 2 * VW : 0)
+                   : "memory");
+    }
+  }
+}
+
+// own loads of a stage: asynchronous where a load is 4 bytes or more (true
+// returned: the stage waits for publish_stage), else loaded and stored here
+template <int ROWS, int NSEG, int P>
+__device__ __forceinline__ bool own_load(int vw, uint32_t dst, const Seg (&seg)[NSEG], int D,
+                                         int ld, int col0, int ptid) {
+  if (vw == 8) {
+    async_load<8, ROWS, NSEG, P>(dst, seg, D, ld, col0, ptid);
+  } else if (vw == 4) {
+    async_load<4, ROWS, NSEG, P>(dst, seg, D, ld, col0, ptid);
+  } else if (vw == 2) {
+    async_load<2, ROWS, NSEG, P>(dst, seg, D, ld, col0, ptid);
+  } else {
+    load_u16<ROWS, NSEG, P>(dst, seg, D, ld, col0, ptid);
+    return false;
+  }
+  return true;
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- the ring ----
+
+// The ring of stages: the producer fills them in order, both consumer
+// warpgroups read every one (a warpgroup may only wait and release one it
+// has no product on), and each is released in the order it was taken.
+template <int STAGE, int N>
+struct Ring {
+  static constexpr int SLOTS = N;
+  uint32_t stages, full, empty;
+  int head = 0, tail = 0;
+  __device__ __forceinline__ uint32_t acquire() {
+    const int s = head % N;
+    mbar_wait(full + 8 * s, (head / N) & 1);
+    ++head;
+    return stages + s * STAGE;
+  }
+  __device__ __forceinline__ void release() {
+    mbar_arrive(empty + 8 * (tail % N));
+    ++tail;
+  }
+  // producer: wait until the next stage is free; its address and full barrier
+  __device__ __forceinline__ uint32_t begin() {
+    mbar_wait(empty + 8 * (head % N), ((head / N) & 1) ^ 1);
+    return stages + (head % N) * STAGE;
+  }
+  __device__ __forceinline__ uint32_t full_bar() const { return full + 8 * (head % N); }
+  __device__ __forceinline__ void end() {
+    fence_proxy_async();
+    mbar_arrive(full + 8 * (head % N));
+    ++head;
+  }
+};
+
+// publish stage i of the ring (full barrier `full`) whose copies this
+// thread's cp.async groups carry: wait until at most KEEP groups are in
+// flight (the stages after it), make the landed rows visible to wgmma, arrive
+template <int KEEP, int N>
+__device__ __forceinline__ void publish_stage(uint32_t full, int i) {
+  asm volatile("cp.async.wait_group %0;" ::"n"(KEEP) : "memory");
+  fence_proxy_async();
+  mbar_arrive(full + 8 * (i % N));
+}
+
+// a stage's full barrier counts the producer warpgroup, its empty barrier the consumers
+__device__ __forceinline__ void init_bars(uint32_t full, uint32_t empty, int stages) {
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(full + 8 * s, 128);
+    mbar_init(empty + 8 * s, CONSUMERS);
+  }
+  mbar_fence_init();
+}
+
+// The producer's sources: plane 0 of q, k, v, g (the backward's output
+// gradient) and the table, bf16 (fp32: the planes flash_rel_wide_split
+// wrote), the elements a plane of each, and the elements a row (D, or the
+// split's rows padded to a multiple of 8 columns, so that TMA takes them)
+struct Planes {
+  const __nv_bfloat16 *q, *k, *v, *g, *e;
+  size_t q_plane, k_plane, e_plane;
+  int ld;
+};
+
+// The producer warpgroup's stages, from bf16 sources of P planes: 64-row
+// tiles of q, k, v and g by TMA (rows of D a multiple of 8) or by its own
+// loads; windows of the table by TMA where no row is clipped, else gathered.
+template <int P, typename R>
+struct Producer {
+  R ring;
+  const CUtensorMap* map_e;
+  const __nv_bfloat16* table;  // plane 0
+  size_t table_plane;
+  int D, ld, max_pos, vw, ptid, grp;
+  bool tma;
+  struct Src {
+    const CUtensorMap* map;
+    const __nv_bfloat16* rows;  // the group's rows, plane 0
+    size_t plane;
+    int limit;
+  };
+
+  // A stage of own loads in flight is published when the next stage of own
+  // loads has been issued (so that two are in flight), or before a TMA stage,
+  // or at the end: never more than one behind, so the ring never waits on it.
+  int pending = -1;  // that stage's index in the ring, or -1
+  __device__ __forceinline__ void settle() {
+    if (pending >= 0) publish_stage<0, R::SLOTS>(ring.full, pending);
+    pending = -1;
+  }
+  // after a stage's own loads: publish the last pending stage, this one pends
+  // (async) or is published now
+  __device__ __forceinline__ void after_own(bool async) {
+    if (async) {
+      asm volatile("cp.async.commit_group;" ::: "memory");  // the stage's copies, one group
+      if (pending >= 0) publish_stage<1, R::SLOTS>(ring.full, pending);
+      pending = ring.head++;
+    } else {
+      settle();
+      ring.end();
+    }
+  }
+
+  // x0's rows r0, columns col0 .. col0 + 63, as the stage's tile 0; x1's rows
+  // r1, columns col1 .. (none where col1 < 0) as its tile 1
+  __device__ __forceinline__ void pair(const Src& x0, int r0, int col0, const Src& x1, int r1, int col1) {
+    if (tma) {
+      settle();
+      const uint32_t st = ring.begin(), bar = ring.full_bar();
+      if (ptid == 0) {
+        mbar_expect_tx(bar, (col1 >= 0 ? 2 : 1) * P * TILE);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          tma_load_4d(st + p * PLANE, x0.map, bar, col0, r0, grp, p);
+          if (col1 >= 0) tma_load_4d(st + TILE + p * PLANE, x1.map, bar, col1, r1, grp, p);
+        }
+      }
+      ring.end();
+      return;
+    }
+    const uint32_t st = ring.begin();
+    bool async;
+    if (col0 == col1) {
+      const Seg seg[2] = {{x0.rows, x0.plane, r0, x0.limit, false},
+                          {x1.rows, x1.plane, r1, x1.limit, false}};
+      async = own_load<64, 2, P>(vw, st, seg, D, ld, col0, ptid);
+    } else {
+      const Seg s0[1] = {{x0.rows, x0.plane, r0, x0.limit, false}};
+      async = own_load<64, 1, P>(vw, st, s0, D, ld, col0, ptid);
+      if (col1 >= 0) {
+        const Seg s1[1] = {{x1.rows, x1.plane, r1, x1.limit, false}};
+        own_load<64, 1, P>(vw, st + TILE, s1, D, ld, col1, ptid);
+      }
+    }
+    after_own(async);
+  }
+  // the 128 window rows from table row row0 (clipped rows repeat the ends), columns col ..
+  __device__ __forceinline__ void window(int row0, int col) {
+    if (tma && row0 >= 0 && row0 + 127 <= 2 * max_pos) {
+      settle();
+      const uint32_t st = ring.begin(), bar = ring.full_bar();
+      if (ptid == 0) {
+        mbar_expect_tx(bar, P * PLANE);
+#pragma unroll
+        for (int p = 0; p < P; ++p) tma_load_3d(st + p * PLANE, map_e, bar, col, row0, p);
+      }
+      ring.end();
+      return;
+    }
+    const uint32_t st = ring.begin();
+    const Seg seg[1] = {{table, table_plane, row0, 2 * max_pos + 1, true}};
+    after_own(own_load<128, 1, P>(vw, st, seg, D, ld, col, ptid));
+  }
+};
+
+template <int P, typename R>
+__device__ __forceinline__ void init_producer(Producer<P, R>& pr, uint32_t base, uint32_t full,
+                                              uint32_t empty, const CUtensorMap* map_e,
+                                              const Planes& pl, int D, int max_pos, int vw,
+                                              int tma, int ptid) {
+  pr.ring.stages = base;
+  pr.ring.full = full;
+  pr.ring.empty = empty;
+  pr.map_e = map_e;
+  pr.table = pl.e;
+  pr.table_plane = pl.e_plane;
+  pr.D = D, pr.ld = pl.ld, pr.max_pos = max_pos, pr.vw = vw, pr.ptid = ptid;
+  pr.tma = tma != 0;
+}
+
+// ---- the consumers' shared steps ----
+
+// A consumer thread's place: warpgroup w, warp wp of it, lane (g, t4)
+struct Lane {
+  int w, wp, g, t4;
+};
+
+// the same place, which the compiler may not take for loop-invariant: the
+// many indices and shared addresses made from it are made where they are
+// used, a phase at a time, not held in registers (or spilled) over the walk
+__device__ __forceinline__ Lane fresh(const Lane& l) {
+  return {opaque_i(l.w), opaque_i(l.wp), opaque_i(l.g), opaque_i(l.t4)};
+}
+
+// R (64 x 64: rows a, columns 64w + 8n + 2t4 + e of the window) into the
+// band at [a][c - a] where c - a is in [0, 64): stored (first chunk) or added.
+// The cells a thread adds to are all read before any is written: a load
+// ordered behind a store to a cell the compiler cannot tell apart would wait
+// for it, a chain of 16 round trips a chunk.
+__device__ __forceinline__ void band_put(float* band, const Lane& l0, const float (&r)[32], bool first) {
+  const Lane l = fresh(l0);
+  float old[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) old[i] = 0.f;
+  if (!first) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int a = 16 * l.wp + l.g + 8 * rr;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 64 * l.w + 8 * n + 2 * l.t4 + e - a;
+          if (x >= 0 && x < 64) old[4 * n + 2 * rr + e] = band[a * SKS + x];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int a = 16 * l.wp + l.g + 8 * rr;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 64 * l.w + 8 * n + 2 * l.t4 + e - a;
+        const int i = 4 * n + 2 * rr + e;
+        if (x >= 0 && x < 64) band[a * SKS + x] = first ? r[i] : old[i] + r[i];
+      }
+    }
+  }
+}
+
+// s (+)= t
+template <int R>
+__device__ __forceinline__ void add_into(float (&s)[R], const float (&t)[R], bool first) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) s[i] = first ? t[i] : s[i] + t[i];
+}
+
+// the bf16 parts of two neighbouring values
+template <int P>
+__device__ __forceinline__ void parts_of(float x, float y, uint32_t (&u)[P]) {
+  if constexpr (P == 1) {
+    u[0] = pack_bf16(x, y);
+  } else {
+    split3(x, y, u);
+  }
+}
+
+// ---- fp32 split once into three bf16 planes ----
+
+// fp32 rows split into three bf16 planes, x = x0 + x1 + x2, for the
+// producers' loads (TMA cannot split); tensor blockIdx.y of the N given:
+// rows[t] rows of `cols` elements into rows of `ld` (cols or more, the
+// columns past cols zero), its planes `plane[t]` elements apart
+struct Split {
+  const float* src[5];
+  __nv_bfloat16* dst[5];
+  long long rows[5], plane[5];
+  int cols, ld;
+};
+template <int N>
+__global__ void flash_rel_wide_split(const Split s) {
+  const int t = blockIdx.y;
+  const float* src = s.src[t];
+  __nv_bfloat16* dst = s.dst[t];
+  const long long n = s.rows[t] * s.ld, plane = s.plane[t];
+  const long long step = 4LL * gridDim.x * blockDim.x;
+  for (long long e = 4LL * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x); e < n;
+       e += step) {
+    float x[4];
+    if (s.ld == s.cols && e + 4 <= n) {
+      const float4 y = __ldg(reinterpret_cast<const float4*>(src + e));
+      x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
+    } else {
+      const long long r = e / s.ld;
+      const int c = static_cast<int>(e % s.ld);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // unpadded rows: element e + i of the whole; padded: whole groups of 4 a row
+        x[i] = s.ld == s.cols ? (e + i < n ? src[e + i] : 0.f)
+                              : (c + i < s.cols ? src[r * s.cols + c + i] : 0.f);
+      }
+    }
+    uint32_t lo[3], hi[3];
+    split3(x[0], x[1], lo);
+    split3(x[2], x[3], hi);
+    if (e + 4 <= n) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p) *reinterpret_cast<uint2*>(dst + p * plane + e) = make_uint2(lo[p], hi[p]);
+    } else {
+      for (long long i = e; i < n; ++i) {  // the last elements of unpadded rows
+        const int j = static_cast<int>(i - e);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          const uint32_t pair = j < 2 ? lo[p] : hi[p];
+          *reinterpret_cast<unsigned short*>(dst + p * plane + i) =
+              static_cast<unsigned short>(pair >> (16 * (j & 1)));
+        }
+      }
+    }
+  }
+}
+
+__host__ __device__ constexpr long long round_up(long long x, long long m) { return (x + m - 1) / m * m; }
+
+// Launch the split of the first N tensors of s.
+template <int N>
+int split_planes(const Split& s, cudaStream_t stream) {
+  long long most = 0;
+  for (int t = 0; t < N; ++t) most = s.rows[t] > most ? s.rows[t] : most;
+  const long long blocks = most * s.ld / 4 / 256 + 1;
+  flash_rel_wide_split<N><<<dim3(static_cast<unsigned>(blocks < 2048 ? blocks : 2048), N), 256, 0, stream>>>(s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- host ----
+
+// persistent blocks, at most one an SM, block b taking units b, b + grid, ...:
+// a grid with no factor in common with the units a group, so that no block
+// takes only one tile position
+inline int persistent_grid(long long per_group, long long n_units, int* grid) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = sms;
+  while (blocks > 1 && std::gcd(static_cast<long long>(blocks), per_group) != 1) --blocks;
+  *grid = static_cast<int>(n_units < blocks ? n_units : blocks);
+  return *grid >= 1 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A map of a bf16 tensor of `rank` dims (innermost first; rows of 128 bytes
+// a box, `strides` in bytes for dims 1 ..), boxes of `box`, in the 128-byte
+// swizzle; elements outside the tensor read as zero. 0, or a CUDA error code.
+inline int make_map_n(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor maps of the producers' sources (P planes): m[0 .. 4] for q, g,
+// k, v [P][G][T][D] (rows pl.ld apart) in boxes of 64 rows of one chunk and
+// one plane, and the table [P][rows][D] in boxes of 128 rows; g's only where
+// pl.g is set. The bf16 planes' sizes are the tensors' own.
+inline int make_maps(const Planes& pl, int P, int G, int Tq, int Tk, int D, int max_pos, CUtensorMap* m) {
+  const cuuint64_t row = 2ull * pl.ld, d = static_cast<cuuint64_t>(D);
+  const cuuint64_t rows = static_cast<cuuint64_t>(2 * max_pos + 1);
+  const cuuint64_t g = static_cast<cuuint64_t>(G), planes = static_cast<cuuint64_t>(P);
+  const cuuint64_t dq[4] = {d, static_cast<cuuint64_t>(Tq), g, planes};
+  const cuuint64_t dk[4] = {d, static_cast<cuuint64_t>(Tk), g, planes};
+  const cuuint64_t de[3] = {d, rows, planes};
+  const cuuint64_t sq[3] = {row, row * Tq, 2ull * (P > 1 ? pl.q_plane : static_cast<size_t>(G) * Tq * D)};
+  const cuuint64_t sk[3] = {row, row * Tk, 2ull * (P > 1 ? pl.k_plane : static_cast<size_t>(G) * Tk * D)};
+  const cuuint64_t se[2] = {row, 2ull * (P > 1 ? pl.e_plane : rows * D)};
+  const cuuint32_t box[4] = {CH, 64, 1, 1}, be[3] = {CH, 128, 1};
+  int rc = make_map_n(&m[0], pl.q, 4, dq, sq, box);
+  if (rc == 0 && pl.g != nullptr) rc = make_map_n(&m[1], pl.g, 4, dq, sq, box);
+  if (rc == 0) rc = make_map_n(&m[2], pl.k, 4, dk, sk, box);
+  if (rc == 0) rc = make_map_n(&m[3], pl.v, 4, dk, sk, box);
+  if (rc == 0) rc = make_map_n(&m[4], pl.e, 3, de, se, be);
+  return rc;
+}
+
+// bf16 elements a load of the producer's own: the widest that divides a row
+inline int load_width(int D) { return D % 8 == 0 ? 8 : D % 4 == 0 ? 4 : D % 2 == 0 ? 2 : 1; }
+
+}  // namespace wide
 
 }  // namespace hopper
 }  // namespace flash_rel

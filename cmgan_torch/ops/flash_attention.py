@@ -36,20 +36,19 @@ The tensor-core kernels are built for head dims of 16, 32 and 64
 to the next of them: zero columns add nothing to q.k or q.E, q carries
 the softmax scale of the true head dim, and the padded columns of the
 output and of every gradient are sliced away, so the result is exact.
-A head wider than 64, of any width, takes the wide kernels, unpadded: the
-forward in `csrc/flash_rel_attention_wide.cu` (the same C entries) runs the
-same tensor-core tile products, but walks the head dim in chunks staged into
-shared memory (zero past the head dim, at most 15 padded columns computed)
-and splits the output's columns into slabs of at most `WIDE_SLABS['fwd']`
-columns, one block each, that recompute the logits. The backward in
-`csrc/flash_rel_attention_wide_bwd.cu` is built for Hopper as the one of
-heads up to 64: the head dim in chunks of 64 columns (`WIDE_BWD_CHUNK`),
-each consumer warpgroup of a block owning one chunk of the output columns
-in a pass and the two sharing a tile pair's logits, so a kernel computes
-them once a pass of 128 columns. `plan` says how a head of dim d runs;
-`wide_attention` and `wide_attention_grads` are the wide kernels' walks
-(chunks, slabs or passes, the table's gradient carried and added as the
-kernels add it) in plain PyTorch.
+A head wider than 64, of any width, takes the wide kernels, unpadded, both
+built for Hopper as the ones of heads up to 64: the head dim in chunks of
+`WIDE_CHUNK` columns (zero past the head dim, at most 15 padded columns
+computed), and two consumer warpgroups a block that share a tile pair's
+logits. In the forward (`csrc/flash_rel_attention_wide.cu`, an entry of its
+own that takes fp32's scratch) each warpgroup owns half of a pass's output
+columns, at most `WIDE_FWD_HALF`, so one pass covers every head up to 320
+columns and computes the logits once a tile pair; in the backward
+(`csrc/flash_rel_attention_wide_bwd.cu`) each owns one chunk of a pass, so a
+kernel computes them once a pass of 128 columns. `plan` says how a head of
+dim d runs; `wide_attention` and `wide_attention_grads` are the wide
+kernels' walks (chunks, passes, the table's gradient carried and added as
+the kernels add it) in plain PyTorch.
 
 Every backward path sums the table's gradient in one fixed order, with no
 atomics, so two runs on the same inputs give the same bits: the kernel
@@ -78,17 +77,16 @@ from cmgan_torch.ops import _build
 
 # head dims the tensor-core kernels are instantiated for (csrc/flash_rel_common.cuh)
 KERNEL_HEAD_DIMS = (16, 32, 64)
-# the wide kernels' widest slab of output columns: the forward's (128 up to D
-# 128; csrc/flash_rel_attention_wide.cu); the backward kernels' pass, one chunk
-# of WIDE_BWD_CHUNK columns for each of their WIDE_BWD_GROUPS consumer
-# warpgroups (csrc/flash_rel_attention_wide_bwd.cu)
-WIDE_BWD_CHUNK, WIDE_BWD_GROUPS = 64, 2
-WIDE_SLABS = {"fwd": 256, "bwd_q": WIDE_BWD_CHUNK * WIDE_BWD_GROUPS,
-              "bwd_k": WIDE_BWD_CHUNK * WIDE_BWD_GROUPS}
-# head-dim columns the wide forward stages a chunk, by type
-WIDE_CHUNK = {torch.float32: 16, torch.bfloat16: 32}
+# the wide kernels (heads over 64): head-dim columns a chunk, and consumer
+# warpgroups a block; the forward's output columns a warpgroup a pass, at most
+# (csrc/flash_rel_attention_wide.cu); the widest pass of each kernel: the
+# forward's two halves, the backward kernels' one chunk a warpgroup
+# (csrc/flash_rel_attention_wide_bwd.cu)
+WIDE_CHUNK, WIDE_GROUPS, WIDE_FWD_HALF = 64, 2, 160
+WIDE_SLABS = {"fwd": WIDE_FWD_HALF * WIDE_GROUPS, "bwd_q": WIDE_CHUNK * WIDE_GROUPS,
+              "bwd_k": WIDE_CHUNK * WIDE_GROUPS}
 # persistent blocks of the backward kernel that sums the table's gradient in
-# the walks (`tiled_attention_grads`, `wide_attention_grads`; a slab's blocks in
+# the walks (`tiled_attention_grads`, `wide_attention_grads`; a pass's blocks in
 # the wide one); on the card, as many as it holds at once
 WALK_BLOCKS = 8
 KERNEL = "flash_rel_attention"
@@ -406,49 +404,51 @@ def tiled_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offs
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dtable.to(rel_table.dtype)
 
 
-def widest_slab(d: int, kernel: str) -> int:
-    """The widest slab of a wide kernel ('fwd', 'bwd_q', 'bwd_k') at head dim d
-    (a backward kernel's slab is a pass)."""
-    return 128 if kernel == "fwd" and d <= 128 else WIDE_SLABS[kernel]
+def _fwd_passes(d: int):
+    """The wide forward's passes at head dim d: the fewest of at most
+    WIDE_SLABS['fwd'] columns, of equal widths rounded up to 16; each its
+    consumer warpgroups' output columns, half a pass each (the second's may be
+    narrower, or empty, at the head's end)."""
+    n = -(-d // WIDE_SLABS["fwd"])
+    half = -(-(-(-d // n)) // 16) * 8
+    return [[slice(min(d, (WIDE_GROUPS * p + w) * half), min(d, (WIDE_GROUPS * p + w + 1) * half))
+             for w in range(WIDE_GROUPS)] for p in range(n)]
 
 
 def _bwd_passes(d: int):
     """The wide backward kernels' passes at head dim d: each the column chunks
-    (WIDE_BWD_CHUNK wide, the last narrower) of its consumer warpgroups."""
-    chunks = [slice(c, min(d, c + WIDE_BWD_CHUNK)) for c in range(0, d, WIDE_BWD_CHUNK)]
-    return [chunks[i:i + WIDE_BWD_GROUPS] for i in range(0, len(chunks), WIDE_BWD_GROUPS)]
-
-
-def _slabs(d: int, kernel: str):
-    """The column ranges of a wide kernel's slabs (the backward's passes) at head dim d."""
-    if kernel != "fwd":
-        return [slice(p[0].start, p[-1].stop) for p in _bwd_passes(d)]
-    width = slab_width(d, widest_slab(d, kernel))
-    return [slice(s0, min(d, s0 + width)) for s0 in range(0, d, width)]
+    (WIDE_CHUNK wide, the last narrower) of its consumer warpgroups."""
+    chunks = [slice(c, min(d, c + WIDE_CHUNK)) for c in range(0, d, WIDE_CHUNK)]
+    return [chunks[i:i + WIDE_GROUPS] for i in range(0, len(chunks), WIDE_GROUPS)]
 
 
 def wide_attention(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int = 0,
                    return_lse: bool = False):
-    """The wide forward kernel's walk in plain PyTorch: for each slab of
-    output columns, every tile pair's logits over the whole head dim (in
-    chunks), the online softmax, and P . V in the slab's columns. Same
-    function as `reference_attention`; for tests and checks."""
+    """The wide forward kernel's walk in plain PyTorch: for each pass
+    (`_fwd_passes`), every tile pair's logits once over the whole head dim
+    in chunks of WIDE_CHUNK columns (R of each chunk through the skew), the
+    online softmax, and P . V into each consumer warpgroup's columns,
+    WIDE_CHUNK at a time. Same function as `reference_attention`; for tests
+    and checks."""
     qf, kf, vf, table = q.float(), k.float(), v.float(), rel_table.float()
     g, tq, d = q.shape
     out = torch.zeros(g, tq, d, device=q.device)
-    for cols in _slabs(d, "fwd"):
+    for halves in _fwd_passes(d):
         m = torch.full((g, tq), float("-inf"), device=q.device)
         l = torch.zeros(g, tq, device=q.device)
+        subs = [slice(c, min(h.stop, c + WIDE_CHUNK)) for h in halves
+                for c in range(h.start, h.stop, WIDE_CHUNK)]
         for i0, nq, j0, nk, base, kind in _tile_pairs(tq, t_valid, q_offset, max_pos, 64):
             rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
-            s = _tile_logits(qf[:, rows], kf[:, keys], table, max_pos, base, kind, 64,
-                             WIDE_CHUNK.get(q.dtype, 16))
+            s = _tile_logits(qf[:, rows], kf[:, keys], table, max_pos, base, kind, 64, WIDE_CHUNK)
             m_new = torch.maximum(m[:, rows], s.amax(dim=2))
             corr = torch.exp(m[:, rows] - m_new)
             p = torch.exp(s - m_new[:, :, None])
             l[:, rows] = l[:, rows] * corr + p.sum(dim=2)
-            out[:, rows, cols] = out[:, rows, cols] * corr[:, :, None] + p @ vf[:, keys, cols]
+            for cols in subs:
+                out[:, rows, cols] = out[:, rows, cols] * corr[:, :, None] + p @ vf[:, keys, cols]
             m[:, rows] = m_new
+        cols = slice(halves[0].start, halves[-1].stop)
         out[:, :, cols] /= l[:, :, None]
     out = out.to(q.dtype)
     return (out, m + torch.log(l)) if return_lse else out
@@ -457,7 +457,7 @@ def wide_attention(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int
 def wide_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int, g,
                          blocks: int = WALK_BLOCKS):
     """The wide backward kernels' walk in plain PyTorch. For each pass (two
-    chunks of 64 output columns, `_bwd_passes`), the dq/dE kernel's units
+    chunks of WIDE_CHUNK output columns, `_bwd_passes`), the dq/dE kernel's units
     (group, 64 queries) walk the key tiles: the logits over the whole head
     dim in chunks of 64 (computed once a pass), ds written skewed into dR,
     dq += dS . K + dR . E_w in the pass's columns, and dE_w = dR^T . Q in two
@@ -482,7 +482,7 @@ def wide_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offse
 
     def weights(i0, nq, j0, nk, base, kind):
         rows, keys = slice(i0, i0 + nq), slice(j0, j0 + nk)
-        s = _tile_logits(qf[:, rows], kf[:, keys], table, max_pos, base, kind, 64, WIDE_BWD_CHUNK)
+        s = _tile_logits(qf[:, rows], kf[:, keys], table, max_pos, base, kind, 64, WIDE_CHUNK)
         p = torch.exp(s - lse[:, rows, None])
         return p, p * (gf[:, rows] @ vf[:, keys].transpose(1, 2) - delta[:, rows, None])
 
@@ -552,6 +552,8 @@ def wide_attention_grads(q, k, v, rel_table, max_pos: int, t_valid: int, q_offse
 
 
 _FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# the wide forward's: q, k, v, table, out, lse, scratch, its bytes, the ints, the stream
+_WIDE_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
@@ -580,10 +582,20 @@ def _bwd_kernel():
     return _bind(BWD_KERNEL, forward=False, backward=True)
 
 
+def bind_wide_forward(lib):
+    """Declares, on the ctypes library `lib` (the wide forward's), its own
+    entry, which takes fp32's scratch, and the entry that sizes it."""
+    lib.cmgan_flash_rel_attention_wide_fwd.argtypes = _WIDE_FWD_ARGS
+    lib.cmgan_flash_rel_attention_wide_fwd.restype = ctypes.c_int
+    scratch = lib.cmgan_flash_rel_attention_wide_fwd_scratch
+    scratch.argtypes, scratch.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _wide_kernel():
-    """The wide forward's library (kernel #1's entries)."""
-    return _bind(WIDE_KERNEL, forward=True, backward=False)
+    """The wide forward's library."""
+    return bind_wide_forward(_bind(WIDE_KERNEL, forward=False, backward=False))
 
 
 @functools.lru_cache(maxsize=None)
@@ -606,10 +618,6 @@ def backward_scratch_rows(lib, bf16: int, g: int, tq: int, tk: int, d: int, max_
     if rows < 0:
         _raise_on(lib, -rows, "flash_rel_attention_bwd")
     return rows
-
-
-def _fwd_lib(d: int):
-    return _wide_kernel() if wide_head_dim(d) else _kernel()
 
 
 def _bwd_lib(d: int):
@@ -653,21 +661,43 @@ def _check(q, k, v, rel_table, max_pos: int, t_valid: int, q_offset: int):
         raise ValueError(f"q_offset {q_offset}: need 0 <= q_offset and q_offset + Tq <= Tk ({tq}, {tk})")
 
 
+def wide_forward(lib, q, k, v, rel_table, out, lse, max_pos, t_valid, q_offset) -> int:
+    """One launch of the wide forward library `lib` (its own entry, at any
+    head dim) on the current stream: fp32's scratch (three bf16 planes of q,
+    k, v and the table) sized by the library and allocated here. lse may be
+    None. Returns the library's CUDA error code (0 on success)."""
+    g, tq, d = q.shape
+    tk = k.shape[1]
+    bf16 = int(q.dtype == torch.bfloat16)
+    nbytes = lib.cmgan_flash_rel_attention_wide_fwd_scratch(bf16, d, g, tq, tk, max_pos)
+    if nbytes < 0:
+        raise ValueError(f"the wide forward takes no scratch size for G {g}, Tq {tq}, Tk {tk}, D {d}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
+    return lib.cmgan_flash_rel_attention_wide_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_table.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        nbytes, g, tq, tk, d, max_pos, t_valid, q_offset, bf16,
+        torch.cuda.current_stream(q.device).cuda_stream)
+
+
 def _launch_forward(q, k, v, rel_table, max_pos, t_valid, q_offset, want_lse: bool):
     """One forward launch; returns (out, lse or None)."""
     global launches
     g, tq, d = q.shape
-    lib = _fwd_lib(d)
     out = torch.empty_like(q)
     lse = torch.empty(g, tq, dtype=torch.float32, device=q.device) if want_lse else None
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.cmgan_flash_rel_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_table.data_ptr(),
-            out.data_ptr(), lse.data_ptr() if want_lse else None,
-            g, tq, k.shape[1], d, max_pos, t_valid, q_offset,
-            int(q.dtype == torch.bfloat16), stream,
-        )
+        if wide_head_dim(d):
+            lib = _wide_kernel()
+            rc = wide_forward(lib, q, k, v, rel_table, out, lse, max_pos, t_valid, q_offset)
+        else:
+            lib = _kernel()
+            rc = lib.cmgan_flash_rel_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_table.data_ptr(),
+                out.data_ptr(), lse.data_ptr() if want_lse else None,
+                g, tq, k.shape[1], d, max_pos, t_valid, q_offset,
+                int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+            )
     _raise_on(lib, rc, "flash_rel_attention")
     launches += 1
     return out, lse
@@ -726,23 +756,16 @@ def wide_head_dim(d: int) -> bool:
     return d > KERNEL_HEAD_DIMS[-1]
 
 
-def slab_width(d: int, widest: int) -> int:
-    """The wide kernels' slab width at head dim d: the fewest slabs of at
-    most `widest` columns, of equal widths rounded up to 8
-    (`slab_width` in csrc/flash_rel_attention_wide.cu)."""
-    n = -(-d // widest)
-    return -(-(-(-d // n)) // 8) * 8
-
-
 @dataclasses.dataclass(frozen=True)
 class HeadPlan:
     d: int                 # the head dim asked for
     path: str              # 'tensor_core' (d <= 64) or 'wide'
     width: int             # the head dim the kernels run at (zero-padded up to it)
     logit_columns: int     # head-dim columns a logit's products compute
-    slabs: dict            # wide: kernel -> (number of slabs, slab width); else {}
-    #                        (the backward kernels' slabs are passes: each computes
-    #                        a tile pair's logits once)
+    slabs: dict            # wide: kernel -> (passes, columns): the forward's columns
+    #                        a consumer warpgroup owns in a pass, a backward
+    #                        kernel's columns a pass; else {} (each pass
+    #                        computes a tile pair's logits once)
 
     @property
     def padded_columns(self) -> int:
@@ -753,18 +776,19 @@ class HeadPlan:
 def plan(d: int) -> HeadPlan:
     """How the CUDA kernels run a head of dim d (any d >= 1): the
     tensor-core kernels at the least of KERNEL_HEAD_DIMS that holds it,
-    zero-padded; or the wide kernels unpadded, the forward's logits over
-    16-column depth steps and the output's columns in slabs, the backward's
-    in passes of two 64-column chunks (`WIDE_SLABS`)."""
+    zero-padded; or the wide kernels unpadded, their logits over 16-column
+    depth steps, the forward's output columns in passes of two halves, one
+    a consumer warpgroup (`_fwd_passes`), the backward's in passes of two
+    64-column chunks (`_bwd_passes`)."""
     if d < 1:
         raise ValueError(f"a head dim is at least 1; got {d}")
     if not wide_head_dim(d):
         width = next(w for w in KERNEL_HEAD_DIMS if d <= w)
         return HeadPlan(d, "tensor_core", width, width, {})
-    slabs = {}
-    for name in WIDE_SLABS:
-        width = slab_width(d, widest_slab(d, name)) if name == "fwd" else WIDE_SLABS[name]
-        slabs[name] = (-(-d // width), width)
+    fwd = _fwd_passes(d)
+    slabs = {"fwd": (len(fwd), fwd[0][0].stop - fwd[0][0].start)}
+    for name in ("bwd_q", "bwd_k"):
+        slabs[name] = (len(_bwd_passes(d)), WIDE_SLABS[name])
     return HeadPlan(d, "wide", d, -(-d // 16) * 16, slabs)
 
 

@@ -88,18 +88,19 @@ def test_kernel_head_dim_and_what_the_kernels_refuse():
         16, 16, 32, 32, 64, 64, 64, 65, 80, 128, 200, 256]
     # above 64 the wide kernels, unpadded; 64 and below the tensor-core ones
     assert [fa.wide_head_dim(d) for d in dims] == [False] * 7 + [True] * 5
-    # the wide plan: (slabs, width) of the forward, (passes, columns a pass) of
-    # the backward's dq and dk/dv kernels, and the zero columns the forward's
-    # logits compute past D; no head dim is refused
+    # the wide plan: (passes, columns a consumer warpgroup owns) of the
+    # forward, (passes, columns a pass) of the backward's dq and dk/dv
+    # kernels, and the zero columns the logits compute past D; no head dim is
+    # refused
     expect = {
-        65: ((1, 72), (1, 128), (1, 128), 15),
-        80: ((1, 80), (1, 128), (1, 128), 0),
-        100: ((1, 104), (1, 128), (1, 128), 12),
-        128: ((1, 128), (1, 128), (1, 128), 0),
-        256: ((1, 256), (2, 128), (2, 128), 0),
-        257: ((2, 136), (3, 128), (3, 128), 15),
-        320: ((2, 160), (3, 128), (3, 128), 0),
-        512: ((2, 256), (4, 128), (4, 128), 0),
+        65: ((1, 40), (1, 128), (1, 128), 15),
+        80: ((1, 40), (1, 128), (1, 128), 0),
+        100: ((1, 56), (1, 128), (1, 128), 12),
+        128: ((1, 64), (1, 128), (1, 128), 0),
+        256: ((1, 128), (2, 128), (2, 128), 0),
+        257: ((1, 136), (3, 128), (3, 128), 15),
+        320: ((1, 160), (3, 128), (3, 128), 0),
+        512: ((2, 128), (4, 128), (4, 128), 0),
     }
     for d, (fwd, bwd_q, bwd_k, padded) in expect.items():
         p = fa.plan(d)
