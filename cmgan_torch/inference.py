@@ -26,6 +26,7 @@ from cmgan_torch.dsp import istft, power_compress, power_uncompress, stft
 from cmgan_torch.models import TSCNet
 from cmgan_torch.models.layers import torch_default_init_
 from cmgan_torch.parallel import attach, collectives, shard_batch
+from cmgan_torch.utils.profiling import span
 
 
 # rows per enhance_batch call fall inversely with the bucket length: about
@@ -103,10 +104,12 @@ def enhance_tensor(model: TSCNet, dsp: DSPConfig, x: torch.Tensor,
     read back, so calls queue on the device and a CUDA graph can capture
     them. Callers pick the grad mode (`Enhancer` and streaming run it under
     `torch.inference_mode`)."""
-    packed = power_compress(stft(x, dsp.n_fft, dsp.hop, dft_impl=dft_impl), dsp.compress_exponent)
-    est_real, est_imag = model(packed)
-    est = power_uncompress(est_real.float(), est_imag.float(), dsp.compress_exponent)
-    return istft(est, dsp.n_fft, dsp.hop, dft_impl=dft_impl)
+    with span("cmgan.enhance.call"):
+        packed = power_compress(stft(x, dsp.n_fft, dsp.hop, dft_impl=dft_impl),
+                                dsp.compress_exponent)
+        est_real, est_imag = model(packed)
+        est = power_uncompress(est_real.float(), est_imag.float(), dsp.compress_exponent)
+        return istft(est, dsp.n_fft, dsp.hop, dft_impl=dft_impl)
 
 
 class Enhancer:

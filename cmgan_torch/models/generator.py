@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 from cmgan_torch.config import ModelConfig
 from cmgan_torch.models.conformer import BatchNorm, ConformerBlock
 from cmgan_torch.models.layers import Conv2d, InstanceNorm, PReLU, SubPixelConv
+from cmgan_torch.utils.profiling import span
 
 
 class DilatedDenseNet(nn.Module):
@@ -100,10 +101,12 @@ class TSCB(nn.Module):
 
     def forward(self, x):
         b, c, t, f = x.shape
-        xt = x.permute(0, 3, 2, 1).reshape(b * f, t, c)
-        xt = self.time_conformer(xt) + xt
-        xf = xt.reshape(b, f, t, c).transpose(1, 2).reshape(b * t, f, c)
-        xf = self.freq_conformer(xf) + xf
+        with span("cmgan.model.time_conformer"):
+            xt = x.permute(0, 3, 2, 1).reshape(b * f, t, c)
+            xt = self.time_conformer(xt) + xt
+        with span("cmgan.model.freq_conformer"):
+            xf = xt.reshape(b, f, t, c).transpose(1, 2).reshape(b * t, f, c)
+            xf = self.freq_conformer(xf) + xf
         return xf.reshape(b, t, f, c).permute(0, 3, 1, 2)
 
 
@@ -187,20 +190,22 @@ class TSCNet(nn.Module):
 
     def forward(self, spec):
         # spec: [B, T, F, 2] compressed (re, im)
-        spec = spec.float()
-        re, im = spec[..., 0], spec[..., 1]
-        mag = torch.sqrt(re * re + im * im)
-        phase = torch.atan2(im, re)
-        x = torch.stack([mag, re, im], dim=1)  # [B, 3, T, F]
-
-        x = self.dense_encoder(x)
+        with span("cmgan.model.encoder"):
+            spec = spec.float()
+            re, im = spec[..., 0], spec[..., 1]
+            mag = torch.sqrt(re * re + im * im)
+            phase = torch.atan2(im, re)
+            x = torch.stack([mag, re, im], dim=1)  # [B, 3, T, F]
+            x = self.dense_encoder(x)
         remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for i in range(self.cfg.num_tscb_blocks):
             block = getattr(self, f"TSCB_{i + 1}")
             x = _rematerialized(block, x) if remat else block(x)
 
-        out_mag = self.mask_decoder(x).float() * mag
-        complex_out = self.complex_decoder(x).float()
-        final_real = out_mag * torch.cos(phase) + complex_out[:, 0]
-        final_imag = out_mag * torch.sin(phase) + complex_out[:, 1]
+        with span("cmgan.model.mask_decoder"):
+            out_mag = self.mask_decoder(x).float() * mag
+        with span("cmgan.model.complex_decoder"):
+            complex_out = self.complex_decoder(x).float()
+            final_real = out_mag * torch.cos(phase) + complex_out[:, 0]
+            final_imag = out_mag * torch.sin(phase) + complex_out[:, 1]
         return final_real, final_imag

@@ -34,6 +34,7 @@ import torch
 
 from cmgan_torch.config import CMGANConfig, DSPConfig
 from cmgan_torch.inference import enhance_tensor, load_generator
+from cmgan_torch.utils.profiling import span
 
 
 def _window_fn(model, windows: torch.Tensor, c: torch.Tensor, dsp: DSPConfig) -> torch.Tensor:
@@ -409,6 +410,17 @@ class StreamBatcher:
         """
         if not blocks:
             return {}
+        with span("cmgan.stream.tick"):
+            with span("cmgan.stream.prep"):
+                act, c = self._slide(blocks)
+            with span("cmgan.stream.device"):
+                est = _enhance_windows(self.model, self.cfg.dsp, self.device, self._in_buffer, c)
+            with span("cmgan.stream.emit"):
+                return self._emit(act, est)
+
+    def _slide(self, blocks: dict):
+        """Slide the ticked slots' windows by their blocks and update their
+        running RMS; returns (the ticked slots, every lane's level scale)."""
         act = np.asarray(sorted(blocks), np.int64)
         new = np.stack([np.asarray(blocks[i], np.float32) for i in act])
         if new.shape != (act.size, self.chunk):
@@ -430,7 +442,11 @@ class StreamBatcher:
         self._warm[act] = True
 
         c = (1.0 / np.sqrt(np.maximum(self._mean_sq, 1e-8))).astype(np.float32)
-        est = _enhance_windows(self.model, self.cfg.dsp, self.device, self._in_buffer, c)
+        return act, c
+
+    def _emit(self, act: np.ndarray, est: np.ndarray) -> dict:
+        """The ticked slots' outputs from the enhanced windows est [S, W]:
+        WOLA or cross-fade, then each slot's alignment skip."""
         start = self.window - self.lookahead - self.chunk
 
         if self.emit == "wola":

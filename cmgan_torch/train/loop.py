@@ -35,7 +35,7 @@ from cmgan_torch.parallel import (
 )
 from cmgan_torch.train.state import TrainState, check_supported, init_train_state
 from cmgan_torch.train.steps import make_train_steps, pesq_labels_host
-from cmgan_torch.utils import MetricsLogger
+from cmgan_torch.utils import MetricsLogger, span
 
 log = logging.getLogger("cmgan_torch.train")
 
@@ -147,25 +147,27 @@ class Trainer:
         the PREVIOUS batch's disc loss, or None on the first step of an
         epoch; `drain_pending_d()` applies the final deferred update.
         """
-        if self.mesh is not None and not local:
-            clean, noisy = shard_batch(self.mesh, clean, noisy)
-        if self.cfg.train.pesq_label_mode == "device":
-            metrics, disc_loss = self.fused_step(self.state, clean, noisy)
+        with span("cmgan.train.step"):
+            if self.mesh is not None and not local:
+                clean, noisy = shard_batch(self.mesh, clean, noisy)
+            if self.cfg.train.pesq_label_mode == "device":
+                metrics, disc_loss = self.fused_step(self.state, clean, noisy)
+                self._maybe_ema()
+                return metrics["gen_loss"], disc_loss
+            metrics, handoff = self.g_step(self.state, clean, noisy)
             self._maybe_ema()
+            if self.cfg.train.pesq_label_mode == "host_async":
+                future = self._label_pool.submit(
+                    lambda est_dev, c=clean: pesq_labels_host(c, est_dev.cpu().numpy()),
+                    handoff["est_audio"],
+                )
+                disc_loss = self.drain_pending_d()
+                self._pending_d = (handoff, future, self.state.step)
+                return metrics["gen_loss"], disc_loss
+            with span("cmgan.train.labels"):
+                scores = pesq_labels_host(clean, handoff["est_audio"].cpu().numpy())
+            disc_loss = self.d_step(self.state, handoff["clean_mag"], handoff["est_mag"], scores)
             return metrics["gen_loss"], disc_loss
-        metrics, handoff = self.g_step(self.state, clean, noisy)
-        self._maybe_ema()
-        if self.cfg.train.pesq_label_mode == "host_async":
-            future = self._label_pool.submit(
-                lambda est_dev, c=clean: pesq_labels_host(c, est_dev.cpu().numpy()),
-                handoff["est_audio"],
-            )
-            disc_loss = self.drain_pending_d()
-            self._pending_d = (handoff, future, self.state.step)
-            return metrics["gen_loss"], disc_loss
-        scores = pesq_labels_host(clean, handoff["est_audio"].cpu().numpy())
-        disc_loss = self.d_step(self.state, handoff["clean_mag"], handoff["est_mag"], scores)
-        return metrics["gen_loss"], disc_loss
 
     def drain_pending_d(self):
         """Apply the deferred discriminator update (host_async mode).

@@ -52,6 +52,7 @@ from cmgan_torch.train.state import (
     make_lr_schedule,
     rng_scope,
 )
+from cmgan_torch.utils.profiling import span
 
 
 def pesq_labels_host(clean: np.ndarray, est: np.ndarray) -> np.ndarray:
@@ -225,33 +226,34 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int, mesh=None):
         """One generator update. Returns (metrics, handoff): loss parts as
         0-d device tensors, and the detached tensors the host labeler and
         the discriminator phase take."""
-        clean, noisy = _on_device(state, clean, noisy)
-        state.gen.train()
-        state.disc.train()
-        params = list(state.gen.parameters())
-        with rng_scope(state):
-            out = _generator_forward(state.gen, clean, noisy, cfg)
-            loss, _, parts = _generator_loss(
-                state.disc, out, _time_target(out, clean), weights, region=region
-            )
-            # only the generator's parameters get gradients; the
-            # discriminator's spectral-norm state has advanced and stays
-            grads = _global_mean(list(torch.autograd.grad(loss, params)))
-        for p, g in zip(params, grads):
-            p.grad = g
-        _set_lr(state.gen_opt, gen_lr(state.step))
-        state.gen_opt.step()
-        state.gen_opt.zero_grad(set_to_none=True)
-        state.step += 1
-        metrics = {k: v.detach().clone() for k, v in parts.items()}
-        metrics["gen_loss"] = loss.detach().clone()
-        _global_mean(list(metrics.values()))
-        handoff = {
-            "clean_mag": out["clean_mag"].detach(),
-            "est_mag": out["est_mag"].detach(),
-            "est_audio": out["est_audio"].detach(),
-        }
-        return metrics, handoff
+        with span("cmgan.train.g"):
+            clean, noisy = _on_device(state, clean, noisy)
+            state.gen.train()
+            state.disc.train()
+            params = list(state.gen.parameters())
+            with rng_scope(state):
+                out = _generator_forward(state.gen, clean, noisy, cfg)
+                loss, _, parts = _generator_loss(
+                    state.disc, out, _time_target(out, clean), weights, region=region
+                )
+                # only the generator's parameters get gradients; the
+                # discriminator's spectral-norm state has advanced and stays
+                grads = _global_mean(list(torch.autograd.grad(loss, params)))
+            for p, g in zip(params, grads):
+                p.grad = g
+            _set_lr(state.gen_opt, gen_lr(state.step))
+            state.gen_opt.step()
+            state.gen_opt.zero_grad(set_to_none=True)
+            state.step += 1
+            metrics = {k: v.detach().clone() for k, v in parts.items()}
+            metrics["gen_loss"] = loss.detach().clone()
+            _global_mean(list(metrics.values()))
+            handoff = {
+                "clean_mag": out["clean_mag"].detach(),
+                "est_mag": out["est_mag"].detach(),
+                "est_audio": out["est_audio"].detach(),
+            }
+            return metrics, handoff
 
     def _d_update(state: TrainState, clean_mag, est_mag, labels, step_now: int):
         """The discriminator's loss, gradients and AdamW update; labels are
@@ -285,10 +287,11 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int, mesh=None):
         """
         step_now = state.step if at_step is None else at_step
         pesq_scores = np.asarray(pesq_scores, np.float32)
-        if _any_label_failed(state, pesq_scores):
-            return torch.zeros((), device=state.device)
-        (labels,) = _on_device(state, (pesq_scores - offset) / scale)
-        return _d_update(state, clean_mag, est_mag, labels, step_now)
+        with span("cmgan.train.d"):
+            if _any_label_failed(state, pesq_scores):
+                return torch.zeros((), device=state.device)
+            (labels,) = _on_device(state, (pesq_scores - offset) / scale)
+            return _d_update(state, clean_mag, est_mag, labels, step_now)
 
     def fused_step(state: TrainState, clean, noisy):
         """The G update, PESQ labels of (clean, est_audio) on the device and
@@ -310,21 +313,23 @@ def make_train_steps(cfg: CMGANConfig, steps_per_epoch: int, mesh=None):
                              "build the state with pesq_label_mode='device'")
         clean, noisy = _on_device(state, clean, noisy)
         metrics, handoff = g_step(state, clean, noisy)
-        with torch.no_grad():
+        with torch.no_grad(), span("cmgan.train.labels"):
             scores = pesq_labels_torch(clean, handoff["est_audio"])
             low = scores.min()
             if mesh is not None:
                 low = collectives.minimum(low, mesh.data_group)
             valid = low >= 0.0
-            init_adam_state(state.disc_opt)
-            kept = _disc_state_tensors(state)
-            before = [t.clone() for t in kept]
-        loss = _d_update(state, handoff["clean_mag"], handoff["est_mag"],
-                         (scores - offset) / scale, state.step)
-        with torch.no_grad():
-            for t, old in zip(kept, before):
-                t.copy_(torch.where(valid, t, old))
-        return metrics, torch.where(valid, loss, 0.0)
+        with span("cmgan.train.d"):
+            with torch.no_grad():
+                init_adam_state(state.disc_opt)
+                kept = _disc_state_tensors(state)
+                before = [t.clone() for t in kept]
+            loss = _d_update(state, handoff["clean_mag"], handoff["est_mag"],
+                             (scores - offset) / scale, state.step)
+            with torch.no_grad():
+                for t, old in zip(kept, before):
+                    t.copy_(torch.where(valid, t, old))
+            return metrics, torch.where(valid, loss, 0.0)
 
     @torch.no_grad()
     def test_fwd(state: TrainState, clean, noisy):

@@ -1,3 +1,3 @@
-from cmgan_torch.utils.profiling import MetricsLogger, StepTimer, annotate, trace
+from cmgan_torch.utils.profiling import MetricsLogger, recorded, span, trace
 
-__all__ = ["MetricsLogger", "StepTimer", "annotate", "trace"]
+__all__ = ["MetricsLogger", "recorded", "span", "trace"]

@@ -2,8 +2,8 @@
 package's (`cmgan_tpu.utils`), and the trainer's JSONL metrics stream
 (`Trainer(metrics_path=...)`) against the JAX trainer's, on the CPU.
 
-StepTimer and MetricsLogger are the JAX package's, case for case as
-tests/test_utils.py holds them. `trace` writes a Chrome trace of the CPU's
+MetricsLogger is the JAX package's, case for case as tests/test_utils.py
+holds it. `trace` writes a Chrome trace of the CPU's
 ops here (on the GPU it also records the kernels). The trainers' records
 are compared by their keys, steps and epochs: their losses come from
 models of different weights.
@@ -23,21 +23,11 @@ from cmgan_tpu.train import Trainer as JaxTrainer
 from cmgan_tpu.utils import MetricsLogger as JaxMetricsLogger
 from cmgan_torch import config as tcfg
 from cmgan_torch.train import Trainer
-from cmgan_torch.utils import MetricsLogger, StepTimer, annotate, trace
+from cmgan_torch.utils import MetricsLogger, span, trace
 from torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread a test module)
 
 MODEL = dict(num_channels=16, num_tscb_blocks=1, dense_depth=2, attn_heads=2, ndf=4)
 BATCH, CUT = 8, 4000
-
-
-def test_step_timer():
-    t = StepTimer(window=4)
-    assert t.tick() == 0.0 and t.steps_per_second() == 0.0
-    for _ in range(3):
-        time.sleep(0.01)
-        t.tick()
-    assert 0.005 < t.mean_step_seconds < 0.2
-    assert t.steps_per_second() > 5
 
 
 def test_metrics_logger_writes_the_jax_packages_records(tmp_path):
@@ -60,7 +50,7 @@ def test_metrics_logger_writes_the_jax_packages_records(tmp_path):
 def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
     logdir = str(tmp_path / "trace")
     with trace(logdir) as prof:
-        with annotate("cmgan_step"):
+        with span("cmgan_step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     names = os.listdir(logdir)
     assert len(names) == 1 and names[0].endswith(".json")
