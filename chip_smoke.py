@@ -76,7 +76,10 @@ failure, none falling back to the CPU or to a plain version:
   8. the fused LayerNorm kernel against its plain version and against
      F.layer_norm at [1616*321, 64] and [5136*101, 64], and at the widths
      63, 65, 513 and 1024, fp32 and bf16, forward and gradient, with the
-     path its plan picks;
+     path its plan picks; [8b] the models' LayerNorm on it without
+     autograd: 8 x 36000 and 8 x 16 s enhancement calls against
+     nn.LayerNorm forced (1e-5), 40 launches a call, the calls' ms both
+     ways, none in a train_step;
   9. one G step at cut_len 64000, batch 4, fp32: attention_impl='auto'
      (4 forward and 4 backward launches) against 'xla' (none), loss and
      every parameter's gradient; and both against the dense path in float64
@@ -812,6 +815,79 @@ def check_layernorm_case(dtype_name, n, seed, c=64, eps=1e-5):
     if not ok:
         raise AssertionError(f"layernorm kernel disagrees: {case}")
     return case
+
+
+@contextlib.contextmanager
+def aten_layernorm():
+    """The models' LayerNorm forced onto `nn.LayerNorm`, grad mode aside."""
+    import torch
+
+    from cmgan_torch.models import layers
+
+    dispatch = layers.LayerNorm.forward
+    layers.LayerNorm.forward = lambda self, x: torch.nn.LayerNorm.forward(self, x.float())
+    try:
+        yield
+    finally:
+        layers.LayerNorm.forward = dispatch
+
+
+def layernorm_dispatch_on_card(smi: str) -> dict:
+    """[8b] the models' LayerNorm on kernel #3 where autograd does not record:
+    the generator at the streaming cell's shape (8 windows of 36000 samples)
+    under inference_mode against the same weights with `nn.LayerNorm` forced
+    (relative L2 under 1e-5), 40 launches a forward, the call's time both
+    ways there and at 8 x 16 s, and no launch in a `Trainer.train_step`.
+    TF32 off, as main() runs: in TF32 the kernel's last-bit differences from
+    ATen's LayerNorm flip the convolutions' roundings, and the outputs part
+    by about 1e-4."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch import inference
+    from cmgan_torch.cli import pin_fp32
+    from cmgan_torch.config import CMGANConfig
+    from cmgan_torch.ops import fused_norm
+    from cmgan_torch.train import Trainer
+
+    pin_fp32()
+    cfg = CMGANConfig()
+    model = inference.load_generator(cfg, None, None, "cuda", seed=5)
+    rec = {}
+    for name, samples in (("stream", 36000), ("eval", 16 * SR)):
+        audio = torch.from_numpy(np.stack([synthetic_track(samples, 60 + i)
+                                           for i in range(8)])).cuda()
+
+        def call():
+            return inference.enhance_tensor(model, cfg.dsp, audio)
+
+        with torch.inference_mode():
+            before = fused_norm.launches
+            got = call().cpu().numpy()
+            launches = fused_norm.launches - before
+            kernel_ms = cuda_ms(call, reps=3)
+            with aten_layernorm():
+                want = call().cpu().numpy()
+                aten_ms = cuda_ms(call, reps=3)
+        rec[name] = {"rel_l2": rel_l2(got, want), "launches": launches, "ms": kernel_ms,
+                     "aten_ms": aten_ms}
+        del audio
+    trainer = Trainer(train_config(DEFAULT_CUT, mode="device"), [None], None, device="cuda")
+    clean, noisy = train_batch(DEFAULT_CUT, seed=81)
+    before = fused_norm.launches
+    trainer.train_step(clean, noisy)
+    torch.cuda.synchronize()
+    rec["train_step_launches"] = fused_norm.launches - before
+    del trainer, model
+    torch.cuda.empty_cache()
+    log(f"[8b] the models' LayerNorm through kernel #3 on {smi}: {json.dumps(rec)}")
+    if rec["stream"]["rel_l2"] >= 1e-5 or rec["eval"]["rel_l2"] >= 1e-5:
+        raise AssertionError(f"the LayerNorm kernel moves the generator's output: {rec}")
+    if rec["stream"]["launches"] != 40 or rec["eval"]["launches"] != 40:
+        raise AssertionError(f"the generator did not run 40 LayerNorm kernels a forward: {rec}")
+    if rec["train_step_launches"] != 0:
+        raise AssertionError(f"a train_step launched the LayerNorm kernel: {rec}")
+    return rec
 
 
 def ptxas_usage(nvcc_log: str):
@@ -3609,8 +3685,8 @@ def main() -> int:
                 for dt in ("float32", "bfloat16") for n in (1616 * 321, 5136 * 101)]
     ln_main = ln_cases[0]
     ln_cases += layernorm_width_cases()
-    # the op is on no model's path; its own entry point is the public function,
-    # driven here on an activation-shaped tensor, forward and backward
+    # its public entry, driven here on an activation-shaped tensor, forward
+    # and backward; the models' path is [8b]
     fused_norm.launches = 0
     x = torch.randn(TRAIN_BATCH * 101, 641, 64, device="cuda", requires_grad=True)
     fused_norm.fused_layernorm(x, torch.ones(64, device="cuda"),
@@ -3619,6 +3695,7 @@ def main() -> int:
     if ln_launches != 1 or not bool(torch.isfinite(x.grad).all()):
         raise AssertionError("fused_layernorm's public entry did not launch its kernel")
     del x
+    ln_models = layernorm_dispatch_on_card(smi)
 
     lap("8 layernorm kernel")
 
@@ -3732,7 +3809,9 @@ def main() -> int:
         "source": "cmgan_torch/ops/csrc/fused_layernorm.cu",
         "replaces": "cmgan_tpu/ops/fused_norm.py:36",
         "launches": ln_launches,
-        "path": "ops.fused_layernorm, the op's public entry; no model calls it",
+        "path": "models.layers.LayerNorm on CUDA without autograd (40 a generator forward), "
+                "and ops.fused_layernorm, the op's public entry",
+        "models": ln_models,
         "max_abs_err": ln_main["max_abs_err"],
         "ms": ln_main["ms"],
         "plain_ms": ln_main["plain_ms"],

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cmgan_torch.ops import fused_norm
+
 
 def _cast(layer, x):
     dt = layer.compute_dtype or layer.weight.dtype
@@ -65,12 +67,24 @@ class InstanceNorm(nn.InstanceNorm2d):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last axis, eps 1e-5, float32 math."""
+    """LayerNorm over the last axis, eps 1e-5, float32 math.
+
+    On CUDA with autograd not recording (`inference_mode`, `no_grad`, or
+    nothing that needs a gradient) it runs the fused kernel
+    (`ops.fused_norm`): statistics in the E[x^2] - E[x]^2 form, as flax's
+    LayerNorm computes them. Otherwise, training included, it is ATen's
+    LayerNorm, for its fused backward: the op's is the plain closed formula,
+    about a dozen launches.
+    """
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__(dim, eps=eps)
 
     def forward(self, x):
+        if x.is_cuda and not (torch.is_grad_enabled()
+                              and (x.requires_grad or self.weight.requires_grad)):
+            return fused_norm.fused_layernorm(x.float().contiguous(), self.weight, self.bias,
+                                              self.eps)
         return super().forward(x.float())
 
 

@@ -14,10 +14,11 @@ raises rather than fall back. For CPU tensors it is the plain version,
 backward is the plain closed formula on either device, as in the JAX
 package.
 
-The op is not wired into the models: they use
-`cmgan_torch.models.layers.LayerNorm`. Whether the kernel should take
-its place is decided by its measured time against `F.layer_norm`
-(PERF.md).
+The models reach the forward through `cmgan_torch.models.layers.LayerNorm`
+on CUDA when autograd is not recording (enhancement, streaming,
+validation): at x [518736, 64] fp32 the kernel took 0.095 ms against
+`F.layer_norm`'s 0.750 on an H100 (PERF.md). Training keeps ATen's
+LayerNorm for its fused backward.
 """
 
 from __future__ import annotations

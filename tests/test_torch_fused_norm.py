@@ -120,14 +120,75 @@ def test_wrapper_counts_and_rejects(rng):
 
 
 def test_models_keep_the_plain_layernorm():
-    """The op is not wired into the models (a measurement decides that)."""
-    import inspect
+    """The models' LayerNorm stays an `nn.LayerNorm` (its parameters and
+    state_dict keys, so checkpoints and `convert.py` load as before): five a
+    conformer block, two blocks a TSCB, so a generator runs 40."""
+    from cmgan_torch.config import ModelConfig
+    from cmgan_torch.models.generator import TSCNet
+    from cmgan_torch.models.layers import LayerNorm
 
-    import cmgan_torch.models.conformer as conformer
-    import cmgan_torch.models.layers as layers
+    cfg = ModelConfig(num_channels=16, num_tscb_blocks=4, dense_depth=1, attn_heads=1)
+    norms = {n: m for n, m in TSCNet(cfg).named_modules() if isinstance(m, torch.nn.LayerNorm)}
+    assert len(norms) == 40 and all(type(m) is LayerNorm for m in norms.values())
+    assert all(m.normalized_shape == (16,) and m.eps == 1e-5 and m.elementwise_affine
+               for m in norms.values())
+    block = [n.removeprefix("TSCB_1.time_conformer.") for n in norms
+             if n.startswith("TSCB_1.time_conformer.")]
+    assert sorted(block) == ["attn.norm", "conv.net.0", "ff1.fn.norm", "ff2.fn.norm",
+                             "post_norm"]
+    assert all(list(m.state_dict()) == ["weight", "bias"] for m in norms.values())
 
-    assert "fused_layernorm" not in inspect.getsource(conformer)
-    assert "fused_layernorm" not in inspect.getsource(layers)
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that says it is on CUDA, which is all that the models'
+    LayerNorm reads of its device."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+# (input, autograd, whether the model's LayerNorm takes the kernel)
+DISPATCH_CASES = [("cuda", "inference_mode", True), ("cuda", "enable_grad", False),
+                  ("cpu", "inference_mode", False)]
+
+
+@pytest.mark.parametrize("device,mode,kernel", DISPATCH_CASES,
+                         ids=[f"{d}-{m}" for d, m, _ in DISPATCH_CASES])
+def test_models_layernorm_takes_the_kernel_on_cuda_without_autograd(rng, monkeypatch, device,
+                                                                    mode, kernel):
+    """`models.layers.LayerNorm` calls the fused op for a CUDA input while
+    autograd does not record (its parameters require grad, as in a model),
+    and is `nn.LayerNorm` otherwise: on the CPU bit for bit."""
+    from cmgan_torch.models.layers import LayerNorm
+
+    calls = []
+
+    def op(x, scale, bias, eps):
+        calls.append((type(x), x.is_contiguous(), x.dtype, eps))
+        return fn._ln_reference(x.as_subclass(torch.Tensor), scale, bias, eps)
+
+    monkeypatch.setattr(fn, "fused_layernorm", op)
+    x, scale, bias = _inputs(rng, (3, 5, 64))
+    ln, plain = LayerNorm(64), torch.nn.LayerNorm(64, eps=1e-5)
+    with torch.no_grad():
+        for m in (ln, plain):
+            m.weight.copy_(torch.from_numpy(scale))
+            m.bias.copy_(torch.from_numpy(bias))
+    assert ln.weight.requires_grad
+    xt = torch.from_numpy(x).bfloat16().transpose(0, 1)  # made float32 and contiguous
+    inp = xt.as_subclass(_OnCuda) if device == "cuda" else xt
+    with getattr(torch, mode)():
+        out = ln(inp).as_subclass(torch.Tensor)
+        want = plain(xt.float())
+    assert out.dtype == torch.float32
+    if kernel:
+        assert calls == [(_OnCuda, True, torch.float32, 1e-5)]
+        torch.testing.assert_close(out, want, atol=5e-6, rtol=1e-5)
+    else:
+        assert calls == []
+        assert torch.equal(out, want)
+        assert out.requires_grad == (mode == "enable_grad")
 
 
 # (C, dtype, the path the kernel's plan picks for aligned rows)
