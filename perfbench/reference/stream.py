@@ -17,8 +17,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from perfbench.reference.dsp import enhance
-
 
 def wola_weights(chunk: int, lookahead: int) -> np.ndarray:
     ramp = min(chunk, lookahead)
@@ -40,10 +38,11 @@ def level_scales(chunks: np.ndarray, decay: float) -> np.ndarray:
     return out
 
 
-def emitted(model, cfg: dict, feeds, samples, device) -> list:
-    """feeds(stream, ticks) -> [ticks, chunk] the chunks a stream was fed
-    from its first tick; samples: (stream, tick) pairs. Returns what each
-    stream emitted at that tick, float64 numpy."""
+def emitted(model, enhance, cfg: dict, feeds, samples, device) -> list:
+    """enhance(model, x, cfg): the reference's signal path, windows [N, L]
+    in, enhanced audio out; feeds(stream, ticks) -> [ticks, chunk] the
+    chunks a stream was fed from its first tick; samples: (stream, tick)
+    pairs. Returns what each stream emitted at that tick, float64 numpy."""
     chunk, left, look = cfg["chunk"], cfg["left_context"], cfg["lookahead"]
     size, tail = left + chunk + look, chunk + look
     back = -(-tail // chunk)  # windows whose tails reach a tick's emission

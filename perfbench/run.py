@@ -4,8 +4,10 @@
 
 Run from the root of a checkout. The cell is the `workloads` entry NAME
 of BENCHMARK.json, which names its configuration,
-perfbench/configs/<config>.json; perfbench/workloads/NAME.json holds its
-traffic driver `kind` (perfbench/traffic/<kind>.py) and its parameters. A run:
+perfbench/configs/<config>.json, whose `arch` names its architecture's
+module (perfbench/archs/<arch>.py); perfbench/workloads/NAME.json holds
+its traffic driver `kind` (perfbench/traffic/<kind>.py) and its
+parameters. A run:
 
 1. set-up: the driver builds the program's objects with weights and
    inputs drawn from --seed on the card, pins TF32 off, and warms every
@@ -61,7 +63,7 @@ fix_cache_dirs()
 
 import torch  # noqa: E402
 
-from perfbench import program  # noqa: E402
+from perfbench import archs, program  # noqa: E402
 from perfbench.trace import Trace, profiled  # noqa: E402
 
 
@@ -174,18 +176,19 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
     device = torch.device(device)
     ctx = Ctx(cell, seed, device)
     driver = importlib.import_module(f"perfbench.traffic.{cell.kind}")
+    arch = archs.load(cell.cfg)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     program.set_tf32(tf32)
 
     state = driver.setup(ctx)
-    program.reset_launches()
+    arch.reset_launches()
     if trace:
         with profiled() as prof:
             measured = driver.window(ctx, state, seconds)
     else:
         measured = driver.window(ctx, state, seconds)
-    counters = program.launches()
+    counters = arch.launches()
     setup_s = measured["t0"] - started
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     answers = driver.answers(ctx, state, measured)

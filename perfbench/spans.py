@@ -1,6 +1,6 @@
 """The program's own spans: the benchmark's one door to the span log of
-`cmgan_torch.utils` (`recorded()`), as `program.launches` is to its
-counters.
+`cmgan_torch.utils` (`recorded()`), as an architecture's `launches()`
+is to its counters.
 
 The program records a span only while a profiler records, so in a
 `--trace 1` run its log holds what the window ran. A span has a name

@@ -1,7 +1,9 @@
-"""Runs of each traffic driver on the CPU at small sizes, through the
-program's plain paths: a sound run comes out correct, and every fault
-that the cell can have, planted under the timed path, comes out not
-correct. The process imports nothing of JAX or of the JAX package."""
+"""Runs of every cell of BENCHMARK.json on the CPU at the small sizes of
+its workload file's `cpu` key, through the program's plain paths: a
+sound run comes out correct, and every fault that a cell can have,
+planted under the timed path, comes out not correct (on the first cell
+of each pair of configuration and traffic kind). The process imports
+nothing of JAX or of the JAX package."""
 
 import json
 import os
@@ -14,13 +16,23 @@ import torch
 from perfbench import faults, run
 
 SEED = 2 ** 31 + 4099  # past 32 signed bits, as a run's --seed may be
-SMALL = {
-    "c16k_eval_16s_b8_fp32": {"batch": 2, "seconds": 0.3, "pool": 2},
-    "c16k_longform_30s_fp32": {"batch": 1, "seconds": 0.4, "pool": 2},
-    "c16k_train_2s_b4_fp32": {"batch": 2, "cut_len": 8000, "pool": 3, "checked_steps": 2},
-    "c16k_stream_8slot_fp32": {"slots": 2, "chunk": 1600, "left_context": 1600,
-                               "lookahead": 800, "pool": 4, "warm_ticks": 3},
-}
+BENCH = run.benchmark()
+CELLS = [w["name"] for w in BENCH["workloads"]]
+
+
+def cpu_sizes(cell: str) -> dict:
+    """The cell's parameters for a CPU run (its workload file's `cpu`)."""
+    return run.load_json(run.HERE, "workloads", f"{cell}.json")["cpu"]
+
+
+def fault_cases() -> list:
+    """(cell, fault) for every fault of the kind of the first cell of each
+    pair of configuration and kind."""
+    firsts = {}
+    for w in BENCH["workloads"]:
+        firsts.setdefault((w["config"], run.load_cell(w["name"], BENCH).kind), w["name"])
+    return [(cell, fault) for (_, kind), cell in firsts.items()
+            for fault in sorted(faults.FAULTS[kind])]
 
 
 @pytest.fixture(autouse=True)
@@ -32,16 +44,16 @@ def few_threads():
 
 
 def small_run(cell, trace=False, seconds=0.2):
-    return run.run_cell(cell, SEED, seconds, trace, device="cpu", overrides=SMALL[cell])
+    return run.run_cell(cell, SEED, seconds, trace, device="cpu", overrides=cpu_sizes(cell))
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL))
+@pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(cell):
     r = small_run(cell)
     assert r["correct"], r["checks"]
     assert r["attempted"] >= 1 and r["failed"] == 0
-    assert set(r["metrics"]) == {m["name"] for m in run.cell_metrics(run.benchmark(),
-                                                                      "end_to_end", cell)}
+    assert set(r["metrics"]) == {m["name"] for m in run.cell_metrics(BENCH, "end_to_end",
+                                                                      cell)}
     assert list(r)[-1] == "checks"
 
 
@@ -58,15 +70,9 @@ def test_traced_run_reads_its_metrics(cell, read):
     assert set(r["metrics"]) == read
 
 
-CASES = [(cell, fault) for cell, kind in (("c16k_eval_16s_b8_fp32", "enhance"),
-                                          ("c16k_train_2s_b4_fp32", "train"),
-                                          ("c16k_stream_8slot_fp32", "stream"))
-         for fault in sorted(faults.FAULTS[kind])]
-
-
-@pytest.mark.parametrize("cell,fault", CASES)
+@pytest.mark.parametrize("cell,fault", fault_cases())
 def test_fault_is_caught(cell, fault):
-    kind = run.load_cell(cell, run.benchmark()).kind
+    kind = run.load_cell(cell, BENCH).kind
     with faults.FAULTS[kind][fault]():
         r = small_run(cell)
     assert not r["correct"], r["checks"]
@@ -76,7 +82,7 @@ def test_no_jax_after_a_run():
     code = ("import json, sys, torch; torch.set_num_threads(2)\n"
             "from perfbench import run\n"
             "r = run.run_cell('c16k_eval_16s_b8_fp32', 5, 0.1, False, device='cpu', "
-            f"overrides={json.dumps(SMALL['c16k_eval_16s_b8_fp32'])})\n"
+            f"overrides={json.dumps(cpu_sizes('c16k_eval_16s_b8_fp32'))})\n"
             "print(json.dumps([r['correct'], run.forbidden_modules()]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=run.ROOT, capture_output=True,
                          text=True, timeout=600,

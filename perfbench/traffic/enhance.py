@@ -11,8 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from perfbench.reference import dsp
-from perfbench.reference.model import TSCNet, seeded_state
+from perfbench import archs
 from perfbench.trace import span
 from perfbench.traffic import timed_loop, worst
 
@@ -20,13 +19,13 @@ from perfbench.traffic import timed_loop, worst
 def setup(ctx):
     from cmgan_torch import inference
 
-    from perfbench.program import port_config
-
     p, cfg = ctx.params, ctx.cfg
-    pcfg = port_config(cfg)
-    with torch.device("meta"):
-        shapes = TSCNet(cfg)
-    weights = seeded_state(shapes, ctx.derive(0), ctx.device)
+    arch = archs.load(cfg)
+    pcfg = arch.port_config(cfg)
+    # a template of names and shapes, built on the host: on the meta device
+    # nn.Embedding's normal_ imports torch._dynamo, seconds of set-up
+    shapes = arch.generator(cfg)
+    weights = arch.seeded_state(shapes, ctx.derive(0), ctx.device)
     model = inference.load_generator(pcfg, weights, None, ctx.device)
     gen = torch.Generator(device=ctx.device).manual_seed(ctx.derive(1))
     samples = int(p["seconds"] * cfg["sample_rate"])
@@ -69,12 +68,13 @@ def check(ctx, ans):
     """Every row of the sampled calls against the reference: the widest
     relative L2 distance of a row."""
     limit = ctx.params["limits"]["worst_row_rel_l2"]
-    ref = TSCNet(ctx.cfg).to(ctx.device).eval()
+    arch = archs.load(ctx.cfg)
+    ref = arch.generator(ctx.cfg).to(ctx.device).eval()
     ref.load_state_dict(ans["weights"], strict=True)
     rels = []
     with torch.no_grad():
         for x, y in ans["cases"]:
-            r = dsp.enhance(ref, x, ctx.cfg).double()
+            r = arch.enhance(ref, x, ctx.cfg).double()
             if y.shape != r.shape:
                 return {"worst_row_rel_l2": {"value": float("inf"), "limit": limit}}
             y = y.double()

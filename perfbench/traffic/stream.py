@@ -17,8 +17,8 @@ import time
 import numpy as np
 import torch
 
+from perfbench import archs
 from perfbench.reference import stream as ref_stream
-from perfbench.reference.model import TSCNet, seeded_state
 from perfbench.trace import WINDOW, span
 from perfbench.traffic import worst
 
@@ -26,13 +26,13 @@ from perfbench.traffic import worst
 def setup(ctx):
     from cmgan_torch import inference, streaming
 
-    from perfbench.program import port_config
-
     p, cfg = ctx.params, ctx.cfg
-    pcfg = port_config(cfg)
-    with torch.device("meta"):
-        shapes = TSCNet(cfg)
-    weights = seeded_state(shapes, ctx.derive(0), ctx.device)
+    arch = archs.load(cfg)
+    pcfg = arch.port_config(cfg)
+    # a template of names and shapes, built on the host: on the meta device
+    # nn.Embedding's normal_ imports torch._dynamo, seconds of set-up
+    shapes = arch.generator(cfg)
+    weights = arch.seeded_state(shapes, ctx.derive(0), ctx.device)
     model = inference.load_generator(pcfg, weights, None, ctx.device)
     batcher = streaming.StreamBatcher(
         pcfg, model, num_slots=p["slots"], chunk=p["chunk"], left_context=p["left_context"],
@@ -84,14 +84,16 @@ def check(ctx, ans):
     """The sampled ticks' emitted samples against the reference's stream
     of the same chunks: the widest relative L2 distance of one."""
     p = ctx.params
-    ref = TSCNet(ctx.cfg).to(ctx.device).eval()
+    arch = archs.load(ctx.cfg)
+    ref = arch.generator(ctx.cfg).to(ctx.device).eval()
     ref.load_state_dict(ans["weights"], strict=True)
     pool = ans["pool"]
 
     def feeds(stream, ticks):
         return pool[stream, np.arange(ticks) % pool.shape[1]]
 
-    expected = ref_stream.emitted(ref, {**ctx.cfg, **p}, feeds, ans["samples"], ctx.device)
+    expected = ref_stream.emitted(ref, arch.enhance, {**ctx.cfg, **p}, feeds, ans["samples"],
+                                  ctx.device)
     rels = [np.linalg.norm(np.asarray(y, np.float64) - r) / np.linalg.norm(r)
             if np.shape(y) == r.shape else np.inf for y, r in zip(ans["emitted"], expected)]
     return {"worst_chunk_rel_l2": {"value": worst(rels),

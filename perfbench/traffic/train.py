@@ -1,4 +1,6 @@
-"""GAN training on the published recipe: `Trainer.train_step`.
+"""GAN training on the published recipe: `Trainer.train_step`. CMGAN's
+alone (its discriminator, losses and labels): set-up raises ValueError
+for a configuration of another architecture.
 
 Parameters: `batch` rows of `cut_len` samples; a `pool` of distinct
 (clean, noisy) batches drawn from the seed at set-up, every row distinct,
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from perfbench import archs
+from perfbench.archs import cmgan
 from perfbench.reference.model import Discriminator, TSCNet, seeded_state
 from perfbench.reference.train import run_steps
 from perfbench.trace import span
@@ -32,15 +36,15 @@ def _leaves(state):
 
 
 def setup(ctx):
+    archs.require(ctx.cfg, "cmgan", "the train kind")
     from cmgan_torch.train import Trainer
 
-    from perfbench.program import port_config
-
     p, cfg = ctx.params, ctx.cfg
-    pcfg = port_config(cfg, batch_size=p["batch"], cut_len=p["cut_len"],
-                       pesq_label_mode=p["label_mode"], seed=ctx.derive(9) % 2 ** 31)
-    with torch.device("meta"):
-        gen_shapes, disc_shapes = TSCNet(cfg), Discriminator(cfg)
+    pcfg = cmgan.port_config(cfg, batch_size=p["batch"], cut_len=p["cut_len"],
+                             pesq_label_mode=p["label_mode"], seed=ctx.derive(9) % 2 ** 31)
+    # a template of names and shapes, built on the host: on the meta device
+    # nn.Embedding's normal_ imports torch._dynamo, seconds of set-up
+    gen_shapes, disc_shapes = TSCNet(cfg), Discriminator(cfg)
     gen_state = seeded_state(gen_shapes, ctx.derive(0), ctx.device)
     disc_state = seeded_state(disc_shapes, ctx.derive(1), ctx.device)
     dropout_seed = ctx.derive(2)

@@ -8,9 +8,11 @@ never from the program under test.
   floating-point operations, counted once on the meta device by running
   the benchmark's plain reference under `torch.utils.flop_counter`
   (convolutions and matrix products, forward and backward), with every
-  attention core counted by `attention_work` in place of the ops that
-  compute it. FFTs and elementwise work are not counted, so a share of a
-  peak read from these counts is a lower bound.
+  attention core the reference records (perfbench/reference/attention.py)
+  counted by `attention_work` in place of the ops that compute it. FFTs
+  and elementwise work are not counted, so a share of a peak read from
+  these counts is a lower bound. `call_flops` runs the configuration's
+  architecture (perfbench/archs/); `train_step_flops` is CMGAN's recipe.
 
 Published peaks of one NVIDIA H100 SXM (the data sheet's dense rates):
 989 TFLOP/s in bf16, which bounds every precision, and 3.35 TB/s of HBM3.
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
+
+from perfbench import archs
 
 H100_PEAK_FLOPS = 989e12
 H100_PEAK_BYTES = 3.35e12
@@ -63,10 +67,11 @@ def roofline_seconds(work: dict) -> float:
 
 class _Count:
     """FLOPs of a reference run on the meta device, with the attention
-    cores' calls recorded as (g, t, d, backward)."""
+    cores' calls recorded as (g, t, d, backward); `max_pos` is the
+    configuration's `max_rel_pos` where one was recorded, else None."""
 
-    def __init__(self, max_pos: int):
-        self.max_pos = max_pos
+    def __init__(self):
+        self.max_pos = None
         self.attention = []
         self.flop = 0
 
@@ -82,42 +87,45 @@ class _Count:
         return total
 
 
-def _counted(max_pos: int, fn) -> _Count:
-    from perfbench.reference.model import count_attention
+def _counted(cfg: dict, fn) -> _Count:
+    from perfbench.reference.attention import count_attention
 
-    count = _Count(max_pos)
+    count = _Count()
     counter = FlopCounterMode(display=False)
     with count_attention(count), counter:
         fn()
+    if count.attention:
+        count.max_pos = cfg["max_rel_pos"]
     count.flop = counter.get_total_flops() + count.attention_flop()
     return count
 
 
 def call_flops(cfg: dict, batch: int, samples: int) -> _Count:
-    """One enhancement call on [batch, samples] (eval mode)."""
-    from perfbench.reference.dsp import enhance
-    from perfbench.reference.model import TSCNet
-
+    """One enhancement call on [batch, samples] (eval mode) through the
+    configuration's architecture."""
+    arch = archs.load(cfg)
     meta = torch.device("meta")
     with meta:
-        model = TSCNet(cfg).eval()
+        model = arch.generator(cfg).eval()
     x = torch.empty(batch, samples, device=meta)
 
     def run():
         with torch.no_grad():
-            enhance(model, x, cfg)
+            arch.enhance(model, x, cfg)
 
-    return _counted(cfg["max_rel_pos"], run)
+    return _counted(cfg, run)
 
 
 def train_step_flops(cfg: dict, recipe: dict, batch: int, samples: int) -> _Count:
     """One training step on [batch, samples] pairs: the generator's forward
-    and backward, the labels, the discriminator's forward and backward."""
+    and backward, the labels, the discriminator's forward and backward.
+    CMGAN's recipe alone: raises ValueError for another architecture."""
     from perfbench.reference.model import Discriminator, TSCNet
     from perfbench.reference.train import step
 
+    archs.require(cfg, "cmgan", "the training step's count")
     meta = torch.device("meta")
     with meta:
         gen, disc = TSCNet(cfg), Discriminator(cfg)
     clean = torch.empty(batch, samples, device=meta)
-    return _counted(cfg["max_rel_pos"], lambda: step(gen, disc, clean, clean, cfg, recipe))
+    return _counted(cfg, lambda: step(gen, disc, clean, clean, cfg, recipe))
