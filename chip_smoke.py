@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --backward-times [ROOT]
     python3 chip_smoke.py --forward-times [ROOT]
+    python3 chip_smoke.py --semamba
 
 The second form runs only the builds and phase 7 with the chip_smoke.py
 and the package of the checkout at ROOT (default: this one), then prints
@@ -17,7 +18,8 @@ kernel table, fp32 and bf16 (the wide heads' at D 80, 100, 128, 256 and
 320 and D 128's offset case among them), against the plain version, the
 128-channel 1-head model's enhance call and G step, the library route at
 head dims 64, 128 and 320, and phase 9's G step against float64 at three
-seeded batches.
+seeded batches. The fourth runs only phase 22, SEMamba's kernels, in
+about a minute with their builds.
 
 CMGAN at its full published width (64 channels, 4 TSCBs, 4 heads of dim
 16, 201 bins, discriminator ndf 16) with seeded random weights, through
@@ -182,6 +184,21 @@ failure, none falling back to the CPU or to a plain version:
      groups where the bias is too large), fp32 and bf16, forward and
      backward, each part timed apart, the kernel timed beside it and held
      against it.
+ 22. SEMamba's kernels (csrc/selective_scan.cu, csrc/fused_rmsnorm.cu) at
+     the shapes of the sem16k_eval_16s_b8_fp32 cell (8 x 16 s, d_inner
+     256): the selective scan at 800 rows of 2561 steps and 20488 rows of
+     100, both directions, on the layout the model gives it (z and dt, B,
+     C strided views of the projections' outputs), against its plain
+     version (SCAN_TOL) and bitwise equal on a second run; the causal conv
+     + SiLU on the in-projection's strided half against its plain version
+     and against F.conv1d + SiLU; RMSNorm at [2048800, 64] against its
+     plain version and F.rms_norm; each timed (CUDA events and device
+     time) beside its plain version, the library's call and its bounds
+     (the scan's at the benchmark's operand boundary,
+     perfbench.archs.semamba.scan_work, at its own operands and at the
+     special-function units' rate); then one enhancement call of the
+     published SEMamba on 8 x 16 s with the three launch counters set to
+     0 just before it: 16 launches of each.
 
 Then the phases' seconds and the whole run's, the card's line, a JSON line
 with each kernel's numbers, and, last,
@@ -214,6 +231,12 @@ PEAK_BYTES = 3.35e12
 # the attention kernels' fp32 route: each product as six products of bf16 parts
 ATTN_PEAK_FLOPS = {"float32": 989e12 / 6, "bfloat16": 989e12}
 EXP_PER_CLOCK_SM = 16     # results of the special-function units, a clock and multiprocessor
+# SEMamba's kernels against their plain versions (rtol, atol): float32 sums in
+# another order, and the scan's decays by the fast 2^x unit (2 ulp) compounded
+# over the row; a wrong state, skip, gate or direction misses them by far
+SCAN_TOL = (1e-4, 1e-5)
+CONV_TOL = (1e-5, 1e-6)
+RMS_TOL = (1e-5, 1e-6)
 
 # stated tolerances
 KERNEL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 8e-3)}  # (atol, rtol)
@@ -3514,6 +3537,257 @@ def times(root: str, phase: str) -> int:
     return 0
 
 
+def sfu_ms(ops: float) -> float:
+    """ops results of the special-function units at their rate on this card."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * ops / (EXP_PER_CLOCK_SM * sms * max_sm_clock_hz())
+
+
+def check_scan_case(rows, length, reverse, seed, d=256, n=16, r=4):
+    """[22] the selective scan at one of the cell's shapes and direction,
+    on operands laid out as the model gives them (z the in-projection's
+    second half, dt, B and C thirds of the x-projection's output), against
+    its plain version, twice (bitwise), timed beside its bounds."""
+    import math
+
+    import torch
+
+    from cmgan_torch.ops import selective_scan as ss
+    from perfbench.archs.semamba import SCAN_PEAK_FLOPS, scan_work
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn(rows, length, d, generator=gen, device="cuda")
+    xz = torch.randn(rows, length, 2 * d, generator=gen, device="cuda")
+    x_dbl = torch.randn(rows, length, r + 2 * n, generator=gen, device="cuda")
+    z, dt, B, C = xz[..., d:], x_dbl[..., :r], x_dbl[..., r:r + n], x_dbl[..., r + n:]
+    dt_w = torch.rand(d, r, generator=gen, device="cuda") - 0.5
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    delta = torch.exp(torch.rand(d, generator=gen, device="cuda") * (hi - lo) + lo)
+    dt_bias = delta + torch.log(-torch.expm1(-delta))
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").repeat(d, 1)
+    D = torch.rand(d, generator=gen, device="cuda") + 0.5
+    args = (u, dt, dt_w, dt_bias, A, B, C, D, z)
+
+    def kernel():
+        return ss.selective_scan(*args, reverse=reverse)
+
+    def plain():
+        return ss._scan_plain(*args, reverse)
+
+    count = ss.launches
+    y, again = kernel(), kernel()
+    launched = ss.launches - count
+    ref = plain()
+    torch.cuda.synchronize()
+    rtol, atol = SCAN_TOL
+    err = (y - ref).abs().max().item()
+    bitwise = torch.equal(y, again)
+    ok = launched == 2 and bool(torch.isfinite(y).all()) and bitwise
+    ok = ok and torch.allclose(y, ref, rtol=rtol, atol=atol)
+    del again, ref
+    ms = cuda_ms(kernel, reps=10)
+    kernel_device_ms = device_ms(kernel, reps=10)
+    plain_ms = cuda_ms(plain, reps=1)
+    tokens = rows * length
+    w = scan_work(rows, length, d, n, 4)
+    b_ms, b_by = max((1e3 * w["bytes"] / PEAK_BYTES, "bytes"),
+                     (1e3 * w["flop"] / SCAN_PEAK_FLOPS, "operations"))
+    # what the kernel itself reads and writes: u, z, y of d floats a step,
+    # dt (r) in place of delta, B and C (n each); the parameters once
+    own_bytes = 4 * (tokens * (3 * d + r + 2 * n) + d * (n + r + 2))
+    # its special-function results: n decays a (step, channel), softplus's
+    # and SiLU's exponentials and SiLU's reciprocal
+    sfu = tokens * d * (n + 3)
+    case = {"rows": rows, "L": length, "D": d, "N": n, "R": r, "reverse": reverse,
+            "max_abs_err": err, "ref_max": y.abs().max().item(), "tol": [rtol, atol],
+            "bitwise_repeat": bitwise, "ms": ms, "device_ms": kernel_device_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms, "own_bytes_bound_ms": 1e3 * own_bytes / PEAK_BYTES,
+            "own_bytes_share": 1e3 * own_bytes / PEAK_BYTES / ms, "sfu_bound_ms": sfu_ms(sfu),
+            "sfu_share": sfu_ms(sfu) / ms}
+    log(f"[22] selective scan {json.dumps(case)}")
+    if not ok:
+        raise AssertionError(f"the scan kernel disagrees with its plain version or itself: {case}")
+    return case
+
+
+def check_conv_case(rows, length, reverse, seed, d=256, k=4):
+    """[22] the causal conv + SiLU on the in-projection's strided half
+    against its plain version and, forward, against F.conv1d + SiLU, the
+    library's call: on the same strided [rows, L, D] operand, and on a
+    contiguous [rows, D, L] one (the published layout)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cmgan_torch.ops import selective_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xz = torch.randn(rows, length, 2 * d, generator=gen, device="cuda")
+    x = xz[..., :d]
+    w = torch.randn(d, k, generator=gen, device="cuda") * 0.5
+    b = torch.randn(d, generator=gen, device="cuda")
+
+    def kernel():
+        return ss.causal_conv1d_silu(x, w, b, reverse)
+
+    def library(xt):
+        return F.silu(F.conv1d(xt, w[:, None], b, padding=k - 1, groups=d)[..., :length])
+
+    count = ss.conv_launches
+    y = kernel()
+    launched = ss.conv_launches - count
+    ref = ss._conv_plain(x, w, b, reverse)
+    torch.cuda.synchronize()
+    rtol, atol = CONV_TOL
+    ok = launched == 1 and torch.allclose(y, ref, rtol=rtol, atol=atol)
+    case = {"rows": rows, "L": length, "D": d, "K": k, "reverse": reverse,
+            "max_abs_err": (y - ref).abs().max().item(), "tol": [rtol, atol]}
+    del ref
+    if not reverse:
+        lib = library(x.transpose(1, 2))
+        case["max_abs_err_vs_library"] = (y - lib.transpose(1, 2)).abs().max().item()
+        ok = ok and torch.allclose(y, lib.transpose(1, 2), rtol=rtol, atol=atol)
+        del lib
+        native = x.transpose(1, 2).contiguous()
+        case["library_ms"] = cuda_ms(lambda: library(x.transpose(1, 2)), reps=10)
+        case["library_device_ms"] = device_ms(lambda: library(x.transpose(1, 2)), reps=10)
+        case["library_ms_contiguous_dl"] = cuda_ms(lambda: library(native), reps=10)
+        case["library_device_ms_contiguous_dl"] = device_ms(lambda: library(native), reps=10)
+        del native
+    tokens = rows * length
+    b_ms, b_by = bound_ms(tokens * d * (2 * k + 4), 4 * (2 * tokens * d + d * (k + 1)), "float32")
+    case.update({"ms": cuda_ms(kernel, reps=10), "device_ms": device_ms(kernel, reps=10),
+                 "plain_ms": cuda_ms(lambda: ss._conv_plain(x, w, b, reverse), reps=3),
+                 "bound_ms": b_ms, "bound_by": b_by})
+    case["bound_share"] = b_ms / case["ms"]
+    log(f"[22] causal conv {json.dumps(case)}")
+    if not ok:
+        raise AssertionError(f"the conv kernel disagrees with its plain version or F.conv1d: {case}")
+    return case
+
+
+def check_rmsnorm_case(n, seed, c=64, eps=1e-5):
+    """[22] RMSNorm's kernel against its plain version and F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from cmgan_torch.ops import fused_norm as fn
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, c, generator=gen, device="cuda") * 2 + 0.5
+    weight = torch.rand(c, generator=gen, device="cuda") + 0.5
+
+    def kernel():
+        return fn.fused_rmsnorm(x, weight, eps)
+
+    def library():
+        return F.rms_norm(x, (c,), weight, eps)
+
+    count = fn.rms_launches
+    y = kernel()
+    launched = fn.rms_launches - count
+    ref, lib = fn._rms_reference(x, weight, eps), library()
+    torch.cuda.synchronize()
+    rtol, atol = RMS_TOL
+    ok = launched == 1 and torch.allclose(y, ref, rtol=rtol, atol=atol)
+    ok = ok and torch.allclose(y, lib, rtol=rtol, atol=atol)
+    b_ms, b_by = bound_ms(3 * n * c, 4 * (2 * n * c + c), "float32")
+    case = {"N": n, "C": c, "max_abs_err": (y - ref).abs().max().item(),
+            "max_abs_err_vs_library": (y - lib).abs().max().item(), "tol": [rtol, atol],
+            "ms": cuda_ms(kernel, reps=20), "device_ms": device_ms(kernel, reps=20),
+            "plain_ms": cuda_ms(lambda: fn._rms_reference(x, weight, eps), reps=5),
+            "library_ms": cuda_ms(library, reps=20), "library_device_ms": device_ms(library, reps=20),
+            "bound_ms": b_ms, "bound_by": b_by}
+    case["bound_share"] = b_ms / case["ms"]
+    log(f"[22] rmsnorm {json.dumps(case)}")
+    if not ok:
+        raise AssertionError(f"the RMSNorm kernel disagrees with its plain version or F.rms_norm: "
+                             f"{case}")
+    return case
+
+
+def semamba_on_card(smi: str) -> list:
+    """[22] SEMamba's kernels at the cell's shapes, then their launches in one
+    enhancement call of the published model on 8 x 16 s. Returns the
+    kernels line's entries for the three kernels."""
+    import numpy as np
+    import torch
+
+    from cmgan_torch import inference
+    from cmgan_torch.cli import pin_fp32
+    from cmgan_torch.config import semamba_16k
+    from cmgan_torch.ops import fused_norm
+    from cmgan_torch.ops import selective_scan as ss
+
+    pin_fp32()
+    # the cell's shapes: 8 x 16 s is 2561 frames; the encoder halves 201 bins to 100
+    time_rows, freq_rows = (8 * 100, 2561), (8 * 2561, 100)
+    scans, convs = [], []
+    for i, (rows, length) in enumerate((time_rows, freq_rows)):
+        for reverse in (False, True):
+            scans.append(check_scan_case(rows, length, reverse, seed=60 + i))
+            convs.append(check_conv_case(rows, length, reverse, seed=70 + i))
+            torch.cuda.empty_cache()
+    norm = check_rmsnorm_case(8 * 2561 * 100, seed=80)
+    torch.cuda.empty_cache()
+
+    cfg = semamba_16k()
+    model = inference.load_generator(cfg, None, None, "cuda", seed=5)
+    audio = torch.from_numpy(np.stack([synthetic_track(16 * SR, 90 + i) for i in range(8)])).cuda()
+
+    def call():
+        return inference.enhance_tensor(model, cfg.dsp, audio)
+
+    with torch.inference_mode():
+        ss.launches = ss.conv_launches = fused_norm.rms_launches = 0
+        out = call()
+        torch.cuda.synchronize()
+        counts = {"scan": ss.launches, "conv": ss.conv_launches, "rmsnorm": fused_norm.rms_launches}
+        call_ms = cuda_ms(call, reps=3)
+    finite = bool(torch.isfinite(out).all())
+    log(f"[22] SEMamba 8 x 16 s call on {smi}: launches {json.dumps(counts)}, {call_ms:.2f} ms a "
+        f"call, finite {finite}")
+    del model, audio, out
+    torch.cuda.empty_cache()
+    if counts != {"scan": 16, "conv": 16, "rmsnorm": 16} or not finite:
+        raise AssertionError(f"the SEMamba call did not launch each kernel 16 times: {counts}")
+    main_scan, main_conv = scans[0], convs[0]
+    return [{
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": "cmgan_torch/ops/csrc/selective_scan.cu",
+        "replaces": None,
+        "path": "SEMamba's Mamba mixers (16 a call of 8 x 16 s)",
+        "launches": counts["scan"],
+        "call_ms": call_ms,
+        **{k: main_scan[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by")},
+        "cases": scans,
+    }, {
+        "name": "causal_conv1d_silu",
+        "route": "cuda",
+        "source": "cmgan_torch/ops/csrc/selective_scan.cu",
+        "replaces": None,
+        "path": "SEMamba's Mamba mixers, before the scan (16 a call)",
+        "launches": counts["conv"],
+        **{k: main_conv[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by")},
+        "cases": convs,
+    }, {
+        "name": "fused_rmsnorm",
+        "route": "cuda",
+        "source": "cmgan_torch/ops/csrc/fused_rmsnorm.cu",
+        "replaces": None,
+        "path": "SEMamba's pre-norm Blocks (16 a call)",
+        "launches": counts["rmsnorm"],
+        **{k: norm[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        "cases": [norm],
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -3527,6 +3801,14 @@ def main() -> int:
         phase = sys.argv[1].removeprefix("--").removesuffix("-times")
         return times(sys.argv[2] if len(sys.argv) > 2 else ROOT, phase)
     sys.path.insert(0, ROOT)
+    if sys.argv[1:] == ["--semamba"]:
+        smi = nvidia_smi()
+        log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        print(json.dumps({"kernels": semamba_on_card(smi)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                  "kind": torch.cuda.get_device_name(0),
+                                                  "count": torch.cuda.device_count()}}))
+        return 0
 
     import numpy as np
 
@@ -3728,6 +4010,8 @@ def main() -> int:
     lap("20 trained weights")
     library_fwd, library_bwd = bench_on_card(smi)
     lap("21 bench")
+    semamba_kernels = semamba_on_card(smi)
+    lap("22 SEMamba kernels")
     log(f"seconds by phase: {json.dumps(laps)}, in all {sum(laps.values()):.1f} "
         f"(imports and the card's start not counted); the whole run "
         f"{time.perf_counter() - STARTED:.1f} s")
@@ -3819,7 +4103,7 @@ def main() -> int:
         "bound_by": ln_main["bound_by"],
         "library_ms": ln_main["library_ms"],
         "cases": ln_cases,
-    }]}
+    }, *semamba_kernels]}
     log(f"device PESQ against the host scorer: {json.dumps(pesq_times)}")
     print(smi)
     print(json.dumps(kernels))

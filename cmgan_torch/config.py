@@ -16,7 +16,9 @@ class DSPConfig:
     """STFT front-end / back-end parameters.
 
     torch.stft(n_fft=400, hop=100, hamming, onesided, center=True)
-    semantics, as in the CMGAN reference recipe.
+    semantics, as in the CMGAN reference recipe. `window` names the
+    periodic analysis and synthesis window: 'hamming' (CMGAN) or 'hann'
+    (SEMamba).
     """
 
     sample_rate: int = 16_000
@@ -28,6 +30,7 @@ class DSPConfig:
     # choice for seq-sharded training; training and streaming take it from
     # here, offline enhancement always runs 'fft', as in the JAX package.
     dft_impl: str = "fft"
+    window: str = "hamming"
 
     @property
     def num_freqs(self) -> int:
@@ -72,6 +75,42 @@ class ModelConfig:
     @property
     def dim_head(self) -> int:
         return self.num_channels // self.attn_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class SEMambaConfig:
+    """The SEMamba generator (Chao et al., IEEE SLT 2024;
+    github.com/RoyChao19477/SEMamba, recipes/SEMamba_advanced): MP-SENet's
+    dense magnitude/phase codec around `num_tfmamba` TF-Mamba blocks, each
+    a bidirectional Mamba-1 layer along time, then one along frequency.
+
+    Published sizes: hid_feature 64, 4 blocks, d_state 16, d_conv 4,
+    expand 4 (d_inner 256), dt_rank 'auto' (ceil(64 / 16) = 4), RMSNorm
+    eps 1e-5, the magnitude mask's beta 2.0, 201 bins (n_fft 400).
+    Enhancement only: it has no discriminator and no training recipe here.
+    """
+
+    hid_feature: int = 64
+    num_features: int = 201
+    num_tfmamba: int = 4
+    dense_depth: int = 4
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 4
+    dt_rank: int | str = "auto"
+    norm_epsilon: float = 1e-5
+    beta: float = 2.0
+    input_channel: int = 2
+    output_channel: int = 1
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.hid_feature
+
+    @property
+    def rank(self) -> int:
+        """dt_rank, with Mamba-1's 'auto' resolved."""
+        return -(-self.hid_feature // 16) if self.dt_rank == "auto" else int(self.dt_rank)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,8 +193,12 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CMGANConfig:
+    """The port's whole config. `model` names the generator that
+    `inference.load_generator` builds: a ModelConfig for CMGAN's TSCNet,
+    a SEMambaConfig for SEMamba (`semamba_16k()`)."""
+
     dsp: DSPConfig = dataclasses.field(default_factory=DSPConfig)
-    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    model: ModelConfig | SEMambaConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
@@ -192,3 +235,10 @@ def long_form_48k(
     ev = EvalConfig(cut_len=dsp.sample_rate * window_seconds)
     mesh = MeshConfig(seq_parallel=seq_parallel)
     return CMGANConfig(dsp=dsp, model=model, train=train, eval=ev, mesh=mesh)
+
+
+def semamba_16k() -> CMGANConfig:
+    """SEMamba as published (recipes/SEMamba_advanced): 16 kHz, n_fft 400,
+    hop 100, a periodic Hann window, compression 0.3, and the
+    SEMambaConfig defaults. Enhancement and streaming only."""
+    return CMGANConfig(dsp=DSPConfig(window="hann"), model=SEMambaConfig())

@@ -1,7 +1,11 @@
 from cmgan_torch.dsp.stft import (
+    analysis_window,
     frame_signal,
     hamming_window,
+    hann_window,
     istft,
+    mag_pha_compress,
+    mag_pha_uncompress,
     power_compress,
     power_uncompress,
     rms_normalize,
@@ -9,9 +13,13 @@ from cmgan_torch.dsp.stft import (
 )
 
 __all__ = [
+    "analysis_window",
     "frame_signal",
     "hamming_window",
+    "hann_window",
     "istft",
+    "mag_pha_compress",
+    "mag_pha_uncompress",
     "power_compress",
     "power_uncompress",
     "rms_normalize",

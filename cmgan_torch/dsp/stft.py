@@ -1,8 +1,9 @@
 """STFT / iSTFT front-end with torch.stft semantics, time-major.
 
-n_fft=400, hop=100, periodic Hamming window, onesided, center=True
-(reflect padding), normalized=False. Spectrograms are `[..., T, F]`
-(torch.stft lays them out `[..., F, T]`), as in the JAX package.
+n_fft=400, hop=100, periodic Hamming window (SEMamba: periodic Hann,
+`analysis_window`), onesided, center=True (reflect padding),
+normalized=False. Spectrograms are `[..., T, F]` (torch.stft lays them
+out `[..., F, T]`), as in the JAX package.
 
 The DFT is `torch.fft` (`dft_impl='fft'`) or two products with cached
 cos/sin matrices (`dft_impl='matmul'`: `rdft_matmul`, `irdft_matmul`),
@@ -38,6 +39,27 @@ def hamming_window(n_fft: int, dtype=torch.float32, device=None) -> torch.Tensor
     Callers must not write to it."""
     n = np.arange(n_fft)
     return _device_constants((0.54 - 0.46 * np.cos(2.0 * np.pi * n / n_fft),), dtype, device)[0]
+
+
+@functools.lru_cache(maxsize=16)
+def hann_window(n_fft: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Periodic Hann window: torch.hann_window(n_fft) made on the CPU in
+    float32 and copied, bit for bit SEMamba's (`torch.hann_window(win_size)
+    .to(y.device)`), since the generator's phase input jumps by 2 pi where
+    a bin's imaginary part changes sign. Cached as `hamming_window` is."""
+    with torch.inference_mode(False):
+        return torch.hann_window(n_fft, periodic=True).to(device=device, dtype=dtype)
+
+
+WINDOWS = {"hamming": hamming_window, "hann": hann_window}
+
+
+def analysis_window(name: str, n_fft: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The cached periodic window `name` ('hamming' or 'hann', as
+    `DSPConfig.window` names it)."""
+    if name not in WINDOWS:
+        raise ValueError(f"unknown window {name!r}; known: {sorted(WINDOWS)}")
+    return WINDOWS[name](n_fft, dtype, device)
 
 
 def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -179,6 +201,20 @@ def power_uncompress(
     phase = torch.atan2(im, re)
     umag = mag ** (1.0 / exponent)
     return torch.complex(umag * torch.cos(phase), umag * torch.sin(phase))
+
+
+def mag_pha_compress(spec: torch.Tensor, exponent: float = 0.3):
+    """complex [..., T, F] -> (|X|**exponent, angle(X)), each real [..., T, F]:
+    SEMamba's `mag_phase_stft` without its `addeps` option."""
+    re, im = spec.real, spec.imag
+    return torch.sqrt(re * re + im * im) ** exponent, torch.atan2(im, re)
+
+
+def mag_pha_uncompress(mag: torch.Tensor, pha: torch.Tensor,
+                       exponent: float = 0.3) -> torch.Tensor:
+    """(compressed magnitude, phase) -> complex mag**(1/exponent) e^{i pha}."""
+    umag = mag ** (1.0 / exponent)
+    return torch.complex(umag * torch.cos(pha), umag * torch.sin(pha))
 
 
 def rms_normalize(noisy: torch.Tensor, clean: torch.Tensor | None = None):

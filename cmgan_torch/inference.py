@@ -1,4 +1,9 @@
-"""End-to-end enhancement: wav -> STFT -> TSCNet -> iSTFT -> wav.
+"""End-to-end enhancement: wav -> STFT -> generator -> iSTFT -> wav.
+
+The generator is the one the config's model names: CMGAN's TSCNet
+(`ModelConfig`: compressed real and imaginary parts in and out) or SEMamba
+(`SEMambaConfig`, models/semamba.py: compressed magnitude and phase in and
+out). `enhance_tensor` takes the signal path from the model.
 
 Track handling follows the CMGAN reference recipe: RMS-normalize from
 the noisy track, wrap-pad to a hop multiple, and fold tracks longer than
@@ -20,9 +25,11 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
-from cmgan_torch.config import CMGANConfig, DSPConfig
-from cmgan_torch.dsp import istft, power_compress, power_uncompress, stft
+from cmgan_torch.config import CMGANConfig, DSPConfig, ModelConfig, SEMambaConfig
+from cmgan_torch.dsp import (analysis_window, istft, mag_pha_compress, mag_pha_uncompress,
+                             power_compress, power_uncompress, stft)
 from cmgan_torch.models import TSCNet
 from cmgan_torch.models.layers import torch_default_init_
 from cmgan_torch.parallel import attach, collectives, shard_batch
@@ -67,53 +74,87 @@ def bucket_pad(noisy: np.ndarray, hop: int, cut_len: int, bucket: int) -> np.nda
     return np.tile(noisy, reps)[:target]
 
 
+def build_generator(model_cfg: ModelConfig | SEMambaConfig, dtype=None,
+                    generator: torch.Generator | None = None) -> nn.Module:
+    """The generator a model config names, on the CPU: its weights drawn
+    from `generator` as its published code draws them (torch's defaults;
+    SEMamba's A_log, D and dt_proj biases as Mamba-1 draws them), or as
+    constructed where it is None. SEMamba's module is imported here, so a
+    CMGAN run imports and builds nothing of it."""
+    if isinstance(model_cfg, ModelConfig):
+        model = TSCNet(model_cfg, dtype=dtype)
+        if generator is not None:
+            torch_default_init_(model, generator)
+        return model
+    if isinstance(model_cfg, SEMambaConfig):
+        from cmgan_torch.models.semamba import SEMamba
+
+        model = SEMamba(model_cfg, dtype=dtype)
+        if generator is not None:
+            model.seeded_init_(generator)
+        return model
+    raise TypeError(f"no generator for a model config of type {type(model_cfg).__name__}")
+
+
 def load_generator(cfg: CMGANConfig, weights, dtype=None, device="cuda",
-                   seed: int = 0) -> TSCNet:
-    """The generator in eval mode on `device`, from `weights`:
-    - a TSCNet already there, in eval mode: returned as it is, so every
-      caller given it shares its parameters (dtype and seed do not apply);
+                   seed: int = 0) -> nn.Module:
+    """The generator of `cfg.model` (`build_generator`) in eval mode on
+    `device`, from `weights`:
+    - a generator already there, in eval mode, with the config's model:
+      returned as it is, so every caller given it shares its parameters
+      (dtype and seed do not apply);
     - a reference-layout state_dict (for example from
       `convert.state_dict_from_flax` or a `.pt`): loaded with strict=True;
-    - None: torch-default weights drawn from `seed`.
+    - None: weights drawn from `seed` (`build_generator`).
     Raises without CUDA for a CUDA device: there is no fallback to the CPU.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-    if isinstance(weights, TSCNet):
+    if isinstance(weights, nn.Module):
         where = next(weights.parameters()).device
-        if where.type != device.type or weights.cfg != cfg.model or weights.training:
-            raise ValueError(f"the TSCNet must be in eval mode on {device} with the config's "
-                             f"model; it is on {where}, training={weights.training}")
+        if where.type != device.type or getattr(weights, "cfg", None) != cfg.model \
+                or weights.training:
+            raise ValueError(f"the {type(weights).__name__} must be in eval mode on {device} "
+                             f"with the config's model; it is on {where}, "
+                             f"training={weights.training}")
         return weights
-    model = TSCNet(cfg.model, dtype=dtype)
     if weights is None:
-        torch_default_init_(model, torch.Generator().manual_seed(seed))
+        model = build_generator(cfg.model, dtype, torch.Generator().manual_seed(seed))
     else:
+        model = build_generator(cfg.model, dtype)
         model.load_state_dict(weights, strict=True)
     return model.to(device).eval()
 
 
-def enhance_tensor(model: TSCNet, dsp: DSPConfig, x: torch.Tensor,
+def enhance_tensor(model: nn.Module, dsp: DSPConfig, x: torch.Tensor,
                    dft_impl: str = "fft") -> torch.Tensor:
     """The device part of an enhancement call: segments x [B, L] (float32,
     on the model's device) -> enhanced [B, (T-1) * hop], L itself when hop
-    divides it. STFT, power compression, the generator, uncompression of
-    its float32 outputs (the generator returns float32 under bf16 too, as
-    the JAX pipeline casts them) and the iSTFT, all on tensors: nothing is
-    read back, so calls queue on the device and a CUDA graph can capture
-    them. Callers pick the grad mode (`Enhancer` and streaming run it under
-    `torch.inference_mode`)."""
+    divides it. STFT with `dsp.window`, the generator's signal path and the
+    iSTFT, all on tensors: nothing is read back, so calls queue on the
+    device and a CUDA graph can capture them. TSCNet: power compression,
+    the generator, uncompression of its float32 outputs (the generator
+    returns float32 under bf16 too, as the JAX pipeline casts them).
+    SEMamba (`model.mag_pha`): the compressed magnitude and the phase in,
+    [B, 2, T, F], magnitude and phase out. Callers pick the grad mode
+    (`Enhancer` and streaming run it under `torch.inference_mode`)."""
     with span("cmgan.enhance.call"):
-        packed = power_compress(stft(x, dsp.n_fft, dsp.hop, dft_impl=dft_impl),
-                                dsp.compress_exponent)
-        est_real, est_imag = model(packed)
-        est = power_uncompress(est_real.float(), est_imag.float(), dsp.compress_exponent)
-        return istft(est, dsp.n_fft, dsp.hop, dft_impl=dft_impl)
+        window = analysis_window(dsp.window, dsp.n_fft, x.dtype, x.device)
+        spec = stft(x, dsp.n_fft, dsp.hop, window, dft_impl=dft_impl)
+        if getattr(model, "mag_pha", False):
+            mag, pha = mag_pha_compress(spec, dsp.compress_exponent)
+            mag, pha = model(torch.stack([mag, pha], dim=1))
+            est = mag_pha_uncompress(mag.float(), pha.float(), dsp.compress_exponent)
+        else:
+            est_real, est_imag = model(power_compress(spec, dsp.compress_exponent))
+            est = power_uncompress(est_real.float(), est_imag.float(), dsp.compress_exponent)
+        window = analysis_window(dsp.window, dsp.n_fft, torch.float32, x.device)
+        return istft(est, dsp.n_fft, dsp.hop, window, dft_impl=dft_impl)
 
 
 class Enhancer:
-    """Offline enhancement with one TSCNet.
+    """Offline enhancement with one generator (the config's model).
 
     state_dict: a reference-layout generator state_dict (for example from
     `convert.state_dict_from_flax` or a `.pt`); None draws torch-default

@@ -1,4 +1,4 @@
-"""Single-pass fused LayerNorm over the last axis.
+"""Single-pass fused LayerNorm over the last axis, and RMSNorm.
 
 `fused_layernorm(x, scale, bias, eps)` normalises x [..., C] with fp32
 statistics in the E[x^2] - E[x]^2 form, eps inside the rsqrt and an
@@ -19,6 +19,11 @@ on CUDA when autograd is not recording (enhancement, streaming,
 validation): at x [518736, 64] fp32 the kernel took 0.095 ms against
 `F.layer_norm`'s 0.750 on an H100 (PERF.md). Training keeps ATen's
 LayerNorm for its fused backward.
+
+`fused_rmsnorm(x, weight, eps)` is SEMamba's RMSNorm (x * rsqrt(E[x^2] +
+eps) * weight), float32, forward only: one launch of its own kernel
+(`csrc/fused_rmsnorm.cu`, a library apart, so CMGAN builds nothing of it)
+for CUDA tensors, `_rms_reference` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,9 +37,11 @@ import torch
 from cmgan_torch.ops import _build
 
 KERNEL = "fused_layernorm"
+RMS_KERNEL = "fused_rmsnorm"
 
 # Kernel launches; the wrapper adds one per launch. Callers reset to 0.
 launches = 0
+rms_launches = 0
 # Calls the wrapper served with the plain version (CPU tensors).
 plain_calls = 0
 
@@ -180,3 +187,51 @@ def fused_layernorm(x, scale, bias, eps: float = 1e-5):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
         return _FusedLayerNorm.apply(x, scale, bias, float(eps))
     return _forward(x, scale, bias, float(eps))
+
+
+def _rms_reference(x, weight, eps: float):
+    """RMSNorm's plain version: the kernel's math."""
+    return x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps) * weight
+
+
+@functools.lru_cache(maxsize=None)
+def _rms_kernel():
+    lib = _build.load(RMS_KERNEL)
+    fn = lib.cmgan_fused_rmsnorm_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.cmgan_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cmgan_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fused_rmsnorm(x, weight, eps: float = 1e-5):
+    """RMSNorm over the last axis: x [..., C] float32, weight [C]. Forward
+    only. On CUDA, C a multiple of 4 up to 512 and x contiguous (else it
+    raises)."""
+    global rms_launches
+    c = x.shape[-1]
+    if x.dtype != torch.float32 or weight.shape != (c,):
+        raise ValueError(f"x {x.dtype} {tuple(x.shape)}, weight {tuple(weight.shape)}: the "
+                         "norm takes float32 x [..., C] and weight [C]")
+    if x.device.type == "cpu":
+        return _rms_reference(x, weight, eps)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    w = weight.detach().float().contiguous()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = _rms_kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.cmgan_fused_rmsnorm_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                         x.numel() // c, c, eps, stream)
+    if rc != 0:
+        msg = lib.cmgan_cuda_error_string(rc).decode()
+        raise RuntimeError(f"fused_rmsnorm launch failed: CUDA error {rc} ({msg})")
+    rms_launches += 1
+    return y

@@ -39,3 +39,6 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: takes minutes on the CPU; deselected by -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA GPU and skips without one; on the card run "
+        "`python -m pytest tests -m card -q`")

@@ -131,6 +131,11 @@ def test_config_copy_matches_jax():
     for tcls, jcls in ((tcfg.DSPConfig, jcfg.DSPConfig), (tcfg.ModelConfig, jcfg.ModelConfig),
                        (tcfg.EvalConfig, jcfg.EvalConfig), (tcfg.TrainConfig, jcfg.TrainConfig),
                        (tcfg.MeshConfig, jcfg.MeshConfig)):
-        assert dataclasses.asdict(tcls()) == dataclasses.asdict(jcls()), tcls.__name__
+        ours = dataclasses.asdict(tcls())
+        if tcls is tcfg.DSPConfig:
+            # the port's one field the JAX package lacks (for SEMamba's Hann
+            # window): CMGAN's Hamming by default, the JAX package's fixed window
+            assert ours.pop("window") == "hamming"
+        assert ours == dataclasses.asdict(jcls()), tcls.__name__
     assert tcfg.ModelConfig().dim_head == jcfg.ModelConfig().dim_head == 16
     assert tcfg.DSPConfig().num_frames(16 * SR) == 2561

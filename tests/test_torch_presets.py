@@ -44,7 +44,10 @@ ATOL, RTOL = 2e-4, 1e-3
 ])
 def test_preset_equals_jax_field_by_field(kw):
     ours, theirs = tcfg.long_form_48k(**kw), jcfg.long_form_48k(**kw)
-    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    fields = dataclasses.asdict(ours)
+    # the port's one field the JAX package lacks: the window, Hamming as there
+    assert fields["dsp"].pop("window") == "hamming"
+    assert fields == dataclasses.asdict(theirs)
     seq = kw.get("seq_parallel", 1) > 1
     assert ours.dsp.dft_impl == ("matmul" if seq else "fft")
     assert ours.model.attention_impl == ("seq" if seq else "auto")
